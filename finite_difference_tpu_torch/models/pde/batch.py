@@ -1,0 +1,486 @@
+"""Batched barrier PDE pricing — the port's main path.
+
+Counterpart of ``finite_difference_tpu.models.pde.batch`` for the barrier
+sweep: a struct-of-arrays batch of discretely monitored barrier trades
+(each with its own grid, dynamics, barrier and monitor schedule) priced in
+one pass, with price/delta/gamma/vega/theta on the device.
+
+    build_trade_batch -> price_barrier_batch -> _run_batch_driver
+        -> price_batch_kernel -> spike.cn_barrier_solve_spike (CUDA kernel)
+                              or stepper.cn_solve (solver="scan")
+
+Differences from the JAX package in this slice: single device only (no
+mesh, no packed transfers); ``solver`` is ``"scan"`` or ``"spike"`` (the
+spectral route comes later); ``greeks_mode="ad"`` raises
+``NotImplementedError``; ``build_trade_batch`` has no native builder.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields as dc_fields
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...device import DEFAULT_DEVICE, resolve_device
+from ...ops.stencils import nonuniform_central
+from .grid import _PPF_99999, barrier_log_grid, monitor_aligned_schedule, uniform_schedule
+from .spike import cn_barrier_solve_spike, spike_p
+from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+# the most (theta, dt) runs a schedule may have and still take the SPIKE
+# route: one kernel launch per run
+SPIKE_MAX_SEGMENTS = 64
+
+
+@dataclass
+class BarrierTradeBatch:
+    """Struct-of-arrays batch of discretely monitored barrier trades.
+
+    Every field is a torch tensor with leading dim B; schedule fields are
+    (B, n_steps). Build with :func:`build_trade_batch` or, from another
+    batch's numpy arrays, :func:`batch_from_numpy`.
+    """
+
+    x_min: torch.Tensor
+    dx: torch.Tensor
+    strike: torch.Tensor
+    is_call: torch.Tensor
+    sigma: torch.Tensor
+    r: torch.Tensor
+    b: torch.Tensor
+    q: torch.Tensor
+    lower: torch.Tensor
+    upper: torch.Tensor
+    has_lower: torch.Tensor
+    has_upper: torch.Tensor
+    rebate: torch.Tensor
+    rebate_at_hit: torch.Tensor
+    rebate_rate: torch.Tensor
+    s_eff: torch.Tensor  # spot for price interpolation (escrowed)
+    spot: torch.Tensor  # spot for greek stencils
+    # schedule
+    dt: torch.Tensor
+    theta: torch.Tensor
+    tau_next: torch.Tensor
+    monitor: torch.Tensor
+    div_amount: torch.Tensor
+    reset_lambda: torch.Tensor
+
+    @property
+    def batch_size(self) -> int:
+        return self.x_min.shape[0]
+
+    @property
+    def n_steps(self) -> int:
+        return self.dt.shape[1]
+
+    def _map(self, fn) -> "BarrierTradeBatch":
+        return BarrierTradeBatch(**{f.name: fn(getattr(self, f.name)) for f in dc_fields(self)})
+
+    def to(self, device) -> "BarrierTradeBatch":
+        return self._map(lambda x: x.to(device))
+
+    def astype(self, dtype: torch.dtype) -> "BarrierTradeBatch":
+        """Floating fields cast to ``dtype``; bool fields unchanged."""
+        return self._map(lambda x: x.to(dtype) if x.is_floating_point() else x)
+
+    def __getitem__(self, sl: slice) -> "BarrierTradeBatch":
+        return self._map(lambda x: x[sl])
+
+
+FIELD_NAMES = tuple(f.name for f in dc_fields(BarrierTradeBatch))
+
+
+def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> BarrierTradeBatch:
+    """The port's batch from numpy arrays keyed by field name.
+
+    Carries state across from the JAX package: pass a JAX
+    ``BarrierTradeBatch``'s fields as numpy arrays. Keys the port's batch
+    does not have (the JAX batch's spectral ``sp_*`` layout) are ignored.
+    """
+    dev = resolve_device(device)
+    return BarrierTradeBatch(
+        **{k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
+    )
+
+
+def build_trade_batch(
+    spots: Sequence[float],
+    strikes: Sequence[float],
+    sigmas: Sequence[float],
+    t_expiry: Sequence[float],
+    r: Sequence[float],
+    b: Sequence[float],
+    is_call: Sequence[bool],
+    n_time_steps: int,
+    monitor_times: Sequence[Sequence[float]],
+    lower: Optional[Sequence[Optional[float]]] = None,
+    upper: Optional[Sequence[Optional[float]]] = None,
+    q: Optional[Sequence[float]] = None,
+    rebate: Optional[Sequence[float]] = None,
+    rebate_at_hit: Optional[Sequence[bool]] = None,
+    rannacher_steps: int = 2,
+    num_space_nodes: Optional[int] = None,
+    dtype: torch.dtype = torch.float64,
+    use_native: bool = True,
+    monitor_aligned: bool = False,
+    steps_per_interval: int = 10,
+    device=DEFAULT_DEVICE,
+) -> BarrierTradeBatch:
+    """Host-side canonicalisation: per-trade grids (production barrier grid
+    policy) + per-trade monitor schedules into fixed-shape tensors on ``device``.
+
+    ``num_space_nodes``: static node-count bucket; defaults to the
+    reference's ~4.265*N_time rule evaluated once (it is trade-independent).
+    ``use_native`` is accepted for signature compatibility and ignored: the
+    port has only the pure-numpy loop. The JAX package's C++ builder, which
+    comes in a later slice, matches it to rounding: its ``tau_next`` differs
+    by a few roundings (<= 1e-14 relative) on non-dyadic dt (ROADMAP.md,
+    queue 3).
+    ``monitor_aligned``: use :func:`grid.monitor_aligned_schedule`
+    (per-interval constant dt, monitors exactly on step boundaries) instead
+    of :func:`grid.uniform_schedule`; ``n_time_steps`` then acts as the
+    target-dt divisor T/n. Trades must share a monitor-interval structure.
+    """
+    del use_native
+    dev = resolve_device(device)
+    np_dtype = _NP_DTYPES[dtype]
+    B = len(spots)
+    if num_space_nodes is None:
+        num_space_nodes = math.ceil(2.0 * _PPF_99999 * n_time_steps / 2.0)
+
+    z = lambda v, d: np.asarray(v if v is not None else [d] * B)
+    lower = z(lower, None)
+    upper = z(upper, None)
+    q = np.asarray(q if q is not None else np.zeros(B), dtype=np_dtype)
+    rebate = np.asarray(rebate if rebate is not None else np.zeros(B), dtype=np_dtype)
+    rebate_at_hit = np.asarray(
+        rebate_at_hit if rebate_at_hit is not None else np.zeros(B, dtype=bool)
+    )
+
+    cols: Dict[str, List] = {k: [] for k in (
+        "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
+        "reset_lambda",
+    )}
+    for i in range(B):
+        g = barrier_log_grid(
+            spot_eff=float(spots[i]),
+            strike=float(strikes[i]),
+            sigma=float(sigmas[i]),
+            t_expiry=float(t_expiry[i]),
+            num_time_steps=n_time_steps,
+            lower_barrier=lower[i],
+            upper_barrier=upper[i],
+            num_space_nodes=num_space_nodes,
+        )
+        cols["x_min"].append(g.x_min)
+        cols["dx"].append(g.dx)
+        if monitor_aligned:
+            sch = monitor_aligned_schedule(
+                float(t_expiry[i]), monitor_times[i],
+                steps_per_interval=steps_per_interval,
+                target_dt=float(t_expiry[i]) / n_time_steps,
+                rannacher_steps=rannacher_steps,
+            )
+        else:
+            sch = uniform_schedule(
+                float(t_expiry[i]), n_time_steps, rannacher_steps,
+                monitor_times[i],
+            )
+        cols["dt"].append(sch.dt)
+        cols["theta"].append(sch.theta)
+        cols["tau_next"].append(sch.tau_next)
+        cols["monitor"].append(sch.monitor)
+        cols["div_amount"].append(sch.div_amount)
+        cols["reset_lambda"].append(sch.reset_lambda)
+
+    f = lambda v: np.asarray(v, dtype=np_dtype)
+    arrays = dict(
+        x_min=f(cols["x_min"]),
+        dx=f(cols["dx"]),
+        strike=f(strikes),
+        is_call=np.asarray(is_call, dtype=bool),
+        sigma=f(sigmas),
+        r=f(r),
+        b=f(b),
+        q=f(q),
+        lower=f([x if x is not None else 0.0 for x in lower]),
+        upper=f([x if x is not None else 0.0 for x in upper]),
+        has_lower=np.asarray([x is not None for x in lower]),
+        has_upper=np.asarray([x is not None for x in upper]),
+        rebate=rebate,
+        rebate_at_hit=rebate_at_hit,
+        rebate_rate=f(b),
+        s_eff=f(spots),
+        spot=f(spots),
+        dt=np.stack(cols["dt"]).astype(np_dtype),
+        theta=np.stack(cols["theta"]).astype(np_dtype),
+        tau_next=np.stack(cols["tau_next"]).astype(np_dtype),
+        monitor=np.stack(cols["monitor"]),
+        div_amount=np.stack(cols["div_amount"]).astype(np_dtype),
+        reset_lambda=np.stack(cols["reset_lambda"]),
+    )
+    return batch_from_numpy(arrays, dev)
+
+
+def _solve_scan(batch: BarrierTradeBatch, sigma, n_nodes: int):
+    """The CN scan over the whole batch; ``sigma`` may be bumped."""
+    grid = CNGrid(batch.x_min, batch.dx)
+    dyn = CNDynamics(
+        strike=batch.strike, is_call=batch.is_call, sigma=sigma,
+        r=batch.r, b=batch.b, q=batch.q,
+    )
+    bar = BarrierSpec(
+        lower=batch.lower, upper=batch.upper,
+        has_lower=batch.has_lower, has_upper=batch.has_upper,
+        rebate=batch.rebate, rebate_at_hit=batch.rebate_at_hit,
+        rebate_rate=batch.rebate_rate,
+    )
+    sch = CNSchedule(
+        dt=batch.dt, theta=batch.theta, tau_next=batch.tau_next,
+        monitor=batch.monitor, reset_lambda=batch.reset_lambda,
+    )
+    return cn_solve(grid, dyn, sch, n_nodes, barrier=bar)
+
+
+def _resolve_dv_sigma(dv_sigma, sigma: torch.Tensor) -> float:
+    """Dtype-aware one-sided vega bump step (used when ``dv_sigma=None``).
+
+    The bump differences two full solves, so the step must clear the
+    solver's own noise floor: 1e-4 at f64 (solve noise ~1e-12); one full
+    vol point, 1e-2, at f32, whose solve carries ~1e-4 relative price
+    noise that a 1e-4 bump would amplify 1e4x into the vega."""
+    if dv_sigma is not None:
+        return dv_sigma
+    return 1e-4 if sigma.dtype == torch.float64 else 1e-2
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Row-wise linear interpolation, ``jnp.interp`` semantics: x (B,),
+    xp/fp (B, N) with xp ascending; values outside [xp0, xp_last] clamp
+    to the end values."""
+    n = xp.shape[1]
+    i = torch.searchsorted(xp, x[:, None], right=True).clamp(1, n - 1)
+    x0, x1 = torch.gather(xp, 1, i - 1)[:, 0], torch.gather(xp, 1, i)[:, 0]
+    f0, f1 = torch.gather(fp, 1, i - 1)[:, 0], torch.gather(fp, 1, i)[:, 0]
+    f = f0 + ((x - x0) / (x1 - x0)) * (f1 - f0)
+    f = torch.where(x < xp[:, 0], fp[:, 0], f)
+    return torch.where(x > xp[:, -1], fp[:, -1], f)
+
+
+def price_batch_kernel(
+    batch: BarrierTradeBatch,
+    n_nodes: int,
+    dv_sigma: Optional[float] = None,
+    with_greeks: bool = True,
+    greeks_mode: str = "bump",
+    solver: str = "scan",
+    spike_segments=None,
+) -> Dict[str, torch.Tensor]:
+    """Batch on one device -> dict of (B,) tensors on that device.
+
+    Delta/gamma come from the non-uniform central stencil at spot; theta
+    from the BS PDE identity (discrete_barrier_fdm_pricer.py:843-870); vega
+    from the reference's one-sided sigma bump, a second full solve at
+    sigma+dv (fd_american_equity.py:1014-1035).
+
+    ``solver="spike"`` runs the SPIKE march (the CUDA kernel on a card);
+    ``spike_segments`` is the ``(segments, set_defs, ...)`` tuple from
+    :func:`_spike_schedule_impl`, None meaning the uniform-dt default.
+    ``greeks_mode="ad"`` is not ported yet and raises NotImplementedError.
+
+    The post-processing (interpolation, stencil, theta identity, vega
+    difference) runs at float64 on node positions recomputed at float64 from
+    the grid parameters, whatever the solve's dtype, and the outputs are cast
+    back to it. At float32 the rounded nodes (about 1.3e-5 at S ~ 220, with
+    node spacing ~0.4 at N=1024) are otherwise amplified by the second
+    difference to ~1e-2 of gamma and theta. At float64 this is the JAX
+    package's arithmetic unchanged: the nodes are the solver's own.
+    """
+    if with_greeks and greeks_mode == "ad":
+        raise NotImplementedError("greeks_mode='ad' is not ported yet; use 'bump'")
+    if greeks_mode not in ("bump", "ad"):
+        raise ValueError(f"unknown greeks_mode {greeks_mode!r}")
+    dv_sigma = _resolve_dv_sigma(dv_sigma, batch.sigma)
+    if solver == "spike":
+        seg, sd = spike_segments[:2] if spike_segments is not None else (None, None)
+        solve = lambda sig: cn_barrier_solve_spike(
+            batch, sig, n_nodes=n_nodes, n_steps=batch.n_steps,
+            segments=seg, set_defs=sd,
+        )
+    elif solver == "scan":
+        solve = lambda sig: _solve_scan(batch, sig, n_nodes)[0]
+    else:
+        raise ValueError(f"unknown solver {solver!r}; expected 'scan' or 'spike'")
+
+    dtype = batch.sigma.dtype
+    f64 = lambda x: x.to(torch.float64)
+    i = torch.arange(n_nodes, dtype=torch.float64, device=batch.x_min.device)
+    s = torch.exp(f64(batch.x_min)[:, None] + i[None, :] * f64(batch.dx)[:, None])
+    spot = f64(batch.spot)
+
+    v = f64(solve(batch.sigma))
+    price = _interp(f64(batch.s_eff), s, v)
+    out = {"price": price}
+    if with_greeks:
+        v_up = f64(solve(batch.sigma + dv_sigma))
+        out["vega"] = (_interp(f64(batch.s_eff), s, v_up) - price) / (dv_sigma * 100.0)
+        idx = torch.argmin(torch.abs(s - spot[:, None]), dim=1).clamp(1, n_nodes - 2)
+        delta, gamma = nonuniform_central(s, v, idx)
+        out["delta"] = delta
+        out["gamma"] = gamma
+        out["theta"] = -(
+            0.5 * f64(batch.sigma) ** 2 * spot**2 * gamma
+            + (f64(batch.b) - f64(batch.q)) * spot * delta
+            - f64(batch.r) * price
+        )
+    return {k: x.to(dtype) for k, x in out.items()}
+
+
+def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
+    """Static SPIKE segmentation of the batch, or None if ineligible.
+
+    The march runs one launch per run of steps sharing a (theta, dt) pair,
+    so any piecewise-constant schedule fits: uniform layouts and the
+    monitor-aligned per-interval-dt layouts. Eligibility:
+
+    - theta pattern shared across trades with values in {1.0, 0.5} (dt
+      values may differ per trade; only the step indices where any trade's
+      dt changes must be shared),
+    - at most :data:`SPIKE_MAX_SEGMENTS` runs,
+    - a grid the port's SPIKE partitioning admits for some P
+      (:func:`spike.spike_p`). There is no batch-size rule.
+
+    Returns ``(segments, set_defs, div_steps, reset_steps)``: segments
+    ``((k0, k1, set_idx), ...)``, set_defs ``((theta, k_col), ...)``
+    deduplicated by (theta, dt-column); the dividend and lambda-reset break
+    columns are reported as the JAX package does (the barrier march ignores
+    them, as the barrier scan does).
+    """
+    if spike_p(n_nodes) is None:
+        return None
+    # the (B, n_steps) comparisons run where the batch lives; only
+    # (n_steps,) reductions come to the host (pulling the whole schedule
+    # cost ~50 ms per call at B=4096 x 512 steps with the batch on an H100)
+    host = lambda x: x.detach().cpu().numpy()
+    th, dt = batch.theta, batch.dt
+    if not bool((th == th[:1]).all()):
+        return None
+    th0 = host(th[0]).astype(float)
+    if not np.all((th0 == 1.0) | (th0 == 0.5)):
+        return None
+    n = dt.shape[1]
+    # dividend jumps fire at the END of their step -> the step after is a
+    # segment start; lambda resets apply BEFORE their step
+    div_steps = tuple(int(k) for k in np.flatnonzero(host((batch.div_amount != 0).any(dim=0))))
+    reset_cols = host(batch.reset_lambda.any(dim=0))
+    reset_steps = tuple(int(k) for k in np.flatnonzero(reset_cols) if k > 0)
+    event_breaks = {k + 1 for k in div_steps if k + 1 < n}
+    event_breaks.update(reset_steps)
+    col_change = th0[1:] != th0[:-1]
+    if dt.shape[0] > 0:
+        col_change = col_change | host((dt[:, 1:] != dt[:, :-1]).any(dim=0))
+    break_set = set((np.flatnonzero(col_change) + 1).tolist())
+    break_set |= event_breaks
+    breaks = [0] + sorted(break_set - {0})
+    if len(breaks) > SPIKE_MAX_SEGMENTS:
+        return None
+    breaks.append(n)
+    set_defs: List[Tuple[float, int]] = []
+    segments = []
+    for k0, k1 in zip(breaks[:-1], breaks[1:]):
+        idx = None
+        for i, (t_i, kc_i) in enumerate(set_defs):
+            if t_i == th0[k0] and torch.equal(dt[:, kc_i], dt[:, k0]):
+                idx = i
+                break
+        if idx is None:
+            set_defs.append((float(th0[k0]), int(k0)))
+            idx = len(set_defs) - 1
+        segments.append((int(k0), int(k1), idx))
+    return tuple(segments), tuple(set_defs), div_steps, reset_steps
+
+
+def _spike_eligible(batch: BarrierTradeBatch, n_nodes: int) -> bool:
+    """True when the batch fits the SPIKE march's schedule family."""
+    return _spike_schedule_impl(batch, n_nodes) is not None
+
+
+def _run_batch_driver(
+    batch: BarrierTradeBatch,
+    n_nodes: int,
+    dv_sigma: Optional[float],
+    with_greeks: bool,
+    max_chunk: Optional[int],
+    greeks_mode: str = "bump",
+    solver: str = "scan",
+    spike_segments=None,
+) -> Dict[str, torch.Tensor]:
+    """Single-device driver: price the batch in chunks of ``max_chunk`` trades.
+
+    Chunking bounds the scan's per-step working set (its (B, N) temporaries
+    per doubling pass). The SPIKE march keeps each trade's grid in shared
+    memory and streams its solver tensors, so the spike route runs the
+    whole batch as one launch per segment.
+    """
+    B = batch.batch_size
+    chunk = None if solver == "spike" else max_chunk
+    run = lambda piece: price_batch_kernel(
+        piece, n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
+        greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
+    )
+    if chunk is None or B <= chunk:
+        return run(batch)
+    pieces = [run(batch[start : start + chunk]) for start in range(0, B, chunk)]
+    return {k: torch.cat([p[k] for p in pieces]) for k in pieces[0]}
+
+
+def price_barrier_batch(
+    batch: BarrierTradeBatch,
+    n_nodes: int,
+    dv_sigma: Optional[float] = None,
+    with_greeks: bool = True,
+    max_chunk: Optional[int] = 1024,
+    dtype: Optional[torch.dtype] = None,
+    greeks_mode: str = "bump",
+    solver: str = "auto",
+    device=DEFAULT_DEVICE,
+) -> Dict[str, torch.Tensor]:
+    """Price a trade batch on ``device``: dict of (B,) tensors
+    (price, and with greeks vega, delta, gamma, theta).
+
+    ``solver``: ``"spike"`` the SPIKE march (the hand-written CUDA kernel
+    on a card, its plain version on the CPU); ``"scan"`` the CN step loop;
+    ``"auto"`` (default) picks ``"spike"`` for an eligible batch on CUDA and
+    ``"scan"`` otherwise. Unlike the JAX package, ``"auto"`` never routes to
+    the spectral propagator (a later slice) and takes the spike route at
+    float64 too: the H100 runs the kernel natively in double precision.
+    ``dtype`` casts the batch's floating fields first (float64 halves
+    ``max_chunk``, the same working-set budget); ``max_chunk=None`` forces
+    one pass.
+    """
+    dev = resolve_device(device)
+    batch = batch.to(dev)
+    if dtype is not None:
+        batch = batch.astype(dtype)
+        if max_chunk is not None and dtype.itemsize > 4:
+            max_chunk = max(1, max_chunk // 2)
+    if solver not in ("auto", "scan", "spike"):
+        raise ValueError(f"unknown solver {solver!r}; expected 'auto', 'scan' or 'spike'")
+    sched = _spike_schedule_impl(batch, n_nodes) if solver != "scan" else None
+    if solver == "auto":
+        solver = "spike" if dev.type == "cuda" and sched is not None else "scan"
+    if solver == "spike" and sched is None:
+        raise ValueError(
+            "batch is not spike-eligible (needs a piecewise-constant "
+            "(theta, dt) schedule shared across trades — uniform or "
+            "monitor-aligned layouts — and a grid the SPIKE partitioning "
+            "admits); use solver='auto'"
+        )
+    return _run_batch_driver(
+        batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
+        solver, sched,
+    )

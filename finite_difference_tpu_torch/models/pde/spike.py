@@ -1,0 +1,429 @@
+"""SPIKE (partitioned Thomas) Crank–Nicolson march for barrier batches.
+
+Counterpart of the SPIKE part of ``finite_difference_tpu/models/pde/
+pallas_kernel.py``: the host prep ``_per_row_thomas``, ``_chunk_solve`` and
+``_build_solver_set``; ``cn_barrier_solve_spike`` (the body of
+``_cn_barrier_solve_spike_jit``, European only, no dividend jump); and the
+European branch of the Pallas kernel ``_kernel_spike``, which here is the
+CUDA kernel ``csrc/spike_march.cu`` with :func:`spike_march_reference` as
+its plain PyTorch version.
+
+Each step's implicit tridiagonal solve splits the n_int interior rows into P
+chunks of m rows. Each chunk runs its own Thomas chain; the chunks are
+coupled through the 2P-unknown SPIKE interface system, whose (per segment
+constant) inverse is precomputed here, so a step's interface solve is one
+2P x 2P matvec.
+
+Layout. Interior row g = j*m + ii (chunk j, in-chunk row ii) is stored at
+position r = ii*P + j of a trade's (n_pad,) row, n_pad = m*P; trades are
+the leading axis, so prepared fields are (B, n_pad). With P = 32 a warp
+holds one trade and lane j walks chunk j: each band ii is one coalesced
+row read. Rows g >= n_int are identity pad rows pinned to 0, all in the
+tail of chunk P-1 (at least one exists by the choice of m), so the
+global-last row's in-chunk upper neighbour is always a zero pad and its
+boundary coupling is folded into the right-hand side.
+
+P is this port's own parameter: :func:`spike_p` takes the largest of 32,
+16 and 8 that the grid's shape admits (32 for the 1024-node main path).
+Unlike the TPU kernel, P need not be a multiple of 8 and the batch need
+not be a multiple of 128: the CUDA kernel masks a ragged last block.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ... import kernels
+
+P_CANDIDATES = (32, 16, 8)
+
+# column order of SpikePrep.trade and SpikePrep.coef (the kernel reads the same)
+TRADE_COLS = (
+    "strike", "is_call", "r", "growth_rate", "rebate", "rebate_at_hit",
+    "rebate_rate", "s_min", "s_max", "omask_lo", "omask_hi",
+)
+COEF_COLS = ("bl", "bc", "bu", "al", "au")
+FIELD_ROWS = ("w", "af", "ab", "vsp", "wsp")
+
+
+def spike_shape(n_nodes: int, P: int) -> Tuple[int, int, int]:
+    """(n_int, m, n_pad) of the SPIKE partitioning; raises if it does not fit."""
+    if not 1 <= P <= 32:
+        raise ValueError(f"p_chunks must be in [1, 32] (one warp per trade): {P}")
+    n_int = n_nodes - 2
+    m = -(-(n_int + 1) // P)  # >= 1 pad row after the last interior row
+    n_pad = m * P
+    if (P - 1) * m >= n_int:
+        raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}, P={P}")
+    if n_pad - n_int > m:
+        raise ValueError("pad rows spill outside the last chunk")
+    return n_int, m, n_pad
+
+
+def spike_p(n_nodes: int) -> Optional[int]:
+    """Largest P in :data:`P_CANDIDATES` that partitions an ``n_nodes`` grid."""
+    for P in P_CANDIDATES:
+        try:
+            spike_shape(n_nodes, P)
+        except ValueError:
+            continue
+        return P
+    return None
+
+
+@dataclass
+class SpikePrep:
+    """The prepared tensors one SPIKE march reads (all on one device, one dtype).
+
+    ``trade`` (B, 11) per-trade constants in :data:`TRADE_COLS` order;
+    ``coef`` (S, B, 5) explicit/implicit CN coefficients per solver set;
+    ``fields`` (S, 5, B, n_pad) per-row Thomas and spike vectors;
+    ``rinv`` (S, B, 2P, 2P) interface inverses stored [set, trade, column,
+    row]; ``omask`` (B, n_pad) knock-out mask; ``tau``/``mon`` (B, n_steps)
+    schedule; ``v0`` (B, n_pad) payoff and ``edge0`` (B, 2) its edge values.
+    """
+
+    trade: torch.Tensor
+    coef: torch.Tensor
+    fields: torch.Tensor
+    rinv: torch.Tensor
+    omask: torch.Tensor
+    tau: torch.Tensor
+    mon: torch.Tensor
+    v0: torch.Tensor
+    edge0: torch.Tensor
+    m: int
+    P: int
+    n_int: int
+    il: int  # band ii holding the global-last interior row (in chunk P-1)
+
+
+def _per_row_thomas(l, c, u):
+    """(w, af, ab) for the per-chunk tridiagonals; all (B, m, P)."""
+    w = torch.empty_like(c)
+    w_prev = torch.zeros_like(c[:, 0])
+    u_prev = torch.zeros_like(c[:, 0])
+    for ii in range(c.shape[1]):
+        w[:, ii] = 1.0 / (c[:, ii] - l[:, ii] * u_prev * w_prev)
+        w_prev, u_prev = w[:, ii], u[:, ii]
+    return w, -l * w, -u * w
+
+
+def _chunk_solve(w, af, ab, rhs):
+    """Solve the per-chunk tridiagonals for (B, m, P) right-hand sides."""
+    m = rhs.shape[1]
+    y = torch.empty_like(rhs)
+    d = torch.zeros_like(rhs[:, 0])
+    for ii in range(m):
+        d = w[:, ii] * rhs[:, ii] + af[:, ii] * d
+        y[:, ii] = d
+    x = torch.zeros_like(rhs[:, 0])
+    for ii in range(m - 1, -1, -1):
+        x = y[:, ii] + ab[:, ii] * x
+        y[:, ii] = x
+    return y
+
+
+def _build_solver_set(theta, dt, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
+    """One (theta, dt) solver set: (coef (B, 5), fields (5, B, n_pad), rinv (B, 2P, 2P)).
+
+    The 2P x 2P interface inverse is ``torch.linalg.inv`` at the prep's
+    float64, outside the kernel, as JAX calls ``jnp.linalg.inv`` outside
+    Pallas (the TPU version Newton-refines an f32 seed because the TPU's LU
+    is f32 only; the H100's float64 is native and needs no such step).
+    """
+    B = dt.shape[0]
+    a_l = -theta * dt * a_coef
+    a_c_diag = 1.0 - theta * dt * b_coef
+    a_u = -theta * dt * c_coef
+    col = lambda x: x[:, None, None]
+    l = torch.where(has_l, col(a_l), 0.0)  # (B, m, P)
+    c = torch.where(real, col(a_c_diag), 1.0)
+    u = torch.where(has_u, col(a_u), 0.0)
+    w, af, ab = _per_row_thomas(l, c, u)
+    # spike vectors: vsp_j = a_l A_j^{-1} e_0 (coupling to b_{j-1}),
+    # wsp_j = a_u A_j^{-1} e_{m-1} (coupling to t_{j+1}); chunk 0 has no
+    # left coupling, chunk P-1 no right coupling
+    e0 = torch.zeros_like(c)
+    e0[:, 0] = 1.0
+    em = torch.zeros_like(c)
+    em[:, m - 1] = 1.0
+    vsp = col(a_l) * _chunk_solve(w, af, ab, e0)
+    vsp[:, :, 0] = 0.0
+    wsp = col(a_u) * _chunk_solve(w, af, ab, em)
+    wsp[:, :, P - 1] = 0.0
+    # reduced interface system R u = tips in block ordering
+    # (u = [t_0..t_{P-1}, b_0..b_{P-1}], tips = [y_j[0], y_j[m-1]]):
+    #   t_j + vsp_j[0]   b_{j-1} + wsp_j[0]   t_{j+1} = y_j[0]
+    #   b_j + vsp_j[m-1] b_{j-1} + wsp_j[m-1] t_{j+1} = y_j[m-1]
+    R = torch.eye(2 * P, dtype=dt.dtype, device=dt.device).repeat(B, 1, 1)
+    j = torch.arange(1, P, device=dt.device)
+    R[:, j, P + j - 1] = vsp[:, 0, 1:]
+    R[:, P + j, P + j - 1] = vsp[:, m - 1, 1:]
+    j = torch.arange(P - 1, device=dt.device)
+    R[:, j, j + 1] = wsp[:, 0, : P - 1]
+    R[:, P + j, j + 1] = wsp[:, m - 1, : P - 1]
+    rinv = torch.linalg.inv(R).transpose(1, 2).contiguous()  # [trade, col, row]
+    coef = torch.stack(
+        [
+            (1.0 - theta) * dt * a_coef,
+            1.0 + (1.0 - theta) * dt * b_coef,
+            (1.0 - theta) * dt * c_coef,
+            a_l,
+            a_u,
+        ],
+        dim=1,
+    )
+    fields = torch.stack([x.reshape(B, m * P) for x in (w, af, ab, vsp, wsp)])
+    return coef, fields, rinv
+
+
+def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs) -> SpikePrep:
+    """Host prep of one SPIKE solve.
+
+    ``set_defs`` is ``((theta, k_col), ...)``: one solver set per entry,
+    with dt read from ``batch.dt[:, k_col]``.
+
+    The prep runs at float64 whatever the march's dtype (that of
+    ``batch.x_min``) and is rounded to it once at the end. At float32 the
+    per-chunk Thomas recursion and the 2P x 2P inverse would otherwise
+    perturb the discrete operator by many roundings, differently for sigma
+    and sigma + dv: on the benchmark trade set (CPU, B=48) the float64 prep
+    cut the f32 march's vega error against the f64 route from 4.8e-2 to
+    9.9e-3 and its price error from 1.7e-4 to 6.2e-5.
+    """
+    dtype, device = batch.x_min.dtype, batch.x_min.device
+    B, N = batch.x_min.shape[0], n_nodes
+    n_int, m, n_pad = spike_shape(N, P)
+    f = lambda x: x.to(torch.float64)
+    sigma = f(sigma)
+    r, b, q = f(batch.r), f(batch.b), f(batch.q)
+
+    i = torch.arange(N, dtype=torch.float64, device=device)
+    s = torch.exp(f(batch.x_min)[:, None] + i[None, :] * f(batch.dx)[:, None])
+    strike = f(batch.strike)
+    payoff = torch.where(
+        batch.is_call[:, None],
+        torch.clamp(s - strike[:, None], min=0.0),
+        torch.clamp(strike[:, None] - s, min=0.0),
+    )
+
+    sig2 = sigma * sigma
+    mu_x = (b - q) - 0.5 * sig2
+    dx = f(batch.dx)
+    alpha_c = 0.5 * sig2 / (dx * dx)
+    beta_adv = mu_x / (2.0 * dx)
+    a_coef = alpha_c - beta_adv
+    c_coef = alpha_c + beta_adv
+    b_coef = -2.0 * alpha_c - r
+
+    # chunk layout: interior row g = j*m + ii at position r = ii*P + j
+    ii = torch.arange(m, device=device)[:, None]
+    jj = torch.arange(P, device=device)[None, :]
+    g = jj * m + ii  # (m, P)
+    real = g < n_int
+    has_l = real & (ii > 0)
+    has_u = real & (ii < m - 1) & (g < n_int - 1)
+
+    sets = [
+        _build_solver_set(
+            theta, f(batch.dt[:, k_col]), a_coef, b_coef, c_coef,
+            has_l, has_u, real, m, P,
+        )
+        for theta, k_col in set_defs
+    ]
+    coef, fields, rinv = (torch.stack(x) for x in zip(*sets))
+
+    out_mask = (batch.has_lower[:, None] & (s <= f(batch.lower)[:, None])) | (
+        batch.has_upper[:, None] & (s >= f(batch.upper)[:, None])
+    )
+    g_flat = torch.clamp(g, max=n_int - 1).reshape(-1)
+    real_flat = real.reshape(-1)
+    to_rows = lambda full: torch.where(real_flat, full[:, 1 : N - 1][:, g_flat], 0.0)
+    trade = torch.stack(
+        [
+            strike, f(batch.is_call), r, b - q - r, f(batch.rebate),
+            f(batch.rebate_at_hit), f(batch.rebate_rate), s[:, 0], s[:, -1],
+            f(out_mask[:, 0]), f(out_mask[:, -1]),
+        ],
+        dim=1,
+    )
+    g_last = n_int - 1
+    out = lambda x: x.to(dtype).contiguous()
+    return SpikePrep(
+        trade=out(trade),
+        coef=out(coef),
+        fields=out(fields),
+        rinv=out(rinv),
+        omask=out(to_rows(f(out_mask))),
+        tau=out(batch.tau_next),
+        mon=out(batch.monitor),
+        v0=out(to_rows(payoff)),
+        edge0=out(torch.stack([payoff[:, 0], payoff[:, -1]], dim=1)),
+        m=m,
+        P=P,
+        n_int=n_int,
+        il=g_last % m,
+    )
+
+
+def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
+    """Plain PyTorch version of the kernel: march steps [k0, k1) with solver set t.
+
+    ``v`` (B, n_pad) and ``edges`` (B, 2) are the state entering step k0;
+    returns the state after step k1-1. Follows the European branch of the
+    TPU kernel ``_kernel_spike`` band by band.
+    """
+    B = v.shape[0]
+    m, P, il = prep.m, prep.P, prep.il
+    (strike, is_call, r, growth_rate, rebate, at_hit, rebate_rate,
+     s_min, s_max, omask_lo, omask_hi) = prep.trade.unbind(1)
+    is_call, at_hit = is_call != 0, at_hit != 0
+    omask_lo, omask_hi = omask_lo != 0, omask_hi != 0
+    bl, bc, bu, al, au = (x[:, None] for x in prep.coef[t].unbind(1))
+    w, af, ab, vsp, wsp = (x.view(B, m, P) for x in prep.fields[t])
+    rinv = prep.rinv[t]
+    out_mask = prep.omask.view(B, m, P) != 0
+    zero = torch.zeros_like(strike)
+
+    v = v.view(B, m, P).clone()
+    v_lo, v_hi = edges[:, 0], edges[:, 1]
+    for k in range(k0, k1):
+        tau = prep.tau[:, k]
+        growth = torch.exp(growth_rate * tau)
+        disc = torch.exp(-r * tau)
+        v_min_n = torch.where(is_call, zero, strike * disc - s_min * growth)
+        v_max_n = torch.where(is_call, s_max * growth - strike * disc, zero)
+
+        # band-streamed rhs + forward chain; cross-chunk neighbours only at
+        # the first and last band
+        first, last = v[:, 0], v[:, m - 1]
+        v_prev = torch.cat([v_lo[:, None], last[:, :-1]], dim=1)
+        up_fix = torch.roll(first, -1, dims=1)
+        v_cur = first
+        dp = torch.empty_like(v)
+        for ii in range(m):
+            v_next = v[:, ii + 1] if ii < m - 1 else up_fix
+            rhs = bc * v_cur + bl * v_prev + bu * v_next
+            if ii == 0:  # global row 0: implicit lower-boundary coupling
+                rhs[:, 0] = rhs[:, 0] - al[:, 0] * v_min_n
+            if ii == il:  # global-last row: its upper neighbour was a zero pad
+                rhs[:, P - 1] = rhs[:, P - 1] + (bu[:, 0] * v_hi - au[:, 0] * v_max_n)
+            elif ii > il:  # pad rows
+                rhs[:, P - 1] = 0.0
+            d = w[:, 0] * rhs if ii == 0 else w[:, ii] * rhs + af[:, ii] * d
+            dp[:, ii] = d
+            v_prev, v_cur = v_cur, v_next
+        y_bot = d
+        x = d
+        for ii in range(m - 2, -1, -1):
+            x = dp[:, ii] + ab[:, ii] * x
+            dp[:, ii] = x
+        y_top = x
+
+        # 2P interface solve with the precomputed inverse, in the kernel's order
+        u = rinv[:, 0] * y_top[:, :1]
+        u = u + rinv[:, P] * y_bot[:, :1]
+        for j in range(1, P):
+            u = u + rinv[:, j] * y_top[:, j : j + 1]
+            u = u + rinv[:, P + j] * y_bot[:, j : j + 1]
+        col0 = torch.zeros_like(u[:, :1])
+        bprev = torch.cat([col0, u[:, P : 2 * P - 1]], dim=1)  # b_{j-1}
+        tnext = torch.cat([u[:, 1:P], col0], dim=1)  # t_{j+1}
+
+        # spike correction + KO projection
+        mon = prep.mon[:, k] != 0
+        rebate_pv = torch.where(at_hit, rebate, rebate * torch.exp(-rebate_rate * tau))
+        xr = dp - bprev[:, None, :] * vsp - tnext[:, None, :] * wsp
+        v = torch.where(mon[:, None, None] & out_mask, rebate_pv[:, None, None], xr)
+        v_lo = torch.where(mon & omask_lo, rebate_pv, v_min_n)
+        v_hi = torch.where(mon & omask_hi, rebate_pv, v_max_n)
+    return v.reshape(B, m * P), torch.stack([v_lo, v_hi], dim=1)
+
+
+def spike_march(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
+    """One segment of the march: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. There is no fallback between the two: a kernel
+    that fails to build or launch raises."""
+    if v.device.type == "cuda":
+        return kernels.spike_march_cuda(prep, t, v, edges, k0, k1)
+    if v.device.type == "cpu":
+        return spike_march_reference(prep, t, v, edges, k0, k1)
+    raise ValueError(f"spike_march: unsupported device {v.device}")
+
+
+def default_segments(n_steps: int, rannacher_steps: int = 2):
+    """(segments, set_defs) of a globally uniform dt with a Rannacher prefix."""
+    n_rann = min(rannacher_steps, n_steps)
+    set_defs, segments = [], []
+    if n_rann > 0:
+        set_defs.append((1.0, 0))
+        segments.append((0, n_rann, 0))
+    if n_steps > n_rann:
+        set_defs.append((0.5, 0))
+        segments.append((n_rann, n_steps, len(set_defs) - 1))
+    return tuple(segments), tuple(set_defs)
+
+
+def cn_barrier_solve_spike(
+    batch,
+    sigma,
+    n_nodes: int,
+    n_steps: int,
+    rannacher_steps: int = 2,
+    p_chunks: Optional[int] = None,
+    segments: Optional[Sequence[Tuple[int, int, int]]] = None,
+    set_defs: Optional[Sequence[Tuple[float, int]]] = None,
+):
+    """SPIKE-partitioned CN solve of a barrier batch: the values V (B, N).
+
+    One march launch per run of steps sharing a (theta, dt) pair:
+
+    - default (``segments=None``): globally uniform dt with the
+      ``rannacher_steps``-step theta=1 prefix — two segments;
+    - ``segments``/``set_defs`` (host-derived, see
+      ``batch._spike_schedule_impl``): ``set_defs`` is ``((theta, k_col), ...)``,
+      ``segments`` is ``((k0, k1, set_idx), ...)`` covering [0, n_steps),
+      which admits monitor-aligned per-interval dt layouts.
+
+    ``p_chunks`` defaults to :func:`spike_p`. The march runs on the device
+    of ``batch``: the CUDA kernel on a card, its plain version on the CPU.
+    """
+    if segments is None or set_defs is None:
+        # the default layout assumes globally uniform dt with an n_rann-step
+        # theta=1 prefix and no dividends; applying it to another schedule
+        # would silently price with dt[:, 0] everywhere
+        n_rann = min(rannacher_steps, n_steps)
+        dt = batch.dt[:, :n_steps]
+        expect = torch.where(torch.arange(n_steps, device=dt.device) < n_rann, 1.0, 0.5)
+        if not (
+            bool((dt == dt[:, :1]).all())
+            and bool((batch.theta[:, :n_steps] == expect.to(batch.theta.dtype)).all())
+            and not bool((batch.div_amount != 0).any())
+        ):
+            raise ValueError(
+                "segments=None assumes globally-uniform dt with a "
+                f"{n_rann}-step Rannacher prefix and no dividends; pass the "
+                "host-derived (segments, set_defs) from "
+                "models.pde.batch._spike_schedule_impl for piecewise-constant schedules"
+            )
+        segments, set_defs = default_segments(n_steps, rannacher_steps)
+    if segments[0][0] != 0 or segments[-1][1] != n_steps or any(
+        s1[1] != s2[0] for s1, s2 in zip(segments[:-1], segments[1:])
+    ):
+        raise ValueError(f"segments must tile [0, {n_steps}): {segments}")
+    P = p_chunks if p_chunks is not None else spike_p(n_nodes)
+    if P is None:
+        raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}")
+
+    prep = prepare_spike(batch, sigma, n_nodes, P, set_defs)
+    v, edges = prep.v0, prep.edge0
+    for k0, k1, t in segments:
+        v, edges = spike_march(prep, t, v, edges, k0, k1)
+
+    # untranspose: position r = ii*P + j holds interior row g = j*m + ii
+    B = v.shape[0]
+    interior = v.view(B, prep.m, P).transpose(1, 2).reshape(B, -1)[:, : prep.n_int]
+    return torch.cat([edges[:, :1], interior, edges[:, 1:]], dim=1)

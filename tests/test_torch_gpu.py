@@ -1,0 +1,119 @@
+"""The port's CUDA kernel on the card (marker ``gpu``; skips without a card).
+
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+It holds the SPIKE march kernel (csrc/spike_march.cu) against its plain
+version (spike.spike_march_reference) on the same prepared inputs, at
+float64 within 1e-11 and float32 within 2e-4 of max|V| (float32: FMA
+contraction and a different rounding order), and shows the main path
+launches it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from finite_difference_tpu_torch import kernels
+from finite_difference_tpu_torch.models.pde import spike
+from finite_difference_tpu_torch.models.pde.batch import build_trade_batch, price_barrier_batch
+
+pytestmark = pytest.mark.gpu
+
+KEYS = ("price", "vega", "delta", "gamma", "theta")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _kwargs(seed=0, B=8, n_steps=32, num_space_nodes=127):
+    """Mixed calls and puts, up/down/double barriers, rebates at hit and at expiry."""
+    rng = np.random.default_rng(seed)
+    t = 0.25
+    return dict(
+        spots=list(rng.uniform(90.0, 110.0, B)),
+        strikes=list(rng.uniform(95.0, 105.0, B)),
+        sigmas=list(rng.uniform(0.2, 0.4, B)),
+        t_expiry=[t] * B,
+        r=[0.05] * B,
+        b=list(rng.uniform(0.0, 0.05, B)),
+        is_call=[i % 2 == 0 for i in range(B)],
+        n_time_steps=n_steps,
+        monitor_times=[[t * (k + 1) / 4.0 for k in range(4)]] * B,
+        lower=[80.0 if i % 4 < 2 else None for i in range(B)],
+        upper=[125.0 if i % 4 != 1 else None for i in range(B)],
+        rebate=list(rng.uniform(0.0, 3.0, B)),
+        rebate_at_hit=[i % 3 == 0 for i in range(B)],
+        num_space_nodes=num_space_nodes,
+    )
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+@pytest.mark.parametrize("n_nodes", [127, 128, 129, 152])  # P = 32, 32, 32, 8
+def test_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
+    B = 13  # a ragged last block of the 4-trade blocks
+    tb = build_trade_batch(
+        dtype=dtype, device=cuda, **_kwargs(seed=n_nodes, B=B, num_space_nodes=n_nodes - 1)
+    )
+    segments, set_defs = spike.default_segments(tb.n_steps)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
+    v_k, e_k = v_r, e_r = prep.v0, prep.edge0
+    kernels.reset_launch_counts()
+    for k0, k1, t in segments:
+        v_k, e_k = kernels.spike_march_cuda(prep, t, v_k, e_k, k0, k1)
+        v_r, e_r = spike.spike_march_reference(prep, t, v_r, e_r, k0, k1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["spike_march"] == len(segments)
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= limit * scale
+    assert float((e_k - e_r).abs().max()) <= limit * scale
+
+
+def test_cuda_solve_matches_cpu_solve(cuda):
+    tb = build_trade_batch(device="cpu", **_kwargs(seed=9))
+    v_cpu = spike.cn_barrier_solve_spike(tb, tb.sigma, 128, 32)
+    tbg = tb.to(cuda)
+    v_gpu = spike.cn_barrier_solve_spike(tbg, tbg.sigma, 128, 32)
+    np.testing.assert_allclose(v_gpu.cpu().numpy(), v_cpu.numpy(), rtol=1e-11, atol=1e-11)
+
+
+def test_wrapper_checks_dtype_and_contiguity(cuda):
+    tb = build_trade_batch(device=cuda, **_kwargs(B=4))
+    prep = spike.prepare_spike(tb, tb.sigma, 128, 32, ((1.0, 0),))
+    with pytest.raises(ValueError, match="expected torch.float64"):
+        kernels.spike_march_cuda(prep, 0, prep.v0, prep.edge0.float(), 0, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.spike_march_cuda(prep, 0, prep.v0, prep.edge0.t().contiguous().t(), 0, 2)
+
+
+def test_main_path_goes_through_the_kernel(cuda):
+    kw = _kwargs(seed=3)
+    tb = build_trade_batch(device=cuda, **kw)
+    kernels.reset_launch_counts()
+    got = price_barrier_batch(tb, 128)  # solver="auto" -> spike on CUDA
+    assert kernels.launch_counts["spike_march"] == 4  # 2 segments x (base + vega bump)
+    ref = price_barrier_batch(tb, 128, solver="scan", device="cpu")
+    for k in KEYS:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_large_grid_opts_into_more_shared_memory(cuda):
+    """f64 at N=2048: 4 trades x 2048 rows x 8 bytes = 64 KB per block, above
+    the 48 KB default, so the launch first raises the kernel's limit."""
+    n_nodes = 2048
+    tb = build_trade_batch(device=cuda, **_kwargs(seed=5, B=6, n_steps=8, num_space_nodes=n_nodes - 1))
+    segments, set_defs = spike.default_segments(tb.n_steps)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
+    assert 4 * prep.v0.shape[1] * prep.v0.element_size() > 48 * 1024
+    v_k, e_k = v_r, e_r = prep.v0, prep.edge0
+    for k0, k1, t in segments:
+        v_k, e_k = kernels.spike_march_cuda(prep, t, v_k, e_k, k0, k1)
+        v_r, e_r = spike.spike_march_reference(prep, t, v_r, e_r, k0, k1)
+    torch.cuda.synchronize()
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= 1e-11 * scale
+    assert float((e_k - e_r).abs().max()) <= 1e-11 * scale
