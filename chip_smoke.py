@@ -7,11 +7,19 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version on the card, drives the port's main
-path (``price_barrier_batch`` on the benchmark trade set: B=4096 barrier
-trades, 1024-node grids, 512 Crank–Nicolson steps, float32) and checks its
-output, times it, and prints one JSON line per phase. The last three lines
-are the kernels' summary (JSON), the card's name and power limit as
-``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
+paths and checks their output, times them, and prints one JSON line per
+phase:
+
+- the barrier path, ``price_barrier_batch`` on the benchmark trade set:
+  B=4096 barrier trades, 1024-node grids, 512 Crank–Nicolson steps, f32;
+- the American path, ``price_american_batch`` on the benchmark's American
+  trade set (bench.py make_american_batch): B=4096 one-year puts at f32,
+  price only, with greeks and with two cash dividends per trade; and the
+  float64 rung, B=256 with greeks, against the f64 scan.
+
+The last three lines are the kernels' summary (JSON), the card's name and
+power limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
+{...}}``.
 
 It exits non-zero, printing no result, when ``torch.cuda.is_available()``
 is false or when the port is not beside it; any failed check raises.
@@ -37,9 +45,17 @@ STRIKE, RATE, BARRIER = 190.0, 0.0705, 420.0
 B_MAIN = 4096
 B_CHECK = 256  # the prefix held against the float64 route and the plain version
 
-# published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth
+# the American trade set (bench.py make_american_batch): 1-year puts,
+# spots U(80, 120), sigma U(0.15, 0.40), seed 7, K=100, r=0.06, b=0.02;
+# the dividend case adds two cash dividends per trade
+AM_STRIKE, AM_RATE, AM_CARRY = 100.0, 0.06, 0.02
+AM_DIVIDENDS = [(0.35, 1.2), (0.75, 1.2)]
+B_AM64 = 256  # the float64 rung's batch
+
+# published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
+# the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -82,6 +98,42 @@ def mixed_trades(B: int, n_steps: int, num_space_nodes: int):
     )
 
 
+def american_trades(B: int, dividends: bool = False):
+    rng = np.random.default_rng(7)
+    spots = rng.uniform(80.0, 120.0, 4096)[:B]
+    sigmas = rng.uniform(0.15, 0.4, 4096)[:B]
+    kw = dict(
+        spots=list(spots), strikes=[AM_STRIKE] * B, sigmas=list(sigmas), t_expiry=[1.0] * B,
+        r=[AM_RATE] * B, b=[AM_CARRY] * B, is_call=[False] * B, n_time_steps=N_STEPS,
+        num_space_nodes=N_NODES - 2, dividends_tau=[AM_DIVIDENDS] * B if dividends else None,
+    )
+    return kw, spots, sigmas
+
+
+def small_american_trades(B: int, is_call: bool):
+    """Calls or puts with two dividends each (lambda resets at each segment
+    start); calls also restart Rannacher after each dividend."""
+    rng = np.random.default_rng(3)
+    return dict(
+        spots=list(rng.uniform(85.0, 115.0, B)), strikes=[AM_STRIKE] * B,
+        sigmas=list(rng.uniform(0.15, 0.4, B)), t_expiry=[1.0] * B, r=[AM_RATE] * B,
+        b=list(rng.uniform(0.0, 0.06, B)), is_call=[is_call] * B, n_time_steps=40,
+        dividends_tau=[AM_DIVIDENDS] * B, num_space_nodes=126,
+    )
+
+
+def black_scholes_put(spots, sigmas):
+    """Generalized Black–Scholes European put (carry b): a lower bound of
+    the American put."""
+    n = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+    out = []
+    for s, sg in zip(spots, sigmas):
+        d1 = (math.log(s / AM_STRIKE) + (AM_CARRY + 0.5 * sg * sg)) / sg
+        out.append(AM_STRIKE * math.exp(-AM_RATE) * n(sg - d1)
+                   - s * math.exp(AM_CARRY - AM_RATE) * n(-d1))
+    return np.asarray(out)
+
+
 def black_scholes_call(spots, sigmas):
     """Generalized Black–Scholes call (carry b = r): the far-barrier limit."""
     n = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
@@ -93,42 +145,88 @@ def black_scholes_call(spots, sigmas):
     return np.asarray(out)
 
 
-def march(prep, segments, step):
-    v, e = prep.v0, prep.edge0
-    for k0, k1, t in segments:
-        v, e = step(prep, t, v, e, k0, k1)
-    return v, e
-
-
-def march_cost(prep, segments):
+def march_cost(prep, segments, n_jumps: int = 0):
     """(flops, bytes, matvec_flops) of one march.
 
     The bound counts the work the march itself needs: about 14 flops per
     interior node and step (rhs 5, forward 3, backward 2, correction 4),
     plus the reduced interface system, which couples each of its 2P
     unknowns only to b_{j-1} and t_{j+1} and so is banded: a solve with
-    precomputed factors takes about 9 flops per unknown. Bytes: each input
-    read once and each output written once, per launch; the interface
-    system's entries are the tips of the spike vectors, already in
-    ``fields``. ``matvec_flops`` is what this design spends instead on the
-    dense 2P x 2P inverse matvec, 2*(2P)^2 per trade and step: overhead of
-    the design, not part of the bound.
+    precomputed factors takes about 9 flops per unknown. The American
+    branch adds 9 per node and step, counted from the kernel: the source
+    term dt*lambda (2) and the projection (7: payoff - x, the division by
+    dt, the add to lambda, its max with 0, dt*lambda, x minus it, the max
+    with the payoff). Bytes: each input read once and each output written
+    once, per launch (American: the payoff, lambda in and lambda out too);
+    the interface system's entries are the tips of the spike vectors,
+    already in ``fields``. Each dividend jump between launches reads and
+    writes the (B, N) grid and takes about 30 flops per node (spline
+    system 8, coefficients 10, evaluation 8, the shift and the check 4).
+    ``matvec_flops`` is what this design spends instead on the dense
+    2P x 2P inverse matvec, 2*(2P)^2 per trade and step: overhead of the
+    design, not part of the bound.
     """
     B, n_pad = prep.v0.shape
     P, n_int = prep.P, prep.n_int
     item = prep.v0.element_size()
+    per_node = 14 + (9 if prep.american else 0)
     flops = nbytes = matvec_flops = 0
     for k0, k1, _ in segments:
         ns = k1 - k0
-        flops += ns * B * (14 * n_int + 9 * 2 * P)
+        flops += ns * B * (per_node * n_int + 9 * 2 * P)
         matvec_flops += ns * B * 2 * (2 * P) ** 2
         words = (
-            B * 11 + B * 5 + 5 * B * n_pad  # trade, coef, fields
+            B * 11 + B * 7 + 5 * B * n_pad  # trade, coef, fields
             + B * n_pad + 2 * B * ns  # knock-out mask, tau and monitor slices
             + 2 * (B * n_pad + 2 * B)  # v and edges in, v and edges out
+            + (3 * B * n_pad if prep.american else 0)  # payoff, lambda in and out
         )
         nbytes += words * item
+    n_full = n_int + 2
+    flops += n_jumps * 30 * B * n_full
+    nbytes += n_jumps * 2 * B * n_full * item
     return flops, nbytes, matvec_flops
+
+
+def bound(prep, segments, n_jumps: int = 0):
+    """(bound_ms, bound_by, flops, bytes, matvec_flops) of one march on the
+    card: the larger of its operations over the peak rate of its dtype and
+    its bytes over the memory rate."""
+    flops, nbytes, matvec_flops = march_cost(prep, segments, n_jumps)
+    peak = PEAK_F64_FLOPS if prep.v0.element_size() == 8 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes, matvec_flops
+
+
+def host_ms(fn):
+    """(fn(), milliseconds on the host clock between two synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profile_call(fn, call_ms: float):
+    """Device time of one call by kernel, and the busy share of the
+    unprofiled call time (the profiler's own overhead inflates wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    check(device_ms > 0, "the profiler saw no device time")
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(call_ms=call_ms, device_ms=device_ms, busy_share=device_ms / call_ms,
+                device_kernels=sum(e.count for e in rows),
+                top=[{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
+                     for e in top])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -142,6 +240,172 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def american_phases(dev, card: dict, limits: dict):
+    """The American path: its kernel against the plain version, the f32
+    path (price only, greeks, dividends) and the float64 rung, each checked;
+    their timing. Returns the K1a and K2 entries of the kernels' summary."""
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.pde import spike
+    from finite_difference_tpu_torch.models.pde.batch import (
+        _spike_schedule_impl,
+        build_american_batch,
+        price_american_batch,
+    )
+
+    def american_prep(tb, n_nodes):
+        sched = _spike_schedule_impl(tb, n_nodes)
+        check(sched is not None, "an American batch of the run is not SPIKE-eligible")
+        segments, set_defs, div_steps, reset_steps = sched
+        prep = spike.prepare_spike(
+            tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True
+        )
+        march = lambda step: spike.march_segments(tb, prep, segments, div_steps, reset_steps, step=step)
+        return prep, segments, div_steps, march
+
+    def vs_plain(label, tb, n_nodes, reps=0):
+        """The American march (kernel launches, lambda resets and dividend
+        jumps between them) against its plain version; ``reps`` > 0 also
+        times the kernel's march. On CUDA tensors spike.spike_march is the
+        kernel, never the plain version."""
+        prep, segments, div_steps, march = american_prep(tb, n_nodes)
+        limit = limits[tb.sigma.dtype]
+        v_k, e_k = march(spike.spike_march)
+        (v_r, e_r), plain_ms = host_ms(lambda: march(spike.spike_march_reference))
+        scale = float(v_r.abs().max())
+        err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
+        ms = cuda_ms(lambda: march(spike.spike_march), reps) if reps else None
+        emit("american_kernel_vs_plain", size=label, dtype=str(tb.sigma.dtype), B=tb.batch_size,
+             N=n_nodes, steps=tb.n_steps, P=prep.P, launches_per_march=len(segments),
+             dividend_jumps=len(div_steps), max_abs_err=err, max_abs_v=scale, ratio=err / scale,
+             limit=limit, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms, **card)
+        check(math.isfinite(err) and err <= limit * scale,
+              f"American kernel vs plain {label} {tb.sigma.dtype}: {err / scale:.3e} > {limit}")
+        b_ms, b_by = bound(prep, segments, len(div_steps))[:2]
+        return dict(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # 5. the American kernel against its plain version ---------------------
+    for is_call in (False, True):
+        for dtype in (torch.float64, torch.float32):
+            tb = build_american_batch(dtype=dtype, device=dev, **small_american_trades(8, is_call))
+            vs_plain("small_calls" if is_call else "small_puts", tb, 128)
+    kw_d, spots, sigmas = american_trades(B_MAIN, dividends=True)
+    tb_div = build_american_batch(dtype=torch.float32, device=dev, **kw_d)
+    k1a = vs_plain("main_width_dividends", tb_div, N_NODES, reps=3)
+    tb64 = build_american_batch(dtype=torch.float64, device=dev, **american_trades(B_AM64)[0])
+    k2 = vs_plain("rung_f64", tb64, N_NODES, reps=5)
+
+    # 6. the American path at f32 -------------------------------------------
+    kw, _, _ = american_trades(B_MAIN)
+    tb = build_american_batch(dtype=torch.float32, device=dev, **kw)
+    kernels.reset_launch_counts()
+    out_p = price_american_batch(tb, N_NODES, with_greeks=False)
+    out_g = price_american_batch(tb, N_NODES, with_greeks=True)
+    out_d = price_american_batch(tb_div, N_NODES, with_greeks=False)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    k1a["launches"] = launches["spike_march_american_f32"]
+    check(k1a["launches"] > 0, "the American f32 path launched no American kernel")
+    for key, val in [*out_p.items(), *out_g.items(), *(("div_" + k, v) for k, v in out_d.items())]:
+        check(val.shape == (B_MAIN,) and bool(torch.isfinite(val).all()), f"American {key} not finite")
+    intrinsic = np.maximum(AM_STRIKE - spots, 0.0)
+    european = black_scholes_put(spots, sigmas)
+    bounds = {}
+    for label, out in (("price_only", out_p), ("dividends", out_d)):
+        price = out["price"].double().cpu().numpy()
+        bounds[label] = dict(
+            min_over_intrinsic=float(np.min(price - intrinsic)) / AM_STRIKE,
+            min_rel_over_european=float(np.min((price - european) / european)),
+        )
+        check(np.all(price >= intrinsic - 1e-4 * AM_STRIKE), f"American {label} price below intrinsic")
+        check(np.all(price >= european * (1.0 - 1e-3)),
+              f"American {label} price below the European put")
+    div_moved = float(np.max(np.abs(out_d["price"].double().cpu().numpy()
+                                    - out_p["price"].double().cpu().numpy())))
+    check(div_moved > 0.0, "the dividend jumps did not move the American prices")
+
+    out64 = price_american_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
+    f32_vs_f64 = {}
+    for key, val in out64.items():
+        ref = val.cpu().numpy()
+        got = out_g[key][:B_AM64].double().cpu().numpy()
+        if key == "price":
+            f32_vs_f64[key] = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        else:
+            f32_vs_f64[key] = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+    # gamma's limit is 1e-1, not the barrier path's 1e-2: on the American
+    # grid (node spacing ~0.14 at S ~ 90 against ~0.48 on the barrier grid)
+    # the second difference amplifies f32 noise of V 12x more. Rounding the
+    # exact f64 values to f32 alone moves gamma by 6.1e-3 of its max, and
+    # CN keeps its highest-frequency error mode (factor ~-0.98 per step at
+    # dt*alpha ~ 47), so the march holds ~5 ulp of node-to-node noise: 3.5e-2
+    # on the plain version at B=256 on the CPU (python -m
+    # finite_difference_tpu_torch.f32_budget --batch 256; TPU history: 0.32).
+    limits_f64 = {"price": 2e-3, "delta": 1e-2, "gamma": 1e-1, "vega": 5e-2}
+    emit("american_path", B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float32", solver="auto",
+         launches=launches, bounds=bounds, dividend_max_abs_move=div_moved,
+         f32_vs_f64_first_256=f32_vs_f64, limits=limits_f64, **card)
+    for key, lim in limits_f64.items():
+        check(f32_vs_f64[key] <= lim, f"American f32 vs f64 {key}: {f32_vs_f64[key]:.3e} > {lim}")
+
+    # 7. the float64 rung (K2): the double kernel against the f64 scan ------
+    kernels.reset_launch_counts()
+    out_k = price_american_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-4)
+    torch.cuda.synchronize()
+    launches64 = dict(kernels.launch_counts)
+    k2["launches"] = launches64["spike_march_american_f64"]
+    check(k2["launches"] > 0, "the American f64 path launched no American f64 kernel")
+    out_s = price_american_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-4, solver="scan")
+    rung = {
+        key: float((out_k[key] - out_s[key]).abs().max() / out_s[key].abs().max())
+        for key in ("price", "delta", "gamma", "vega")
+    }
+    emit("american_f64_rung", B=B_AM64, N=N_NODES, steps=N_STEPS, dv_sigma=1e-4,
+         launches=launches64, spike_vs_scan=rung, limit=1e-6, **card)
+    for key, val in rung.items():
+        check(val <= 1e-6, f"American f64 rung {key}: {val:.3e} > 1e-6")
+
+    # 8. timing ---------------------------------------------------------------
+    def grids_per_s(batch, with_greeks: bool, iters: int, **kw) -> float:
+        price_american_batch(batch, N_NODES, with_greeks=with_greeks, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            price_american_batch(batch, N_NODES, with_greeks=with_greeks, **kw)
+        torch.cuda.synchronize()
+        return batch.batch_size * iters / (time.perf_counter() - t0)
+
+    gps = grids_per_s(tb, False, 5)
+    gps_greeks = grids_per_s(tb, True, 3)
+    gps_div = grids_per_s(tb_div, False, 5)
+    gps64_greeks = grids_per_s(tb64, True, 3, dv_sigma=1e-4)
+    # the price-only batch's march: kernel launches only, no jumps
+    prep, segments, _, march = american_prep(tb, N_NODES)
+    ms = cuda_ms(lambda: march(spike.spike_march), reps=5)
+    b_ms, b_by = bound(prep, segments)[:2]
+    n_div = len(_spike_schedule_impl(tb_div, N_NODES)[0])
+    call_ms = B_MAIN / gps * 1e3
+    emit("american_timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks,
+         div_grids_per_s=gps_div, f64_greeks_grids_per_s=gps64_greeks, f64_B=B_AM64,
+         call_ms=call_ms, kernel_ms_per_march=ms, launches_per_march=len(segments),
+         bound_ms=b_ms, bound_by=b_by,
+         div_kernel_ms_per_march=k1a["ms"], div_plain_ms_per_march=k1a["plain_ms"],
+         div_launches_per_march=n_div,
+         f64_kernel_ms_per_march=k2["ms"], f64_plain_ms_per_march=k2["plain_ms"],
+         launches_per_call={"price_only": len(segments), "greeks": 2 * len(segments),
+                            "dividends": n_div},
+         B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P, **card)
+    emit("american_profile", **profile_call(
+        lambda: price_american_batch(tb, N_NODES, with_greeks=False), call_ms), **card)
+    k1a.update(name="spike_march_american_f32",
+               replaces="finite_difference_tpu/models/pde/pallas_kernel.py:677")
+    k2.update(name="spike_march_american_f64",
+              replaces="finite_difference_tpu/models/pde/pallas_kernel.py:1138")
+    return k1a, k2
 
 
 def main() -> int:
@@ -189,8 +453,8 @@ def main() -> int:
             tb = build_trade_batch(dtype=dtype, device=dev, **kw_fn())
             segments, set_defs = spike.default_segments(tb.n_steps)
             prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
-            v_k, e_k = march(prep, segments, kernels.spike_march_cuda)
-            v_r, e_r = march(prep, segments, spike.spike_march_reference)
+            v_k, e_k = spike.march_segments(tb, prep, segments, step=kernels.spike_march_cuda)
+            v_r, e_r = spike.march_segments(tb, prep, segments, step=spike.spike_march_reference)
             torch.cuda.synchronize()
             scale = float(v_r.abs().max())
             err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
@@ -208,7 +472,7 @@ def main() -> int:
     out_g = price_barrier_batch(tb, N_NODES, with_greeks=True)
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
-    check(launches["spike_march"] > 0, "the main path launched no spike_march kernel")
+    check(launches["spike_march_f32"] > 0, "the main path launched no spike_march kernel")
     for key, val in {**out_p, **out_g}.items():
         check(val.shape == (B_MAIN,) and bool(torch.isfinite(val).all()), f"{key} not finite")
     price = out_p["price"].double().cpu().numpy()
@@ -246,13 +510,6 @@ def main() -> int:
     gps = grids_per_s(False, 10)
     gps_greeks = grids_per_s(True, 5)
 
-    def host_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     # where one price-only call's time goes: schedule inspection, host prep,
     # the kernel, the rest; on the main path's own segments and prep
     sched, sched_ms = host_ms(lambda: _spike_schedule_impl(tb, N_NODES))
@@ -261,15 +518,16 @@ def main() -> int:
     prep, prep_ms = host_ms(
         lambda: spike.prepare_spike(tb, tb.sigma, N_NODES, spike.spike_p(N_NODES), set_defs)
     )
-    ms = cuda_ms(lambda: march(prep, segments, kernels.spike_march_cuda), reps=10)
+    march = lambda step: spike.march_segments(tb, prep, segments, step=step)
+    ms = cuda_ms(lambda: march(kernels.spike_march_cuda), reps=10)
     k0, k1, t_cn = segments[-1]
     ms_cn_launch = cuda_ms(
         lambda: kernels.spike_march_cuda(prep, t_cn, prep.v0, prep.edge0, k0, k1), reps=10
     )
-    (v_r, e_r), plain_ms = host_ms(lambda: march(prep, segments, spike.spike_march_reference))
+    (v_r, e_r), plain_ms = host_ms(lambda: march(spike.spike_march_reference))
 
     # the kernel against its plain version at the main path's own shapes
-    v_k, e_k = march(prep, segments, kernels.spike_march_cuda)
+    v_k, e_k = march(kernels.spike_march_cuda)
     torch.cuda.synchronize()
     scale = float(v_r.abs().max())
     main_err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
@@ -280,51 +538,32 @@ def main() -> int:
           f"kernel vs plain main path: {main_err / scale:.3e} > {limits[torch.float32]}")
     del v_r, e_r, v_k, e_k
 
-    flops, nbytes, matvec_flops = march_cost(prep, segments)
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
+    bound_ms, bound_by, flops, nbytes, matvec_flops = bound(prep, segments)
     call_ms = B_MAIN / gps * 1e3
     emit("timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks, call_ms=call_ms,
          schedule_ms=sched_ms, prep_ms=prep_ms,
          rest_ms=call_ms - sched_ms - prep_ms - ms, kernel_ms_per_march=ms,
          launches_per_march=len(segments), kernel_ms_per_cn_launch=ms_cn_launch,
          cn_launch_steps=k1 - k0, plain_ms_per_march=plain_ms, flops=flops, bytes=nbytes,
-         dense_matvec_flops=matvec_flops, ops_ms=t_ops, bytes_ms=t_bytes, bound_ms=bound_ms,
+         dense_matvec_flops=matvec_flops, bound_ms=bound_ms, bound_by=bound_by,
          B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P, **card)
+    emit("profile", **profile_call(lambda: price_barrier_batch(tb, N_NODES, with_greeks=False),
+                                   call_ms), **card)
+    del tb, prep
+    k1 = dict(name="spike_march_f32", launches=launches["spike_march_f32"],
+              replaces="finite_difference_tpu/models/pde/pallas_kernel.py:589",
+              max_abs_err=main_err, max_abs_err_over_max_abs_v=main_err / scale,
+              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
-    # device time of one price-only call by kernel, and the busy share of
-    # the unprofiled call time (the profiler's own overhead inflates wall time)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # 5-8. the American path ------------------------------------------------
+    k1a, k2 = american_phases(dev, card, limits)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        price_barrier_batch(tb, N_NODES, with_greeks=False)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    check(device_ms > 0, "the profiler saw no device time")
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", call_ms=call_ms, device_ms=device_ms, busy_share=device_ms / call_ms,
-         device_kernels=sum(e.count for e in rows),
-         top=[{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
-              for e in top], **card)
-
-    # 5. summary ------------------------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "spike_march",
-        "route": "cuda",
-        "source": "finite_difference_tpu_torch/csrc/spike_march.cu",
-        "replaces": "finite_difference_tpu/models/pde/pallas_kernel.py:589",
-        "launches": launches["spike_march"],
-        "max_abs_err": main_err,
-        "max_abs_err_over_max_abs_v": main_err / scale,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]}), flush=True)
+    # 9. summary ------------------------------------------------------------
+    source = "finite_difference_tpu_torch/csrc/spike_march.cu"
+    print(json.dumps({"kernels": [
+        {"name": k["name"], "route": "cuda", "source": source, **k, "library_ms": None}
+        for k in (k1, k1a, k2)
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

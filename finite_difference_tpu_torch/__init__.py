@@ -6,9 +6,12 @@ imports neither ``jax`` nor anything of ``finite_difference_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card, the default device raises instead of falling back to the CPU.
-The one TPU kernel on the ported path (the SPIKE march) is a hand-written
-CUDA kernel, ``csrc/spike_march.cu``, built on first use by
-:mod:`finite_difference_tpu_torch.kernels`.
+The TPU kernels on the ported paths (the SPIKE march, European and
+American, and its double-float twin) are one hand-written CUDA kernel,
+``csrc/spike_march.cu``, in float and double, built on first use by
+:mod:`finite_difference_tpu_torch.kernels`. The host batch builder's C++
+library (:mod:`finite_difference_tpu_torch.native`) is built by ``g++`` on
+first use.
 """
 from .device import resolve_device
 

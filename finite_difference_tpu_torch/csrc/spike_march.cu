@@ -1,11 +1,31 @@
-// SPIKE Crank-Nicolson march of a barrier batch, one (theta, dt) segment per
-// launch, for Hopper (sm_90a).
+// SPIKE Crank-Nicolson march of a barrier or American batch, one
+// (theta, dt) segment per launch, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel finite_difference_tpu/models/pde/pallas_kernel.py
-// `_kernel_spike` (European branch). Its plain PyTorch version is
+// `_kernel_spike`, both branches (template parameter American), and, at
+// double, `_kernel_spike_df64`: the TPU emulates float64 with f32 pairs,
+// the H100 has it natively. Its plain PyTorch version is
 // finite_difference_tpu_torch/models/pde/spike.py `spike_march_reference`,
 // which also documents the layout: a trade's interior rows are stored as
 // r = ii*P + j (chunk j, in-chunk row ii), trades on the leading axis.
+//
+// American branch (Ikonen-Toivanen). Each trade has a second n_pad row of
+// shared memory for lambda, beside the value row; lane j reads and writes
+// only the lambda of its own chunk, so it needs no extra synchronisation.
+// Per step: the rhs is written in row-sum form, bsum*v + bl*(v_prev - v) +
+// bu*(v_next - v) with bsum = 1 - (1-theta)*dt*r from the host (equal to
+// bc*v + bl*v_prev + bu*v_next in exact arithmetic; at the American grid's
+// dt/dx^2 rounding bc to float keeps only ~90% of the discount term, see
+// spike_march_reference), it gains dt*lambda, and after the spike correction
+// v = max(payoff, x - dt*lambda), lambda = max(0, lambda + (payoff - x)/dt)
+// with a true division (the plain version divides too). The payoff is
+// segment-constant and read from global memory, like the solver vectors;
+// dt is the sixth coefficient column. On a pad row payoff = lambda = x = 0,
+// so the update keeps it 0. The put's lower edge is K e^{-r tau}. The
+// second row doubles the shared memory a trade needs (8 KB in f32, 16 KB in
+// f64 at N=1024), so at B=4096 in f32 not every trade is resident at once.
+// The European instantiation compiles as before: every American addition is
+// behind `if constexpr`.
 //
 // Mapping. One warp per trade, lane j < P walks chunk j. The trade's value
 // row (n_pad values) lives in shared memory for the whole segment; the
@@ -42,7 +62,7 @@
 namespace {
 
 constexpr int kTradeCols = 11;  // spike.TRADE_COLS
-constexpr int kCoefCols = 5;    // spike.COEF_COLS
+constexpr int kCoefCols = 7;    // spike.COEF_COLS
 constexpr int kTradesPerBlock = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use
 constexpr unsigned kFull = 0xffffffffu;
@@ -51,10 +71,13 @@ __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
 
 template <typename T>
+__device__ __forceinline__ T max_(T a, T b) { return a > b ? a : b; }
+
+template <typename T, bool American>
 __global__ void __launch_bounds__(32 * kTradesPerBlock)
 spike_march_kernel(
     const T* __restrict__ trade,   // (B, 11)
-    const T* __restrict__ coef,    // (B, 5) bl, bc, bu, al, au
+    const T* __restrict__ coef,    // (B, 7) bl, bc, bu, al, au, dt, bsum
     const T* __restrict__ fields,  // (5, B, n_pad): spike.FIELD_ROWS
     const T* __restrict__ rinv,    // (B, 2P, 2P) [trade, column, row]
     const T* __restrict__ omask,   // (B, n_pad)
@@ -64,13 +87,18 @@ spike_march_kernel(
     const T* __restrict__ edge_in, // (B, 2)
     T* __restrict__ v_out,         // (B, n_pad)
     T* __restrict__ edge_out,      // (B, 2)
+    const T* __restrict__ payoff,  // (B, n_pad), American only
+    const T* __restrict__ lam_in,  // (B, n_pad), American only
+    T* __restrict__ lam_out,       // (B, n_pad), American only
     int B, int n_pad, int m, int P, int il, int k0, int ns, int n_sched) {
   extern __shared__ unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // ragged last block: whole warps drop out
-  T* __restrict__ row = reinterpret_cast<T*>(smem_raw) + (size_t)warp * n_pad;
+  constexpr int kRows = American ? 2 : 1;
+  T* __restrict__ row = reinterpret_cast<T*>(smem_raw) + (size_t)warp * kRows * n_pad;
+  T* __restrict__ lam = row + n_pad;  // American only
   const bool act = lane < P;
   const int j = lane;
 
@@ -81,6 +109,7 @@ spike_march_kernel(
   const bool omask_lo = tr[9] != T(0), omask_hi = tr[10] != T(0);
   const T* cf = coef + (size_t)b * kCoefCols;
   const T bl = cf[0], bc = cf[1], bu = cf[2], al = cf[3], au = cf[4];
+  const T dt = cf[5], bsum = cf[6];  // read by the American branch only
 
   const size_t plane = (size_t)B * n_pad;
   const size_t base = (size_t)b * n_pad;
@@ -94,8 +123,13 @@ spike_march_kernel(
   const T* __restrict__ tau_b = tau + (size_t)b * n_sched + k0;
   const T* __restrict__ mon_b = mon + (size_t)b * n_sched + k0;
 
+  const T* __restrict__ pay = American ? payoff + base : nullptr;
   if (act)
     for (int ii = 0; ii < m; ++ii) row[ii * P + j] = v_in[base + ii * P + j];
+  if constexpr (American) {
+    if (act)
+      for (int ii = 0; ii < m; ++ii) lam[ii * P + j] = lam_in[base + ii * P + j];
+  }
   T v_lo = edge_in[2 * b], v_hi = edge_in[2 * b + 1];
   const int last = (m - 1) * P;
 
@@ -103,7 +137,9 @@ spike_march_kernel(
     const T t = tau_b[k];
     const T growth = exp_(growth_rate * t);
     const T disc = exp_(-r * t);
-    const T v_min_n = is_call ? T(0) : strike * disc - s_min * growth;
+    T v_min_put = strike * disc;
+    if constexpr (!American) v_min_put = v_min_put - s_min * growth;
+    const T v_min_n = is_call ? T(0) : v_min_put;
     const T v_max_n = is_call ? s_max * growth - strike * disc : T(0);
 
     // the two cross-chunk neighbours of this step, captured before any
@@ -125,11 +161,25 @@ spike_march_kernel(
       for (int ii = 0; ii < m; ++ii) {
         const int ri_ = ii * P + j;
         const T v_next = ii < m - 1 ? row[ri_ + P] : up_fix;
-        T rhs = bc * v_cur + bl * v_prev + bu * v_next;
-        if (ii == 0 && j == 0) rhs = rhs - al * v_min_n;
-        if (j == P - 1) {
-          if (ii == il) rhs = rhs + (bu * v_hi - au * v_max_n);
-          else if (ii > il) rhs = T(0);  // pad rows
+        T rhs;
+        if constexpr (American) {
+          // row-sum form (spike.spike_march_reference): the global-last
+          // row's upper neighbour is the edge itself
+          const T vn = (j == P - 1 && ii == il) ? v_hi : v_next;
+          rhs = bsum * v_cur + bl * (v_prev - v_cur) + bu * (vn - v_cur);
+          rhs = rhs + dt * lam[ri_];
+          if (ii == 0 && j == 0) rhs = rhs - al * v_min_n;
+          if (j == P - 1) {
+            if (ii == il) rhs = rhs - au * v_max_n;
+            else if (ii > il) rhs = T(0);  // pad rows
+          }
+        } else {
+          rhs = bc * v_cur + bl * v_prev + bu * v_next;
+          if (ii == 0 && j == 0) rhs = rhs - al * v_min_n;
+          if (j == P - 1) {
+            if (ii == il) rhs = rhs + (bu * v_hi - au * v_max_n);
+            else if (ii > il) rhs = T(0);  // pad rows
+          }
         }
         d = ii == 0 ? w[ri_] * rhs : w[ri_] * rhs + af[ri_] * d;
         row[ri_] = d;
@@ -177,7 +227,12 @@ spike_march_kernel(
 #pragma unroll 4
       for (int ii = 0; ii < m; ++ii) {
         const int ri_ = ii * P + j;
-        const T xr = row[ri_] - bprev * vsp[ri_] - tnext * wsp[ri_];
+        T xr = row[ri_] - bprev * vsp[ri_] - tnext * wsp[ri_];
+        if constexpr (American) {
+          const T lam_old = lam[ri_], p = pay[ri_];
+          lam[ri_] = max_(lam_old + (p - xr) / dt, T(0));
+          xr = max_(p, xr - dt * lam_old);
+        }
         row[ri_] = (mon_k && om[ri_] != T(0)) ? rebate_pv : xr;
       }
     }
@@ -187,38 +242,45 @@ spike_march_kernel(
 
   if (act)
     for (int ii = 0; ii < m; ++ii) v_out[base + ii * P + j] = row[ii * P + j];
+  if constexpr (American) {
+    if (act)
+      for (int ii = 0; ii < m; ++ii) lam_out[base + ii * P + j] = lam[ii * P + j];
+  }
   if (lane == 0) {
     edge_out[2 * b] = v_lo;
     edge_out[2 * b + 1] = v_hi;
   }
 }
 
-template <typename T>
+template <typename T, bool American>
 int launch(const void* trade, const void* coef, const void* fields,
            const void* rinv, const void* omask, const void* tau,
            const void* mon, const void* v_in, const void* edge_in,
-           void* v_out, void* edge_out, int B, int n_pad, int m, int P,
+           void* v_out, void* edge_out, const void* payoff,
+           const void* lam_in, void* lam_out, int B, int n_pad, int m, int P,
            int il, int k0, int ns, int n_sched, void* stream) {
   if (B <= 0 || P < 1 || P > 32 || m < 1 || n_pad != m * P || ns < 1 ||
       k0 < 0 || k0 + ns > n_sched || il < 0 || il >= m)
     return (int)cudaErrorInvalidValue;
-  const size_t per_trade = (size_t)n_pad * sizeof(T);
+  if (American && (payoff == nullptr || lam_in == nullptr || lam_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t per_trade = (size_t)n_pad * sizeof(T) * (American ? 2 : 1);
   int tpb = kTradesPerBlock;
   while (tpb > 1 && tpb * per_trade > kMaxSmem) tpb /= 2;
   const size_t smem = tpb * per_trade;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        spike_march_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        spike_march_kernel<T, American>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((B + tpb - 1) / tpb);
-  spike_march_kernel<T><<<grid, 32 * tpb, smem, (cudaStream_t)stream>>>(
+  spike_march_kernel<T, American><<<grid, 32 * tpb, smem, (cudaStream_t)stream>>>(
       (const T*)trade, (const T*)coef, (const T*)fields, (const T*)rinv,
       (const T*)omask, (const T*)tau, (const T*)mon, (const T*)v_in,
-      (const T*)edge_in, (T*)v_out, (T*)edge_out, B, n_pad, m, P, il, k0, ns,
-      n_sched);
+      (const T*)edge_in, (T*)v_out, (T*)edge_out, (const T*)payoff,
+      (const T*)lam_in, (T*)lam_out, B, n_pad, m, P, il, k0, ns, n_sched);
   return (int)cudaGetLastError();
 }
 
@@ -229,15 +291,35 @@ int launch(const void* trade, const void* coef, const void* fields,
       const void *omask, const void *tau, const void *mon, const void *v_in, \
       const void *edge_in, void *v_out, void *edge_out, int B, int n_pad,    \
       int m, int P, int il, int k0, int ns, int n_sched, void *stream
-#define SPIKE_MARCH_CALL                                                     \
-  trade, coef, fields, rinv, omask, tau, mon, v_in, edge_in, v_out, edge_out, \
-      B, n_pad, m, P, il, k0, ns, n_sched, stream
+#define SPIKE_MARCH_SHAPE B, n_pad, m, P, il, k0, ns, n_sched, stream
+#define SPIKE_MARCH_IO \
+  trade, coef, fields, rinv, omask, tau, mon, v_in, edge_in, v_out, edge_out
 
 extern "C" {
 
-int spike_march_f32(SPIKE_MARCH_ARGS) { return launch<float>(SPIKE_MARCH_CALL); }
+int spike_march_f32(SPIKE_MARCH_ARGS) {
+  return launch<float, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr,
+                              SPIKE_MARCH_SHAPE);
+}
 
-int spike_march_f64(SPIKE_MARCH_ARGS) { return launch<double>(SPIKE_MARCH_CALL); }
+int spike_march_f64(SPIKE_MARCH_ARGS) {
+  return launch<double, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr,
+                               SPIKE_MARCH_SHAPE);
+}
+
+// the American march: the European arguments followed by the payoff, lambda
+// in and lambda out, each (B, n_pad)
+int spike_march_american_f32(SPIKE_MARCH_ARGS, const void* payoff,
+                             const void* lam_in, void* lam_out) {
+  return launch<float, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out,
+                             SPIKE_MARCH_SHAPE);
+}
+
+int spike_march_american_f64(SPIKE_MARCH_ARGS, const void* payoff,
+                             const void* lam_in, void* lam_out) {
+  return launch<double, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out,
+                              SPIKE_MARCH_SHAPE);
+}
 
 const char* spike_march_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -7,9 +7,11 @@ name keyed by the source and flags, and loaded with ``ctypes``. Pointers
 and the stream go over as ``c_void_p``. Nothing here runs at import time:
 the CPU tests import this module on machines with no ``nvcc`` and no card.
 
-The launch wrapper checks device, dtype, shape and contiguity, launches on
-PyTorch's current stream, raises when the C function reports a CUDA error,
-and adds one to :data:`launch_counts` for its kernel.
+The source holds one kernel in two branches, European and American
+(Ikonen–Toivanen), each instantiated in float and double. The launch
+wrappers check device, dtype, shape and contiguity, launch on PyTorch's
+current stream, raise when the C function reports a CUDA error, and add one
+to :data:`launch_counts` under ``spike_march[_american]_{f32,f64}``.
 """
 from __future__ import annotations
 
@@ -31,7 +33,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts: Dict[str, int] = {"spike_march": 0}
+launch_counts: Dict[str, int] = {
+    f"spike_march{branch}_{dt}": 0 for branch in ("", "_american") for dt in ("f32", "f64")
+}
+_DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -81,8 +86,10 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             build()
             lib = ctypes.CDLL(str(library_path()))
-            for fn in (lib.spike_march_f32, lib.spike_march_f64):
-                fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            head = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            for name in launch_counts:
+                fn = getattr(lib, name)
+                fn.argtypes = head + ([ctypes.c_void_p] * 3 if "american" in name else [])
                 fn.restype = ctypes.c_int
             lib.spike_march_error_string.argtypes = [ctypes.c_int]
             lib.spike_march_error_string.restype = ctypes.c_char_p
@@ -102,16 +109,12 @@ def _check(name: str, x: torch.Tensor, shape: tuple, like: torch.Tensor) -> None
         raise ValueError(f"spike_march: {name} must be contiguous")
 
 
-def spike_march_cuda(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int):
-    """Launch the SPIKE march (``csrc/spike_march.cu``) for steps [k0, k1)
-    with solver set ``t`` of ``prep`` (a ``models.pde.spike.SpikePrep``).
-
-    Returns new (v, edges) tensors; the kernel reads ``v``/``edges`` and
-    allocates nothing itself.
-    """
+def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int, lam=None):
+    """Check the operands of one segment's march and launch the kernel of
+    the prep's branch; returns (v, edges[, lam]) new tensors."""
     if v.device.type != "cuda":
         raise ValueError(f"spike_march_cuda needs CUDA tensors, got {v.device}")
-    if v.dtype not in (torch.float32, torch.float64):
+    if v.dtype not in _DTYPE_TAG:
         raise TypeError(f"spike_march_cuda supports float32 and float64, got {v.dtype}")
     B, n_pad = v.shape
     m, P = prep.m, prep.P
@@ -120,7 +123,7 @@ def spike_march_cuda(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int
         raise ValueError(f"spike_march_cuda: bad shape P={P} m={m} n_pad={n_pad} steps=[{k0}, {k1})")
     args = {
         "trade": (prep.trade, (B, 11)),
-        "coef": (prep.coef[t], (B, 5)),
+        "coef": (prep.coef[t], (B, 7)),
         "fields": (prep.fields[t], (5, B, n_pad)),
         "rinv": (prep.rinv[t], (B, 2 * P, 2 * P)),
         "omask": (prep.omask, (B, n_pad)),
@@ -129,23 +132,58 @@ def spike_march_cuda(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int
         "v": (v, (B, n_pad)),
         "edges": (edges, (B, 2)),
     }
-    for name, (x, shape) in args.items():
+    tail = {}
+    if prep.american:
+        tail = {"payoff": (prep.v0, (B, n_pad)), "lam": (lam, (B, n_pad))}
+    for name, (x, shape) in {**args, **tail}.items():
         _check(name, x, shape, v)
     v_out = torch.empty_like(v)
     e_out = torch.empty_like(edges)
+    outs = (v_out, e_out)
+    extra = ()
+    if prep.american:
+        lam_out = torch.empty_like(lam)
+        outs += (lam_out,)
+        extra = (prep.v0.data_ptr(), lam.data_ptr(), lam_out.data_ptr())
     if B == 0:
-        return v_out, e_out
+        return outs
+    name = f"spike_march{'_american' if prep.american else ''}_{_DTYPE_TAG[v.dtype]}"
     lib = _lib()
-    fn = lib.spike_march_f32 if v.dtype == torch.float32 else lib.spike_march_f64
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
-        rc = fn(
+        rc = getattr(lib, name)(
             *(x.data_ptr() for x, _ in args.values()),
             v_out.data_ptr(), e_out.data_ptr(),
-            B, n_pad, m, P, prep.il, k0, k1 - k0, n_sched, stream,
+            B, n_pad, m, P, prep.il, k0, k1 - k0, n_sched, stream, *extra,
         )
     if rc != 0:
         msg = lib.spike_march_error_string(rc).decode()
-        raise RuntimeError(f"spike_march kernel launch failed: {msg} (cuda error {rc})")
-    launch_counts["spike_march"] += 1
-    return v_out, e_out
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {rc})")
+    launch_counts[name] += 1
+    return outs
+
+
+def spike_march_cuda(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int):
+    """Launch the European SPIKE march (``csrc/spike_march.cu``) for steps
+    [k0, k1) with solver set ``t`` of ``prep`` (a ``models.pde.spike.SpikePrep``).
+
+    Returns new (v, edges) tensors; the kernel reads ``v``/``edges`` and
+    allocates nothing itself.
+    """
+    if prep.american:
+        raise ValueError("spike_march_cuda: an American prep takes spike_march_american_cuda")
+    return _launch(prep, t, v, edges, k0, k1)
+
+
+def spike_march_american_cuda(
+    prep, t: int, v: torch.Tensor, edges: torch.Tensor, lam: torch.Tensor, k0: int, k1: int
+):
+    """Launch the American (Ikonen–Toivanen) SPIKE march for steps [k0, k1)
+    with solver set ``t`` of an American ``prep``, from the multiplier
+    ``lam`` (B, n_pad). The exercise target is ``prep.v0``, the payoff.
+
+    Returns new (v, edges, lam) tensors.
+    """
+    if not prep.american:
+        raise ValueError("spike_march_american_cuda needs an American prep")
+    return _launch(prep, t, v, edges, k0, k1, lam)

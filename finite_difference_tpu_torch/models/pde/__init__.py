@@ -1,8 +1,9 @@
-"""Batched Crank–Nicolson barrier pricing (counterpart of ``finite_difference_tpu.models.pde``).
+"""Batched Crank–Nicolson barrier and American pricing (counterpart of ``finite_difference_tpu.models.pde``).
 
 - :mod:`.grid` — host numpy grids and schedules;
-- :mod:`.batch` — the trade batch, ``build_trade_batch`` and
-  ``price_barrier_batch`` (the main path);
+- :mod:`.batch` — the trade batch, ``build_trade_batch`` /
+  ``price_barrier_batch`` and ``build_american_batch`` /
+  ``price_american_batch`` (the main paths);
 - :mod:`.stepper` — the batched CN step loop (``solver="scan"``);
 - :mod:`.spike` — the SPIKE march host prep, its plain reference and the
   dispatch to the CUDA kernel (``solver="spike"``).

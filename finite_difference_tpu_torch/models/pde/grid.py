@@ -2,10 +2,14 @@
 
 Plain numpy on the host, carried over unchanged from the JAX package's
 ``models/pde/grid.py`` (the port imports nothing of that package): ragged,
-date-driven structure (monitor schedules, Rannacher restarts) is
-canonicalised into the fixed-shape arrays the batched stepper consumes.
+date-driven structure (dividend segments, monitor schedules, Rannacher
+restarts) is canonicalised into the fixed-shape arrays the batched stepper
+consumes.
 
-Grid policy reproduced from the reference:
+Grid policies reproduced from the reference:
+- ``american_log_grid``: geometric-center band s_max_mult * sigma * sqrt(T)
+  around sqrt(s_low*s_high) with widening clamps
+  (fd_american_equity.py:340-411).
 - ``barrier_log_grid``: Phi^{-1}(0.99999) domain width and the
   N_space = ceil(domain_width*N_time / (2 sigma sqrt(T))) node-count rule
   (discrete_barrier_fdm_pricer.py:270-340).
@@ -14,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -43,6 +47,30 @@ class LogGrid:
 
     def snapped(self, s_level: float) -> float:
         return float(self.s_nodes[self.nearest_index(s_level)])
+
+
+def american_log_grid(
+    spot: float,
+    strike: float,
+    sigma: float,
+    t_expiry: float,
+    num_space_nodes: int,
+    s_max_mult: float = 4.5,
+) -> LogGrid:
+    """Band of width s_max_mult*sigma*sqrt(T) around the geometric center of
+    (spot, strike), widened to cover [0.5*s_low, 2*s_high]."""
+    s_low, s_high = min(spot, strike), max(spot, strike)
+    s_c = math.sqrt(max(s_low * s_high, 1e-12))
+    band = s_max_mult * sigma * math.sqrt(max(t_expiry, 1e-12))
+    x_c = math.log(s_c)
+    s_min = math.exp(x_c - 0.5 * band)
+    s_max = math.exp(x_c + 0.5 * band)
+    s_min = max(min(s_min, 0.5 * s_low), 1e-8)
+    s_max = max(s_max, 2.0 * s_high)
+    x_min, x_max = math.log(s_min), math.log(s_max)
+    n = int(num_space_nodes)
+    dx = (x_max - x_min) / float(n)
+    return LogGrid(x_min=x_min, dx=dx, n_nodes=n + 1)
 
 
 def barrier_log_grid(
@@ -204,4 +232,69 @@ def monitor_aligned_schedule(
         monitor=np.asarray(mon_l, dtype=bool),
         div_amount=np.zeros(n),
         reset_lambda=np.zeros(n, dtype=bool),
+    )
+
+
+def segmented_schedule(
+    t_expiry: float,
+    base_steps: int,
+    dividends_tau: Sequence[Tuple[float, float]],
+    rannacher_steps: int = 2,
+    restart_rannacher_at_div: bool = False,
+) -> ScheduleArrays:
+    """The American pricer's layout (fd_american_equity.py:790-843):
+
+    Segment boundaries at dividend taus (ascending, measured from expiry).
+    Integer steps per segment = round(seg_len/base_dt) (>=1), remainder to
+    the last segment; each segment uses its own dt. Rannacher (theta = 1)
+    restarts at expiry and — for calls — after each dividend. The dividend
+    jump fires on the last step of each non-final segment, and the IT
+    multiplier resets at each segment start.
+    """
+    # same open-interval filter as AmericanFDMPricer._div_times_tau: a
+    # tau=0 dividend would make seg_len=0 -> dt=0 (NaN in the IT update
+    # lam += (payoff - tilde)/dt), and tau>=T a negative final segment
+    divs = sorted(
+        [
+            (float(t), float(a))
+            for t, a in dividends_tau
+            if 0.0 < float(t) < float(t_expiry)
+        ],
+        key=lambda p: p[0],
+    )
+    tau_pts = [0.0] + [t for t, _ in divs] + [float(t_expiry)]
+    n_segments = len(tau_pts) - 1
+    seg_lengths = [tau_pts[i + 1] - tau_pts[i] for i in range(n_segments)]
+    base_dt = t_expiry / float(base_steps)
+
+    seg_steps: List[int] = []
+    remaining = int(base_steps)
+    for seg_len in seg_lengths[:-1]:
+        n_seg = max(1, int(round(seg_len / base_dt)))
+        seg_steps.append(n_seg)
+        remaining -= n_seg
+    seg_steps.append(max(1, remaining))
+
+    dt_l, theta_l, tau_l, div_l, reset_l = [], [], [], [], []
+    tau = 0.0
+    for seg_idx in range(n_segments):
+        n_seg = seg_steps[seg_idx]
+        seg_dt = seg_lengths[seg_idx] / float(n_seg)
+        restart = seg_idx == 0 or restart_rannacher_at_div
+        for k in range(n_seg):
+            dt_l.append(seg_dt)
+            theta_l.append(1.0 if (restart and k < rannacher_steps) else 0.5)
+            tau += seg_dt
+            tau_l.append(tau)
+            is_last = k == n_seg - 1
+            div_l.append(divs[seg_idx][1] if (is_last and seg_idx < len(divs)) else 0.0)
+            reset_l.append(k == 0)
+    n = len(dt_l)
+    return ScheduleArrays(
+        dt=np.asarray(dt_l),
+        theta=np.asarray(theta_l),
+        tau_next=np.asarray(tau_l),
+        monitor=np.zeros(n, dtype=bool),
+        div_amount=np.asarray(div_l),
+        reset_lambda=np.asarray(reset_l, dtype=bool),
     )

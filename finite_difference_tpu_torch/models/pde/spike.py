@@ -1,18 +1,24 @@
-"""SPIKE (partitioned Thomas) Crank–Nicolson march for barrier batches.
+"""SPIKE (partitioned Thomas) Crank–Nicolson march for barrier and American batches.
 
 Counterpart of the SPIKE part of ``finite_difference_tpu/models/pde/
 pallas_kernel.py``: the host prep ``_per_row_thomas``, ``_chunk_solve`` and
 ``_build_solver_set``; ``cn_barrier_solve_spike`` (the body of
-``_cn_barrier_solve_spike_jit``, European only, no dividend jump); and the
-European branch of the Pallas kernel ``_kernel_spike``, which here is the
-CUDA kernel ``csrc/spike_march.cu`` with :func:`spike_march_reference` as
-its plain PyTorch version.
+``_cn_barrier_solve_spike_jit``: segments, lambda resets and the dividend
+jump between launches); and the Pallas kernel ``_kernel_spike``, both
+branches, which here is the CUDA kernel ``csrc/spike_march.cu`` with
+:func:`spike_march_reference` as its plain PyTorch version. At float64 the
+same kernel, compiled at ``double``, takes the place of the TPU's
+double-float kernel ``_kernel_spike_df64``: the H100 has native float64.
 
 Each step's implicit tridiagonal solve splits the n_int interior rows into P
 chunks of m rows. Each chunk runs its own Thomas chain; the chunks are
 coupled through the 2P-unknown SPIKE interface system, whose (per segment
 constant) inverse is precomputed here, so a step's interface solve is one
-2P x 2P matvec.
+2P x 2P matvec. With ``american=True`` each step also carries the
+Ikonen–Toivanen multiplier lambda: a ``dt*lambda`` source term in the
+right-hand side, the projection ``max(payoff, v - dt*lambda)`` and the
+update ``lambda = max(0, lambda + (payoff - v)/dt)``; lambda is threaded
+across segments.
 
 Layout. Interior row g = j*m + ii (chunk j, in-chunk row ii) is stored at
 position r = ii*P + j of a trade's (n_pad,) row, n_pad = m*P; trades are
@@ -21,7 +27,8 @@ holds one trade and lane j walks chunk j: each band ii is one coalesced
 row read. Rows g >= n_int are identity pad rows pinned to 0, all in the
 tail of chunk P-1 (at least one exists by the choice of m), so the
 global-last row's in-chunk upper neighbour is always a zero pad and its
-boundary coupling is folded into the right-hand side.
+boundary coupling is folded into the right-hand side. On a pad row the
+payoff, lambda and the solve are all 0, so the American update keeps it 0.
 
 P is this port's own parameter: :func:`spike_p` takes the largest of 32,
 16 and 8 that the grid's shape admits (32 for the 1024-node main path).
@@ -36,6 +43,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ... import kernels
+from ...ops.interp import cubic_spline_eval, natural_cubic_spline
+from .stepper import _payoff
 
 P_CANDIDATES = (32, 16, 8)
 
@@ -44,7 +53,7 @@ TRADE_COLS = (
     "strike", "is_call", "r", "growth_rate", "rebate", "rebate_at_hit",
     "rebate_rate", "s_min", "s_max", "omask_lo", "omask_hi",
 )
-COEF_COLS = ("bl", "bc", "bu", "al", "au")
+COEF_COLS = ("bl", "bc", "bu", "al", "au", "dt", "bsum")
 FIELD_ROWS = ("w", "af", "ab", "vsp", "wsp")
 
 
@@ -78,11 +87,14 @@ class SpikePrep:
     """The prepared tensors one SPIKE march reads (all on one device, one dtype).
 
     ``trade`` (B, 11) per-trade constants in :data:`TRADE_COLS` order;
-    ``coef`` (S, B, 5) explicit/implicit CN coefficients per solver set;
-    ``fields`` (S, 5, B, n_pad) per-row Thomas and spike vectors;
+    ``coef`` (S, B, 7) explicit/implicit CN coefficients, dt and the
+    explicit row sum per solver set; ``fields`` (S, 5, B, n_pad) per-row Thomas and spike vectors;
     ``rinv`` (S, B, 2P, 2P) interface inverses stored [set, trade, column,
     row]; ``omask`` (B, n_pad) knock-out mask; ``tau``/``mon`` (B, n_steps)
     schedule; ``v0`` (B, n_pad) payoff and ``edge0`` (B, 2) its edge values.
+    ``american`` selects the Ikonen–Toivanen branch of the march, whose
+    exercise target is ``v0`` (the payoff) in every segment, and the
+    American put edge K e^{-r tau} (no S_min term).
     """
 
     trade: torch.Tensor
@@ -98,6 +110,7 @@ class SpikePrep:
     P: int
     n_int: int
     il: int  # band ii holding the global-last interior row (in chunk P-1)
+    american: bool = False
 
 
 def _per_row_thomas(l, c, u):
@@ -126,8 +139,8 @@ def _chunk_solve(w, af, ab, rhs):
     return y
 
 
-def _build_solver_set(theta, dt, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
-    """One (theta, dt) solver set: (coef (B, 5), fields (5, B, n_pad), rinv (B, 2P, 2P)).
+def _build_solver_set(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
+    """One (theta, dt) solver set: (coef (B, 7), fields (5, B, n_pad), rinv (B, 2P, 2P)).
 
     The 2P x 2P interface inverse is ``torch.linalg.inv`` at the prep's
     float64, outside the kernel, as JAX calls ``jnp.linalg.inv`` outside
@@ -173,6 +186,10 @@ def _build_solver_set(theta, dt, a_coef, b_coef, c_coef, has_l, has_u, real, m, 
             (1.0 - theta) * dt * c_coef,
             a_l,
             a_u,
+            dt,
+            # the explicit row sum bl + bc + bu, for the American march's
+            # rhs (see spike_march_reference)
+            1.0 - (1.0 - theta) * dt * r,
         ],
         dim=1,
     )
@@ -180,11 +197,12 @@ def _build_solver_set(theta, dt, a_coef, b_coef, c_coef, has_l, has_u, real, m, 
     return coef, fields, rinv
 
 
-def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs) -> SpikePrep:
+def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool = False) -> SpikePrep:
     """Host prep of one SPIKE solve.
 
     ``set_defs`` is ``((theta, k_col), ...)``: one solver set per entry,
-    with dt read from ``batch.dt[:, k_col]``.
+    with dt read from ``batch.dt[:, k_col]``. ``american`` selects the
+    Ikonen–Toivanen march (see :class:`SpikePrep`).
 
     The prep runs at float64 whatever the march's dtype (that of
     ``batch.x_min``) and is rounded to it once at the end. At float32 the
@@ -229,7 +247,7 @@ def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs) -> SpikePrep:
 
     sets = [
         _build_solver_set(
-            theta, f(batch.dt[:, k_col]), a_coef, b_coef, c_coef,
+            theta, f(batch.dt[:, k_col]), r, a_coef, b_coef, c_coef,
             has_l, has_u, real, m, P,
         )
         for theta, k_col in set_defs
@@ -266,27 +284,46 @@ def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs) -> SpikePrep:
         P=P,
         n_int=n_int,
         il=g_last % m,
+        american=american,
     )
 
 
-def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
+def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, lam=None):
     """Plain PyTorch version of the kernel: march steps [k0, k1) with solver set t.
 
     ``v`` (B, n_pad) and ``edges`` (B, 2) are the state entering step k0;
-    returns the state after step k1-1. Follows the European branch of the
-    TPU kernel ``_kernel_spike`` band by band.
+    returns the state after step k1-1, ``(v, edges)``. For an American prep
+    ``lam`` (B, n_pad) is the Ikonen–Toivanen multiplier entering step k0
+    and the return is ``(v, edges, lam)``. Follows the TPU kernel
+    ``_kernel_spike`` band by band, both branches.
+
+    One deliberate difference in the American branch: its explicit rhs is
+    ``bsum*v + bl*(v_prev - v) + bu*(v_next - v)``, with the row sum
+    ``bsum = 1 - (1-theta)*dt*r`` computed at float64, instead of
+    ``bc*v + bl*v_prev + bu*v_next``. The two are equal in exact
+    arithmetic. At the American grid's dt/dx^2 (bl, bu ~ 47 and bc ~ -93 at
+    N=1024, 512 steps, T=1) rounding bc to float32 perturbs the row sum by
+    ~5e-6 against the discount term (1-theta)*dt*r ~ 6e-5 it carries, and
+    that alone moved float32 values by ~4e-2 on the American bench set
+    (``python -m finite_difference_tpu_torch.f32_budget``); the row-sum
+    form keeps the discount exact to float32.
     """
+    if prep.american != (lam is not None):
+        raise ValueError("spike_march: lam is required for an American prep, and only for one")
     B = v.shape[0]
     m, P, il = prep.m, prep.P, prep.il
     (strike, is_call, r, growth_rate, rebate, at_hit, rebate_rate,
      s_min, s_max, omask_lo, omask_hi) = prep.trade.unbind(1)
     is_call, at_hit = is_call != 0, at_hit != 0
     omask_lo, omask_hi = omask_lo != 0, omask_hi != 0
-    bl, bc, bu, al, au = (x[:, None] for x in prep.coef[t].unbind(1))
+    bl, bc, bu, al, au, dt, bsum = (x[:, None] for x in prep.coef[t].unbind(1))
     w, af, ab, vsp, wsp = (x.view(B, m, P) for x in prep.fields[t])
     rinv = prep.rinv[t]
     out_mask = prep.omask.view(B, m, P) != 0
     zero = torch.zeros_like(strike)
+    if prep.american:
+        payoff = prep.v0.view(B, m, P)
+        lam = lam.view(B, m, P)
 
     v = v.view(B, m, P).clone()
     v_lo, v_hi = edges[:, 0], edges[:, 1]
@@ -294,7 +331,10 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
         tau = prep.tau[:, k]
         growth = torch.exp(growth_rate * tau)
         disc = torch.exp(-r * tau)
-        v_min_n = torch.where(is_call, zero, strike * disc - s_min * growth)
+        # American pricer convention (fd_american_equity.py:474-478): the
+        # put's lower edge is K e^{-r tau}, without the S_min asymptote
+        v_min_put = strike * disc if prep.american else strike * disc - s_min * growth
+        v_min_n = torch.where(is_call, zero, v_min_put)
         v_max_n = torch.where(is_call, s_max * growth - strike * disc, zero)
 
         # band-streamed rhs + forward chain; cross-chunk neighbours only at
@@ -306,10 +346,21 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
         dp = torch.empty_like(v)
         for ii in range(m):
             v_next = v[:, ii + 1] if ii < m - 1 else up_fix
-            rhs = bc * v_cur + bl * v_prev + bu * v_next
+            if prep.american:
+                if ii == il:  # global-last row: its upper neighbour is the edge
+                    v_next = v_next.clone()
+                    v_next[:, P - 1] = v_hi
+                # row-sum form of bc*v + bl*v_prev + bu*v_next (see below),
+                # plus the Ikonen–Toivanen source term (0 on pads)
+                rhs = bsum * v_cur + bl * (v_prev - v_cur) + bu * (v_next - v_cur)
+                rhs = rhs + dt * lam[:, ii]
+            else:
+                rhs = bc * v_cur + bl * v_prev + bu * v_next
             if ii == 0:  # global row 0: implicit lower-boundary coupling
                 rhs[:, 0] = rhs[:, 0] - al[:, 0] * v_min_n
-            if ii == il:  # global-last row: its upper neighbour was a zero pad
+            if ii == il and prep.american:
+                rhs[:, P - 1] = rhs[:, P - 1] - au[:, 0] * v_max_n
+            elif ii == il:  # global-last row: its upper neighbour was a zero pad
                 rhs[:, P - 1] = rhs[:, P - 1] + (bu[:, 0] * v_hi - au[:, 0] * v_max_n)
             elif ii > il:  # pad rows
                 rhs[:, P - 1] = 0.0
@@ -337,20 +388,31 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
         mon = prep.mon[:, k] != 0
         rebate_pv = torch.where(at_hit, rebate, rebate * torch.exp(-rebate_rate * tau))
         xr = dp - bprev[:, None, :] * vsp - tnext[:, None, :] * wsp
+        if prep.american:
+            # v = max(payoff, tilde - dt*lam_old);
+            # lam_new = max(0, lam_old + (payoff - tilde)/dt)
+            dt3 = dt[:, :, None]
+            v_am = torch.maximum(payoff, xr - dt3 * lam)
+            lam = torch.clamp(lam + (payoff - xr) / dt3, min=0.0)
+            xr = v_am
         v = torch.where(mon[:, None, None] & out_mask, rebate_pv[:, None, None], xr)
         v_lo = torch.where(mon & omask_lo, rebate_pv, v_min_n)
         v_hi = torch.where(mon & omask_hi, rebate_pv, v_max_n)
-    return v.reshape(B, m * P), torch.stack([v_lo, v_hi], dim=1)
+    out = (v.reshape(B, m * P), torch.stack([v_lo, v_hi], dim=1))
+    return (*out, lam.reshape(B, m * P)) if prep.american else out
 
 
-def spike_march(prep: SpikePrep, t: int, v, edges, k0: int, k1: int):
-    """One segment of the march: the CUDA kernel for CUDA tensors, the plain
+def spike_march(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, lam=None):
+    """One segment of the march, with :func:`spike_march_reference`'s
+    arguments and returns: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. There is no fallback between the two: a kernel
     that fails to build or launch raises."""
     if v.device.type == "cuda":
+        if prep.american:
+            return kernels.spike_march_american_cuda(prep, t, v, edges, lam, k0, k1)
         return kernels.spike_march_cuda(prep, t, v, edges, k0, k1)
     if v.device.type == "cpu":
-        return spike_march_reference(prep, t, v, edges, k0, k1)
+        return spike_march_reference(prep, t, v, edges, k0, k1, lam)
     raise ValueError(f"spike_march: unsupported device {v.device}")
 
 
@@ -367,6 +429,77 @@ def default_segments(n_steps: int, rannacher_steps: int = 2):
     return tuple(segments), tuple(set_defs)
 
 
+def assemble(prep: SpikePrep, v, edges):
+    """The (B, N) value grids of a march state (the untranspose): position
+    r = ii*P + j holds interior row g = j*m + ii."""
+    B = v.shape[0]
+    interior = v.view(B, prep.m, prep.P).transpose(1, 2).reshape(B, -1)[:, : prep.n_int]
+    return torch.cat([edges[:, :1], interior, edges[:, 1:]], dim=1)
+
+
+def _to_rows(prep: SpikePrep, v_full):
+    """Inverse of :func:`assemble`: (v (B, n_pad) with pads at 0, edges (B, 2))."""
+    B = v_full.shape[0]
+    pad = v_full.new_zeros(B, prep.m * prep.P - prep.n_int)
+    rows = torch.cat([v_full[:, 1:-1], pad], dim=1).view(B, prep.P, prep.m)
+    return rows.transpose(1, 2).reshape(B, -1), torch.stack([v_full[:, 0], v_full[:, -1]], dim=1)
+
+
+def _dividend_jump(batch, prep: SpikePrep, v, edges, k: int):
+    """The cash-dividend jump after step k, between two launches
+    (pallas_kernel.py:1090-1115): V(t-, S) = V(t+, S - D) through the
+    batched natural cubic spline, the interval bracket in closed form on
+    the log-uniform grid, and the American call's exercise check at ex-div.
+    Trades with no dividend at k keep their values.
+
+    It runs at float64 and is rounded once to the march's dtype, as the
+    prep is: at float64 this is the JAX package's arithmetic; at float32
+    it is a deliberate difference from JAX's f32 jump.
+    """
+    f = lambda x: x.to(torch.float64)
+    v_full = f(assemble(prep, v, edges))
+    i = torch.arange(v_full.shape[1], dtype=torch.float64, device=v.device)
+    x_min, dx = f(batch.x_min)[:, None], f(batch.dx)[:, None]
+    s = torch.exp(x_min + i[None, :] * dx)
+    d = f(batch.div_amount[:, k])[:, None]
+    xq = s - d
+    j_idx = torch.floor((torch.log(torch.maximum(xq, s[:, :1])) - x_min) / dx).long()
+    v_shift = cubic_spline_eval(natural_cubic_spline(s, v_full), xq, j_idx)
+    # American calls may exercise just before ex-div
+    payoff = _payoff(s, f(batch.strike), batch.is_call)
+    v_shift = torch.where(batch.is_call[:, None], torch.maximum(v_shift, payoff), v_shift)
+    v_full = torch.where(d != 0.0, v_shift, v_full)
+    return _to_rows(prep, v_full.to(v.dtype))
+
+
+def march_segments(batch, prep: SpikePrep, segments, div_steps=(), reset_steps=(), step=spike_march):
+    """Run ``segments`` ``((k0, k1, set_idx), ...)`` from the prep's payoff:
+    the final march state ``(v, edges)``.
+
+    For an American prep, lambda starts at 0, is zeroed per trade (from
+    ``batch.reset_lambda``) at each segment start listed in
+    ``reset_steps``, and each segment ending at a step listed in
+    ``div_steps`` is followed by the dividend jump (from
+    ``batch.div_amount``). ``step`` is the segment march, with
+    :func:`spike_march_reference`'s signature: :func:`spike_march` by
+    default; a caller may pass the plain version or the kernel to compare
+    the two on the same device.
+    """
+    v, edges = prep.v0, prep.edge0
+    lam = torch.zeros_like(v) if prep.american else None
+    div_set, reset_set = frozenset(div_steps), frozenset(reset_steps)
+    for k0, k1, t in segments:
+        if not prep.american:
+            v, edges = step(prep, t, v, edges, k0, k1)
+            continue
+        if k0 in reset_set:
+            lam = lam * (1.0 - batch.reset_lambda[:, k0].to(lam.dtype))[:, None]
+        v, edges, lam = step(prep, t, v, edges, k0, k1, lam)
+        if k1 - 1 in div_set:
+            v, edges = _dividend_jump(batch, prep, v, edges, k1 - 1)
+    return v, edges
+
+
 def cn_barrier_solve_spike(
     batch,
     sigma,
@@ -376,8 +509,11 @@ def cn_barrier_solve_spike(
     p_chunks: Optional[int] = None,
     segments: Optional[Sequence[Tuple[int, int, int]]] = None,
     set_defs: Optional[Sequence[Tuple[float, int]]] = None,
+    american: bool = False,
+    div_steps: Sequence[int] = (),
+    reset_steps: Sequence[int] = (),
 ):
-    """SPIKE-partitioned CN solve of a barrier batch: the values V (B, N).
+    """SPIKE-partitioned CN solve of a barrier or American batch: the values V (B, N).
 
     One march launch per run of steps sharing a (theta, dt) pair:
 
@@ -386,10 +522,15 @@ def cn_barrier_solve_spike(
     - ``segments``/``set_defs`` (host-derived, see
       ``batch._spike_schedule_impl``): ``set_defs`` is ``((theta, k_col), ...)``,
       ``segments`` is ``((k0, k1, set_idx), ...)`` covering [0, n_steps),
-      which admits monitor-aligned per-interval dt layouts.
+      which admits monitor-aligned per-interval dt layouts and the American
+      dividend segments.
 
-    ``p_chunks`` defaults to :func:`spike_p`. The march runs on the device
-    of ``batch``: the CUDA kernel on a card, its plain version on the CPU.
+    ``american=True`` runs the Ikonen–Toivanen branch; ``div_steps`` and
+    ``reset_steps`` (American only, from ``batch._spike_schedule_impl``)
+    place the dividend jumps and lambda resets between launches (see
+    :func:`march_segments`). ``p_chunks`` defaults to :func:`spike_p`. The
+    march runs on the device of ``batch``: the CUDA kernel on a card, its
+    plain version on the CPU.
     """
     if segments is None or set_defs is None:
         # the default layout assumes globally uniform dt with an n_rann-step
@@ -418,12 +559,9 @@ def cn_barrier_solve_spike(
     if P is None:
         raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}")
 
-    prep = prepare_spike(batch, sigma, n_nodes, P, set_defs)
-    v, edges = prep.v0, prep.edge0
-    for k0, k1, t in segments:
-        v, edges = spike_march(prep, t, v, edges, k0, k1)
+    if not american and (div_steps or reset_steps):
+        raise ValueError("div_steps and reset_steps apply to American batches only")
 
-    # untranspose: position r = ii*P + j holds interior row g = j*m + ii
-    B = v.shape[0]
-    interior = v.view(B, prep.m, P).transpose(1, 2).reshape(B, -1)[:, : prep.n_int]
-    return torch.cat([edges[:, :1], interior, edges[:, 1:]], dim=1)
+    prep = prepare_spike(batch, sigma, n_nodes, P, set_defs, american=american)
+    v, edges = march_segments(batch, prep, segments, div_steps, reset_steps)
+    return assemble(prep, v, edges)

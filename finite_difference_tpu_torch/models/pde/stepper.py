@@ -14,17 +14,21 @@ Python step loop.
   (discrete_barrier_fdm_pricer.py:413-440), with rebate PV.
 - American early exercise is Ikonen–Toivanen operator splitting
   (fd_american_equity.py:701-723).
+- Discrete cash dividends apply the natural-cubic-spline jump
+  V(t-, S) = V(t+, S - D) (fd_american_equity.py:732-776), with the
+  American-call exercise check at ex-div.
 
-The JAX stepper's ``with_dividends`` spline jump is not ported: the
-barrier path never sets it. This is the port's ``solver="scan"`` and its
-float64 CPU oracle for the SPIKE kernel.
+This is the port's ``solver="scan"`` and its float64 oracle for the SPIKE
+kernel.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from ...ops.interp import cubic_spline_eval, natural_cubic_spline
 from ...ops.tridiag import thomas_solve_const
 
 
@@ -67,6 +71,7 @@ class CNSchedule(NamedTuple):
     theta: torch.Tensor  # 1.0 = fully implicit (Rannacher), 0.5 = CN
     tau_next: torch.Tensor  # time-to-maturity after the step
     monitor: torch.Tensor  # bool: apply KO projection after the step
+    div_amount: torch.Tensor  # cash dividend jump applied after the step (0 = none)
     reset_lambda: torch.Tensor  # bool: zero the IT multiplier before the step
 
 
@@ -105,13 +110,19 @@ def cn_solve(
     n_nodes: int,
     barrier: Optional[BarrierSpec] = None,
     american: bool = False,
+    with_dividends: bool = False,
+    exercise_call_at_div: bool = True,
     euro_put_lower_boundary: bool = True,
     terminal_values: Optional[torch.Tensor] = None,
 ):
     """March the value grids from expiry (tau=0) to valuation (tau=T).
 
     Returns ``(V, s_nodes)``, both (B, n_nodes): the values at valuation
-    and the S-space node locations.
+    and the S-space node locations. ``with_dividends`` applies the spline
+    jump after each step where a trade's ``div_amount`` is nonzero (the JAX
+    stepper evaluates it on every step and keeps it where the amount is
+    nonzero; here only the columns where some trade has a dividend run it,
+    with the same result).
     """
     dtype, device = grid.x_min.dtype, grid.x_min.device
     i = torch.arange(n_nodes, dtype=dtype, device=device)
@@ -135,6 +146,10 @@ def cn_solve(
         out_mask = (barrier.has_lower[:, None] & (s <= barrier.lower[:, None])) | (
             barrier.has_upper[:, None] & (s >= barrier.upper[:, None])
         )
+
+    div_cols = set()
+    if with_dividends:
+        div_cols = set(np.flatnonzero((schedule.div_amount != 0).any(dim=0).cpu().numpy()).tolist())
 
     for k in range(schedule.dt.shape[1]):
         dt, theta = schedule.dt[:, k], schedule.theta[:, k]
@@ -179,4 +194,12 @@ def cn_solve(
             v = torch.where(
                 schedule.monitor[:, k, None] & out_mask, rebate_pv[:, None], v
             )
+
+        if k in div_cols:
+            div = schedule.div_amount[:, k, None]
+            v_shift = cubic_spline_eval(natural_cubic_spline(s, v), s - div)
+            if exercise_call_at_div:
+                # American calls may exercise just before ex-div
+                v_shift = torch.where(dyn.is_call[:, None], torch.maximum(v_shift, payoff), v_shift)
+            v = torch.where(div != 0.0, v_shift, v)
     return v, s

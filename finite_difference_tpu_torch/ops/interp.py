@@ -1,0 +1,67 @@
+"""Natural cubic spline on batched torch tensors.
+
+Counterpart of ``finite_difference_tpu.ops.interp``'s
+``natural_cubic_spline`` and ``cubic_spline_eval``, used by the dividend
+jump V(t-, S) = V(t+, S - D) (fd_american_equity.py:479-558, 732-776).
+The JAX functions work on one row and are vmapped; here every argument
+carries the batch as leading axes and the knots on the last axis.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .tridiag import thomas_solve_pscan
+
+
+class SplineCoeffs(NamedTuple):
+    x: torch.Tensor  # (..., n) knots
+    y: torch.Tensor  # (..., n) values at knots
+    b: torch.Tensor  # (..., n-1) slope coefficients
+    c: torch.Tensor  # (..., n-1) curvature coefficients
+    d: torch.Tensor  # (..., n-1) cubic coefficients
+
+
+def natural_cubic_spline(x: torch.Tensor, y: torch.Tensor) -> SplineCoeffs:
+    """Natural cubic spline through (x_i, y_i) along the last axis, with
+    c_0 = c_{n-1} = 0; the second-derivative system is solved with the
+    log-depth :func:`ops.tridiag.thomas_solve_pscan`."""
+    h = torch.diff(x, dim=-1)
+    dy = torch.diff(y, dim=-1)
+    alpha = 3.0 * (dy[..., 1:] / h[..., 1:] - dy[..., :-1] / h[..., :-1])
+    # interior system: h[i-1] c[i-1] + 2(h[i-1]+h[i]) c[i] + h[i] c[i+1] = alpha
+    dl = h[..., :-1]
+    du = h[..., 1:]
+    dm = 2.0 * (h[..., :-1] + h[..., 1:])
+    c_int = thomas_solve_pscan(dl, dm, du, alpha)
+    zeros = torch.zeros_like(x[..., :1])
+    c_full = torch.cat([zeros, c_int, zeros], dim=-1)
+    b = dy / h - h * (c_full[..., 1:] + 2.0 * c_full[..., :-1]) / 3.0
+    d = (c_full[..., 1:] - c_full[..., :-1]) / (3.0 * h)
+    return SplineCoeffs(x=x, y=y, b=b, c=c_full[..., :-1], d=d)
+
+
+def cubic_spline_eval(coeffs: SplineCoeffs, xq: torch.Tensor, idx=None) -> torch.Tensor:
+    """The spline at ``xq`` (..., M), the leading axes those of the knots.
+    Outside the knot span the value clamps to the end knot values
+    (fd_american_equity.py:752-758).
+
+    ``idx``: optional precomputed interval indices, shaped like ``xq``, for
+    grids where the bracketing interval has a closed form (log-uniform PDE
+    grids: ``floor((log(xq) - x_min) / dx)``); it replaces the
+    ``searchsorted``. An off-by-one at an exact knot is harmless (the
+    spline is C^2); indices are clipped to the valid range.
+    """
+    x, y = coeffs.x, coeffs.y
+    n = x.shape[-1]
+    if idx is None:
+        idx = torch.searchsorted(x.contiguous(), xq.contiguous(), right=True) - 1
+    idx = idx.long().clamp(0, n - 2)
+    xg, yg, bg, cg, dg = (
+        torch.gather(a, -1, idx) for a in (x[..., :-1], y[..., :-1], coeffs.b, coeffs.c, coeffs.d)
+    )
+    z = xq - xg
+    val = yg + z * (bg + z * (cg + z * dg))
+    val = torch.where(xq <= x[..., :1], y[..., :1], val)
+    return torch.where(xq >= x[..., -1:], y[..., -1:], val)

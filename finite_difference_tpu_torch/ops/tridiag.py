@@ -1,7 +1,12 @@
-"""Constant-diagonal tridiagonal solve on batched torch tensors.
+"""Tridiagonal solves on batched torch tensors, in log depth.
 
-Counterpart of ``finite_difference_tpu.ops.tridiag.thomas_solve_const``,
-the CN hot path of the scan stepper. With constant diagonals
+Counterparts of ``finite_difference_tpu.ops.tridiag``:
+
+- ``thomas_solve_const``, the CN hot path of the scan stepper;
+- ``thomas_solve_pscan``, the general-coefficient solve behind the
+  natural cubic spline of the dividend jump (``ops.interp``).
+
+With constant diagonals
 (a_l, a_c, a_u) the forward-elimination denominators satisfy the
 constant-coefficient Riccati recurrence  D_i = a_c - a_l*a_u / D_{i-1},
 whose closed form in the characteristic roots
@@ -72,4 +77,56 @@ def thomas_solve_const(a_l, a_c, a_u, rhs: torch.Tensor) -> torch.Tensor:
     # forward sweep d'_i = w_i rhs_i - (a_l w_i) d'_{i-1};
     # backward sweep x_i = d'_i - c'_i x_{i+1}
     d_prime = _affine_scan(-a_l * w, w * rhs)
+    return _affine_scan(-c_prime, d_prime, reverse=True)
+
+
+def _homography_scan(m00, m01, m10, m11):
+    """Inclusive products M_i ... M_0 of 2x2 matrices along the last axis.
+
+    Log-depth doubling scan; each product is renormalised by its largest
+    |entry| (a homography is scale-invariant), so products stay O(1).
+    """
+    n = m00.shape[-1]
+    s = 1
+    while s < n:
+        o00, o01, o10, o11 = (x[..., :-s] for x in (m00, m01, m10, m11))
+        n00, n01, n10, n11 = (x[..., s:] for x in (m00, m01, m10, m11))
+        c00 = n00 * o00 + n01 * o10
+        c01 = n00 * o01 + n01 * o11
+        c10 = n10 * o00 + n11 * o10
+        c11 = n10 * o01 + n11 * o11
+        sc = torch.maximum(
+            torch.maximum(c00.abs(), c01.abs()), torch.maximum(c10.abs(), c11.abs())
+        )
+        sc = torch.where(sc > 0.0, sc, torch.ones_like(sc))
+        m00, m01, m10, m11 = (
+            torch.cat([x[..., :s], c / sc], dim=-1)
+            for x, c in ((m00, c00), (m01, c01), (m10, c10), (m11, c11))
+        )
+        s *= 2
+    return m00, m01, m10, m11
+
+
+def thomas_solve_pscan(dl, d, du, rhs):
+    """General-coefficient Thomas solve of T x = rhs in O(log n) depth.
+
+    Shapes (..., n); dl[..., 0] and du[..., -1] are ignored. The forward
+    elimination's recurrence c'_i = du_i / (d_i - dl_i c'_{i-1}) is a
+    linear-fractional map of c'_{i-1}, so all c'_i come from the products
+    of the homographies M_i = [[0, du_i], [-dl_i, d_i]]; the forward and
+    backward sweeps are then affine scans. For diagonally dominant systems
+    (splines), where the recurrence is contractive.
+    """
+    dl, d, du, rhs = torch.broadcast_tensors(dl, d, du, rhs)
+    zero = torch.zeros_like(d[..., :1])
+    # zero the ignored corners so arbitrary caller values cannot overflow
+    # the matrix products (they never affect the solution)
+    dl = torch.cat([zero, dl[..., 1:]], dim=-1)
+    du = torch.cat([du[..., :-1], zero], dim=-1)
+    _, c01, _, c11 = _homography_scan(torch.zeros_like(d), du, -dl, d)
+    # c'_i = (M_i ... M_0) applied to c'_{-1} = 0, i.e. column [0, 1]^T
+    c_prime = c01 / c11
+    cp_prev = torch.cat([zero, c_prime[..., :-1]], dim=-1)
+    denom = d - dl * cp_prev
+    d_prime = _affine_scan(-dl / denom, rhs / denom)
     return _affine_scan(-c_prime, d_prime, reverse=True)

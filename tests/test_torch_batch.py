@@ -77,7 +77,7 @@ def test_slice_matches_jax(name):
     kernels.reset_launch_counts()
     got_scan = port_batch.price_barrier_batch(pb, n_nodes, solver="scan", device="cpu")
     got_spike = port_batch.price_barrier_batch(pb, n_nodes, solver="spike", device="cpu")
-    assert kernels.launch_counts["spike_march"] == 0  # CPU: the plain version
+    assert not any(kernels.launch_counts.values())  # CPU: the plain version
     _assert_close(got_scan, ref_scan)
     _assert_close(got_spike, ref_spike)
 

@@ -4,11 +4,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-It holds the SPIKE march kernel (csrc/spike_march.cu) against its plain
-version (spike.spike_march_reference) on the same prepared inputs, at
-float64 within 1e-11 and float32 within 2e-4 of max|V| (float32: FMA
-contraction and a different rounding order), and shows the main path
-launches it.
+It holds the SPIKE march kernel (csrc/spike_march.cu), European and
+American branches, against its plain version (spike.spike_march_reference)
+on the same prepared inputs, at float64 within 1e-11 and float32 within
+2e-4 of max|V| (float32: FMA contraction and a different rounding order),
+and shows the barrier and American paths launch it.
 """
 import numpy as np
 import pytest
@@ -16,7 +16,13 @@ import torch
 
 from finite_difference_tpu_torch import kernels
 from finite_difference_tpu_torch.models.pde import spike
-from finite_difference_tpu_torch.models.pde.batch import build_trade_batch, price_barrier_batch
+from finite_difference_tpu_torch.models.pde.batch import (
+    _spike_schedule_impl,
+    build_american_batch,
+    build_trade_batch,
+    price_american_batch,
+    price_barrier_batch,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -67,7 +73,8 @@ def test_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
         v_k, e_k = kernels.spike_march_cuda(prep, t, v_k, e_k, k0, k1)
         v_r, e_r = spike.spike_march_reference(prep, t, v_r, e_r, k0, k1)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["spike_march"] == len(segments)
+    tag = "f64" if dtype == torch.float64 else "f32"
+    assert kernels.launch_counts[f"spike_march_{tag}"] == len(segments)
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= limit * scale
     assert float((e_k - e_r).abs().max()) <= limit * scale
@@ -95,7 +102,7 @@ def test_main_path_goes_through_the_kernel(cuda):
     tb = build_trade_batch(device=cuda, **kw)
     kernels.reset_launch_counts()
     got = price_barrier_batch(tb, 128)  # solver="auto" -> spike on CUDA
-    assert kernels.launch_counts["spike_march"] == 4  # 2 segments x (base + vega bump)
+    assert kernels.launch_counts["spike_march_f64"] == 4  # 2 segments x (base + vega bump)
     ref = price_barrier_batch(tb, 128, solver="scan", device="cpu")
     for k in KEYS:
         np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
@@ -113,6 +120,82 @@ def test_large_grid_opts_into_more_shared_memory(cuda):
     for k0, k1, t in segments:
         v_k, e_k = kernels.spike_march_cuda(prep, t, v_k, e_k, k0, k1)
         v_r, e_r = spike.spike_march_reference(prep, t, v_r, e_r, k0, k1)
+    torch.cuda.synchronize()
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= 1e-11 * scale
+    assert float((e_k - e_r).abs().max()) <= 1e-11 * scale
+
+
+def _american_kwargs(seed=0, B=13, n_steps=40, num_space_nodes=127, is_call=False):
+    """Two cash dividends per trade: jumps between launches, lambda resets."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        spots=list(rng.uniform(85.0, 115.0, B)), strikes=[100.0] * B,
+        sigmas=list(rng.uniform(0.15, 0.4, B)), t_expiry=[1.0] * B, r=[0.06] * B,
+        b=list(rng.uniform(0.0, 0.06, B)), is_call=[is_call] * B, n_time_steps=n_steps,
+        dividends_tau=[[(0.3, 1.5), (0.7, 1.0)]] * B, num_space_nodes=num_space_nodes,
+    )
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+@pytest.mark.parametrize("n_nodes", [127, 128, 129, 152])  # P = 32, 32, 32, 8
+@pytest.mark.parametrize("is_call", [False, True])
+def test_american_kernel_matches_plain_version(cuda, dtype, limit, n_nodes, is_call):
+    tb = build_american_batch(dtype=dtype, device=cuda, **_american_kwargs(
+        seed=n_nodes, num_space_nodes=n_nodes - 1, is_call=is_call))
+    segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
+    assert div_steps and reset_steps
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    # one segment from a nonzero lambda: lambda out, and pad rows that stay 0
+    k0, k1, t = segments[1]
+    lam0 = torch.rand(prep.v0.shape, dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    pads = torch.arange(prep.v0.shape[1], device=cuda).view(prep.m, prep.P).T.reshape(-1)[prep.n_int:]
+    lam0[:, pads] = 0.0
+    kernels.reset_launch_counts()
+    got = kernels.spike_march_american_cuda(prep, t, prep.v0, prep.edge0, lam0, k0, k1)
+    want = spike.spike_march_reference(prep, t, prep.v0, prep.edge0, k0, k1, lam0)
+    torch.cuda.synchronize()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    assert kernels.launch_counts[f"spike_march_american_{tag}"] == 1
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= limit * float(w.abs().max())
+    assert torch.all(got[0][:, pads] == 0) and torch.all(got[2][:, pads] == 0)
+    # the whole march, with its resets and dividend jumps between launches
+    v_k, e_k = spike.march_segments(tb, prep, segments, div_steps, reset_steps)
+    v_r, e_r = spike.march_segments(
+        tb, prep, segments, div_steps, reset_steps, step=spike.spike_march_reference
+    )
+    torch.cuda.synchronize()
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= limit * scale
+    assert float((e_k - e_r).abs().max()) <= limit * scale
+
+
+def test_american_path_goes_through_the_kernel(cuda):
+    tb = build_american_batch(device=cuda, **_american_kwargs(seed=4, B=8))
+    kernels.reset_launch_counts()
+    got = price_american_batch(tb, 128)  # solver="auto" -> spike on CUDA
+    n_seg = len(_spike_schedule_impl(tb, 128)[0])
+    assert kernels.launch_counts["spike_march_american_f64"] == 2 * n_seg  # base + vega bump
+    ref = price_american_batch(tb, 128, solver="scan", device="cpu")
+    assert set(got) == {"price", "vega", "delta", "gamma"}
+    for k in got:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_american_f64_opts_into_more_shared_memory(cuda):
+    """American f64 at N=1024: 4 trades x 2 rows x 1024 x 8 bytes = 64 KB
+    per block, above the 48 KB default."""
+    n_nodes = 1024
+    tb = build_american_batch(device=cuda, **_american_kwargs(
+        seed=6, B=6, n_steps=12, num_space_nodes=n_nodes - 1))
+    segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    assert 4 * 2 * prep.v0.shape[1] * prep.v0.element_size() > 48 * 1024
+    v_k, e_k = spike.march_segments(tb, prep, segments, div_steps, reset_steps)
+    v_r, e_r = spike.march_segments(
+        tb, prep, segments, div_steps, reset_steps, step=spike.spike_march_reference
+    )
     torch.cuda.synchronize()
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= 1e-11 * scale

@@ -1,6 +1,6 @@
 """Port (finite_difference_tpu_torch) host layer against the JAX package:
-grids, schedules and build_trade_batch bit for bit; import hygiene; the
-default device."""
+grids, schedules, the native C++ builder, build_trade_batch and
+build_american_batch bit for bit; import hygiene; the default device."""
 import re
 import subprocess
 import sys
@@ -11,17 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from finite_difference_tpu import native as jax_native
 from finite_difference_tpu.models.pde import batch as jax_batch
 from finite_difference_tpu.models.pde import grid as jax_grid
+from finite_difference_tpu_torch import native as port_native
 from finite_difference_tpu_torch.models.pde import batch as port_batch
 from finite_difference_tpu_torch.models.pde import grid as port_grid
 
 REPO_ROOT = Path(port_batch.__file__).resolve().parents[3]
 
 
-def _trade_kwargs(seed=0, B=6, monitor_aligned=False, dyadic_dt=False):
+def _trade_kwargs(seed=0, B=6, monitor_aligned=False):
     rng = np.random.default_rng(seed)
-    t = 0.25 if dyadic_dt else float(rng.uniform(0.1, 1.0))
+    t = float(rng.uniform(0.1, 1.0))
     return dict(
         spots=list(rng.uniform(85.0, 115.0, B)),
         strikes=list(rng.uniform(90.0, 110.0, B)),
@@ -30,7 +32,7 @@ def _trade_kwargs(seed=0, B=6, monitor_aligned=False, dyadic_dt=False):
         r=list(rng.uniform(0.0, 0.1, B)),
         b=list(rng.uniform(-0.02, 0.1, B)),
         is_call=list(rng.integers(0, 2, B) == 1),
-        n_time_steps=32 if dyadic_dt else 24,
+        n_time_steps=24,
         monitor_times=[[t * (k + 1) / 5.0 for k in range(5)]] * B,
         lower=[None if i % 3 else 70.0 for i in range(B)],
         upper=[130.0 if i % 2 == 0 else None for i in range(B)],
@@ -46,11 +48,8 @@ class TestBuildTradeBatch:
     @pytest.mark.parametrize("monitor_aligned", [False, True])
     @pytest.mark.parametrize("dtype", ["float64", "float32"])
     def test_bit_identical_to_jax(self, use_native, monitor_aligned, dtype):
-        # JAX's default route on a uniform schedule is its C++ builder,
-        # whose tau_next = dt*(k+1) is bit-identical to the numpy cumsum
-        # only where dt is dyadic (see test_native_default_tau_rounding)
-        native = use_native is None and not monitor_aligned
-        kw = _trade_kwargs(seed=3, monitor_aligned=monitor_aligned, dyadic_dt=native)
+        # the default on a uniform schedule is the C++ builder, in both packages
+        kw = _trade_kwargs(seed=3, monitor_aligned=monitor_aligned)
         if use_native is not None:
             kw["use_native"] = use_native
         ref = jax_batch.build_trade_batch(dtype=getattr(np, dtype), **kw)
@@ -64,19 +63,20 @@ class TestBuildTradeBatch:
             np.testing.assert_array_equal(have, want, err_msg=name)
 
     def test_native_default_tau_rounding(self):
-        """The port has only the numpy loop. On a non-dyadic dt the JAX
-        default (C++ builder) differs from it, and so from the port, only
-        in tau_next: the C++ builder's dt*(k+1) against the loop's running
-        sum of dt, a few roundings apart."""
+        """On a non-dyadic dt the C++ builder's tau_next (dt*(k+1)) and the
+        numpy loop's (a running sum of dt) are a few roundings apart. The
+        port's default route is its own copy of the C++ builder, so it is
+        bit-identical to the JAX default, tau_next included."""
+        assert port_native.available() and jax_native.available()
         kw = _trade_kwargs(seed=3)
         ref = jax_batch.build_trade_batch(**kw)
         got = port_batch.build_trade_batch(device="cpu", **kw)
+        loop = port_batch.build_trade_batch(device="cpu", use_native=False, **kw)
+        assert not np.array_equal(loop.tau_next.numpy(), got.tau_next.numpy())
         for name in port_batch.FIELD_NAMES:
             want, have = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
-            if name == "tau_next":
-                np.testing.assert_allclose(have, want, rtol=1e-14, atol=0)
-            else:
-                np.testing.assert_array_equal(have, want, err_msg=name)
+            assert have.dtype == want.dtype, name
+            np.testing.assert_array_equal(have, want, err_msg=name)
 
     def test_batch_from_numpy_carries_a_jax_batch(self):
         ref = jax_batch.build_trade_batch(**_trade_kwargs(seed=5))
@@ -93,6 +93,84 @@ class TestBuildTradeBatch:
         part = got[2:4]
         assert part.batch_size == 2
         np.testing.assert_array_equal(part.dt.numpy(), got.dt.numpy()[2:4])
+
+
+def _american_kwargs(seed=11, B=12, dividends=True):
+    """Mixed calls and puts, per-trade maturities, 0-3 dividends per trade."""
+    rng = np.random.default_rng(seed)
+    te = rng.uniform(0.1, 1.2, B)
+    divs = [
+        [(float(rng.uniform(0.01, te[i] * 0.95)), float(rng.uniform(0.5, 3.0)))
+         for _ in range(int(rng.integers(0, 4)))]
+        for i in range(B)
+    ]
+    divs[0] = [(float(te[0] / 2.0), 1.0)]
+    return dict(
+        spots=list(rng.uniform(80.0, 120.0, B)),
+        strikes=list(rng.uniform(80.0, 120.0, B)),
+        sigmas=list(rng.uniform(0.15, 0.4, B)),
+        t_expiry=list(te),
+        r=list(rng.uniform(0.01, 0.1, B)),
+        b=list(rng.uniform(0.0, 0.1, B)),
+        is_call=[bool(i % 2) for i in range(B)],
+        n_time_steps=96,
+        dividends_tau=divs if dividends else None,
+        num_space_nodes=201,
+    )
+
+
+class TestBuildAmericanBatch:
+    # the three routes: dividend-free (vectorised), the C++ builder and the loop
+    @pytest.mark.parametrize(
+        "route,dividends,use_native",
+        [("vectorised", False, True), ("native", True, True), ("loop", True, False)],
+    )
+    @pytest.mark.parametrize("snap", [False, True])
+    @pytest.mark.parametrize("dtype", ["float64", "float32"])
+    def test_bit_identical_to_jax(self, route, dividends, use_native, snap, dtype):
+        if route == "native":
+            assert port_native.available() and jax_native.available()
+        kw = _american_kwargs(dividends=dividends)
+        ref = jax_batch.build_american_batch(
+            use_native=use_native, snap_to_grid=snap, dtype=getattr(np, dtype), **kw
+        )
+        got = port_batch.build_american_batch(
+            use_native=use_native, snap_to_grid=snap, dtype=getattr(torch, dtype),
+            device="cpu", **kw,
+        )
+        for name in port_batch.FIELD_NAMES:
+            want = np.asarray(getattr(ref, name))
+            have = getattr(got, name).numpy()
+            assert have.dtype == want.dtype, name
+            np.testing.assert_array_equal(have, want, err_msg=name)
+
+    def test_native_american_batches_match_jax(self):
+        kw = _american_kwargs(seed=5, B=9)
+        args = (
+            kw["spots"], kw["strikes"], kw["sigmas"], kw["t_expiry"], kw["is_call"],
+            kw["dividends_tau"], kw["n_time_steps"], 2, kw["num_space_nodes"], 4.5, True,
+        )
+        want, have = jax_native.american_batches(*args), port_native.american_batches(*args)
+        assert set(have) == set(want)
+        for name in want:
+            np.testing.assert_array_equal(have[name], want[name], err_msg=name)
+
+    @pytest.mark.parametrize("use_native", [True, False])
+    def test_too_many_dividends_raises(self, use_native):
+        kw = dict(
+            spots=[100.0], strikes=[100.0], sigmas=[0.3], t_expiry=[1.0], r=[0.05],
+            b=[0.05], is_call=[False], n_time_steps=4,
+            dividends_tau=[[(0.01 * (k + 1), 1.0) for k in range(8)]],
+        )
+        with pytest.raises(ValueError, match="exceeded n_time_steps"):
+            port_batch.build_american_batch(use_native=use_native, device="cpu", **kw)
+
+    def test_batch_from_numpy_carries_a_jax_american_batch(self):
+        ref = jax_batch.build_american_batch(**_american_kwargs(seed=2))
+        fields = {k: np.asarray(v) for k, v in ref.__dict__.items() if v is not None}
+        got = port_batch.batch_from_numpy(fields, device="cpu")
+        for name in port_batch.FIELD_NAMES:
+            np.testing.assert_array_equal(getattr(got, name).numpy(), fields[name])
 
 
 class TestGrid:
@@ -116,6 +194,23 @@ class TestGrid:
             for name in ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda"):
                 np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
 
+    @pytest.mark.parametrize("seed", [0, 1])
+    @pytest.mark.parametrize("restart", [False, True])
+    def test_american_grid_and_segmented_schedule_match_jax(self, seed, restart):
+        rng = np.random.default_rng(seed)
+        t = float(rng.uniform(0.2, 2.0))
+        args = dict(spot=float(rng.uniform(60, 140)), strike=float(rng.uniform(80, 120)),
+                    sigma=float(rng.uniform(0.1, 0.5)), t_expiry=t, num_space_nodes=301)
+        a, b = port_grid.american_log_grid(**args), jax_grid.american_log_grid(**args)
+        assert (a.x_min, a.dx, a.n_nodes) == (b.x_min, b.dx, b.n_nodes)
+        # out-of-range dividends are dropped; the rest are sorted by tau
+        divs = [(float(x), float(rng.uniform(0.5, 2.0))) for x in rng.uniform(0.0, t, 3)]
+        divs += [(0.0, 1.0), (t, 1.0)]
+        kw = dict(t_expiry=t, base_steps=50, dividends_tau=divs, restart_rannacher_at_div=restart)
+        a, b = port_grid.segmented_schedule(**kw), jax_grid.segmented_schedule(**kw)
+        for name in ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+
 
 class TestPortBoundary:
     IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|finite_difference_tpu)(?:[.\s]|$)", re.M)
@@ -134,7 +229,8 @@ class TestPortBoundary:
     def test_import_loads_no_jax(self):
         code = (
             "import sys; import finite_difference_tpu_torch.models.pde.batch, "
-            "finite_difference_tpu_torch.kernels; "
+            "finite_difference_tpu_torch.kernels, finite_difference_tpu_torch.native, "
+            "finite_difference_tpu_torch.ops.interp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu')]; "
             "assert not bad, bad"
@@ -149,3 +245,10 @@ class TestPortBoundary:
         cpu_batch = port_batch.build_trade_batch(device="cpu", **kw)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_batch.price_barrier_batch(cpu_batch, n_nodes=128)
+        am = _american_kwargs(B=3)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_batch.build_american_batch(**am)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_batch.price_american_batch(
+                port_batch.build_american_batch(device="cpu", **am), n_nodes=202
+            )

@@ -1,4 +1,5 @@
-"""Port ops and CN stepper against the JAX package at float64 (<= 1e-12)."""
+"""Port ops (tridiagonal solves, stencil, cubic spline) and the CN stepper,
+dividend jump included, against the JAX package at float64 (<= 1e-12)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -6,9 +7,11 @@ import pytest
 import torch
 
 from finite_difference_tpu.models.pde import stepper as jax_stepper
+from finite_difference_tpu.ops import interp as jax_interp
 from finite_difference_tpu.ops import stencils as jax_stencils
 from finite_difference_tpu.ops import tridiag as jax_tridiag
 from finite_difference_tpu_torch.models.pde import stepper as port_stepper
+from finite_difference_tpu_torch.ops import interp as port_interp
 from finite_difference_tpu_torch.ops import stencils as port_stencils
 from finite_difference_tpu_torch.ops import tridiag as port_tridiag
 
@@ -42,6 +45,57 @@ class TestTridiag:
         want = np.asarray(jax.vmap(jax_tridiag.thomas_solve_const)(a_l, a_c, a_u, rhs))
         got = port_tridiag.thomas_solve_const(T(a_l), T(a_c), T(a_u), T(rhs)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+    @pytest.mark.parametrize("n", [1, 2, 5, 64, 1022])
+    def test_thomas_solve_pscan_matches_jax(self, n):
+        """General diagonally dominant coefficients, arbitrary ignored corners."""
+        rng = np.random.default_rng(n)
+        B = 4
+        dl, du = rng.uniform(-1.0, 1.0, (B, n)), rng.uniform(-1.0, 1.0, (B, n))
+        d = np.abs(dl) + np.abs(du) + rng.uniform(0.5, 2.0, (B, n))
+        rhs = rng.normal(size=(B, n))
+        want = np.asarray(jax.jit(jax_tridiag.thomas_solve_pscan)(dl, d, du, rhs))
+        got = port_tridiag.thomas_solve_pscan(T(dl), T(d), T(du), T(rhs)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+class TestSpline:
+    def _knots(self, seed, B=5, n=40):
+        rng = np.random.default_rng(seed)
+        x = np.exp(np.log(rng.uniform(20.0, 60.0, (B, 1))) + 0.04 * np.arange(n))
+        y = np.maximum(100.0 - x, 0.0) + rng.normal(scale=0.1, size=(B, n))
+        return x, y
+
+    def test_coefficients_match_jax(self):
+        x, y = self._knots(0)
+        want = jax.jit(jax.vmap(jax_interp.natural_cubic_spline))(x, y)
+        got = port_interp.natural_cubic_spline(T(x), T(y))
+        for name in ("x", "y", "b", "c", "d"):
+            np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                       rtol=1e-12, atol=1e-12, err_msg=name)
+
+    @pytest.mark.parametrize("with_idx", [False, True])
+    def test_eval_matches_jax(self, with_idx):
+        """Queries inside the span, on knots and beyond both ends (clamped);
+        with the closed-form log-grid bracket as ``idx``."""
+        x, y = self._knots(1)
+        rng = np.random.default_rng(2)
+        xq = np.concatenate([x - rng.uniform(0.0, 3.0, x.shape), x[:, :3] - 50.0, x[:, -3:] + 9.0], 1)
+        xq[:, 5] = x[:, 7]
+        idx = None
+        if with_idx:
+            x_min, dx = np.log(x[:, :1]), 0.04
+            idx = np.floor((np.log(np.maximum(xq, x[:, :1])) - x_min) / dx).astype(np.int64)
+        spline = jax.jit(jax.vmap(jax_interp.natural_cubic_spline))(x, y)
+        if with_idx:
+            want = jax.jit(jax.vmap(jax_interp.cubic_spline_eval))(spline, xq, idx)
+        else:
+            want = jax.jit(jax.vmap(jax_interp.cubic_spline_eval))(spline, xq)
+        got = port_interp.cubic_spline_eval(
+            port_interp.natural_cubic_spline(T(x), T(y)), T(xq), None if idx is None else T(idx)
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
 
 
 def test_nonuniform_central_matches_jax():
@@ -84,7 +138,7 @@ def _stepper_inputs(seed, B=6, N=66, n_steps=40):
     return fields, N
 
 
-def _run_both(fields, N, american, euro_put_lower, with_barrier=True):
+def _run_both(fields, N, american, euro_put_lower, with_barrier=True, with_dividends=False):
     f = fields
     def jax_one(x_min, dx, strike, is_call, sigma, r, b, q, lower, upper, has_lower,
                 has_upper, rebate, at_hit, rebate_rate, dt, theta, tau, mon, div, reset):
@@ -94,7 +148,7 @@ def _run_both(fields, N, american, euro_put_lower, with_barrier=True):
             jax_stepper.CNGrid(x_min, dx),
             jax_stepper.CNDynamics(strike, is_call, sigma, r, b, q),
             jax_stepper.CNSchedule(dt, theta, tau, mon, div, reset),
-            N, barrier=bar, american=american,
+            N, barrier=bar, american=american, with_dividends=with_dividends,
             euro_put_lower_boundary=euro_put_lower,
         )
     names = ("x_min", "dx", "strike", "is_call", "sigma", "r", "b", "q", "lower",
@@ -110,8 +164,10 @@ def _run_both(fields, N, american, euro_put_lower, with_barrier=True):
     v_p, s_p = port_stepper.cn_solve(
         port_stepper.CNGrid(t["x_min"], t["dx"]),
         port_stepper.CNDynamics(t["strike"], t["is_call"], t["sigma"], t["r"], t["b"], t["q"]),
-        port_stepper.CNSchedule(t["dt"], t["theta"], t["tau_next"], t["monitor"], t["reset_lambda"]),
-        N, barrier=bar, american=american, euro_put_lower_boundary=euro_put_lower,
+        port_stepper.CNSchedule(t["dt"], t["theta"], t["tau_next"], t["monitor"],
+                                t["div_amount"], t["reset_lambda"]),
+        N, barrier=bar, american=american, with_dividends=with_dividends,
+        euro_put_lower_boundary=euro_put_lower,
     )
     return (v_p.numpy(), s_p.numpy()), (np.asarray(v_j), np.asarray(s_j))
 
@@ -124,4 +180,22 @@ def test_cn_solve_matches_jax(american, euro_put_lower, with_barrier):
     fields, N = _stepper_inputs(seed=int(american) + 2 * int(euro_put_lower))
     (v_p, s_p), (v_j, s_j) = _run_both(fields, N, american, euro_put_lower, with_barrier)
     np.testing.assert_allclose(s_p, s_j, rtol=1e-14, atol=0)
+    np.testing.assert_allclose(v_p, v_j, rtol=1e-12, atol=1e-12)
+
+
+def test_cn_solve_with_dividends_matches_jax():
+    """American calls and puts with cash dividends on two steps (one trade
+    without), lambda resets after each: the spline jump and the call's
+    exercise check at ex-div."""
+    fields, N = _stepper_inputs(seed=5)
+    div = np.zeros_like(fields["dt"])
+    div[:, 12] = np.linspace(0.5, 2.0, div.shape[0])
+    div[:, 27] = 1.2
+    div[0] = 0.0
+    fields["div_amount"] = div
+    fields["reset_lambda"] = np.zeros_like(fields["reset_lambda"])
+    fields["reset_lambda"][:, [0, 13, 28]] = True
+    (v_p, _), (v_j, _) = _run_both(fields, N, True, False, with_barrier=False, with_dividends=True)
+    (v_nodiv, _), _ = _run_both({**fields, "div_amount": 0.0 * div}, N, True, False, with_barrier=False)
+    assert np.abs(v_p - v_nodiv)[1:].max() > 1e-2  # the jumps moved the prices
     np.testing.assert_allclose(v_p, v_j, rtol=1e-12, atol=1e-12)

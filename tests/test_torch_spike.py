@@ -1,8 +1,9 @@
-"""Port SPIKE march (models/pde/spike.py and its CUDA kernel).
+"""Port SPIKE march (models/pde/spike.py and its CUDA kernel), both branches.
 
 On the CPU the march runs its plain version, held against the JAX Pallas
 kernel in interpret mode at the JAX P=8 (<= 1e-11) and against the port's
-own scan at the port's P (<= 1e-9). The CUDA kernel itself is held
+own scan at the port's P (<= 1e-9); the American branch with dividend
+jumps and lambda resets between launches. The CUDA kernel itself is held
 against the plain version on the card in tests/test_torch_gpu.py.
 """
 import jax
@@ -11,11 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from finite_difference_tpu.models.pde import batch as jax_batch
 from finite_difference_tpu.models.pde.batch import build_trade_batch as jax_build
 from finite_difference_tpu.models.pde.pallas_kernel import cn_barrier_solve_spike as jax_spike
 from finite_difference_tpu_torch import kernels
 from finite_difference_tpu_torch.models.pde import spike
-from finite_difference_tpu_torch.models.pde.batch import _solve_scan, _spike_schedule_impl
+from finite_difference_tpu_torch.models.pde.batch import (
+    _solve_scan,
+    _solve_scan_american,
+    _spike_schedule_impl,
+    build_american_batch,
+)
 from finite_difference_tpu_torch.models.pde.batch import build_trade_batch as port_build
 
 
@@ -109,6 +116,82 @@ class TestTwinParity:
         np.testing.assert_allclose(v.numpy(), v_ref.numpy(), rtol=1e-9, atol=1e-9)
 
 
+def _american_kwargs(seed=0, B=6, n_steps=40, num_space_nodes=127, is_call=None):
+    """Two cash dividends per trade (so lambda resets at each segment start)."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        spots=list(rng.uniform(85.0, 115.0, B)),
+        strikes=[100.0] * B,
+        sigmas=list(rng.uniform(0.15, 0.4, B)),
+        t_expiry=[1.0] * B,
+        r=[0.06] * B,
+        b=list(rng.uniform(0.0, 0.06, B)),
+        is_call=[is_call] * B if is_call is not None else [i % 2 == 0 for i in range(B)],
+        n_time_steps=n_steps,
+        dividends_tau=[[(0.3, 1.5), (0.7, 1.0)]] * B,
+        num_space_nodes=num_space_nodes,
+    )
+
+
+class TestAmerican:
+    def test_twin_matches_jax_pallas_interpret_p8(self):
+        """American puts with dividends and resets, P=8: the port's plain
+        march with its between-launch jumps against the JAX kernel."""
+        kw = _american_kwargs(seed=1, B=8, n_steps=16, num_space_nodes=65, is_call=False)
+        jb = jax_batch.build_american_batch(**kw)
+        segments, set_defs, div_steps, reset_steps = jax_batch._spike_schedule_impl(jb, 66, 64)
+        assert div_steps and reset_steps
+        dev = jax.tree.map(jnp.asarray, jb)
+        v_ref, _ = jax_spike(
+            dev, dev.sigma, n_nodes=66, n_steps=16, trade_block=8, p_chunks=8,
+            interpret=True, segments=segments, set_defs=set_defs, american=True,
+            div_steps=div_steps, reset_steps=reset_steps,
+        )
+        tb = build_american_batch(device="cpu", **kw)
+        v = spike.cn_barrier_solve_spike(
+            tb, tb.sigma, 66, 16, p_chunks=8, segments=segments, set_defs=set_defs,
+            american=True, div_steps=div_steps, reset_steps=reset_steps,
+        )
+        np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-11, atol=1e-11)
+
+    # pad rows 3, 2, 1 at P=32 (N = 127, 128, 129) and P=8 at N=152
+    @pytest.mark.parametrize("n_nodes", [127, 128, 129, 152])
+    @pytest.mark.parametrize("is_call", [False, True])
+    def test_twin_matches_port_scan_and_keeps_pads_zero(self, n_nodes, is_call):
+        """Calls restart Rannacher after each dividend, puts do not, so the
+        two have different segmentations."""
+        tb = build_american_batch(device="cpu", **_american_kwargs(
+            seed=n_nodes, num_space_nodes=n_nodes - 1, is_call=is_call
+        ))
+        segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
+        assert len(div_steps) == 2 and len(reset_steps) == 2
+        prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+        pads = torch.arange(prep.v0.shape[1]).view(prep.m, prep.P).T.reshape(-1)[prep.n_int:]
+        v, e, lam = prep.v0, prep.edge0, torch.zeros_like(prep.v0)
+        for k0, k1, t in segments:
+            v, e, lam = spike.spike_march_reference(prep, t, v, e, k0, k1, lam)
+            assert torch.all(v[:, pads] == 0) and torch.all(lam[:, pads] == 0)
+            assert float(lam.min()) >= 0.0
+        v_ref, _ = _solve_scan_american(tb, tb.sigma, n_nodes, with_dividends=True)
+        v = spike.cn_barrier_solve_spike(
+            tb, tb.sigma, n_nodes, tb.n_steps, segments=segments, set_defs=set_defs,
+            american=True, div_steps=div_steps, reset_steps=reset_steps,
+        )
+        np.testing.assert_allclose(v.numpy(), v_ref.numpy(), rtol=1e-9, atol=1e-9)
+
+    def test_lam_must_match_the_branch(self):
+        tb = build_american_batch(device="cpu", **_american_kwargs(B=2))
+        prep = spike.prepare_spike(tb, tb.sigma, 128, 32, ((1.0, 0),), american=True)
+        with pytest.raises(ValueError, match="lam is required"):
+            spike.spike_march_reference(prep, 0, prep.v0, prep.edge0, 0, 2)
+        with pytest.raises(ValueError, match="American prep"):
+            kernels.spike_march_cuda(prep, 0, prep.v0, prep.edge0, 0, 2)
+        with pytest.raises(ValueError, match="American batches only"):
+            spike.cn_barrier_solve_spike(
+                tb, tb.sigma, 128, 2, segments=((0, 2, 0),), set_defs=((1.0, 0),), div_steps=(1,)
+            )
+
+
 class TestDispatch:
     def test_cpu_runs_the_plain_version_and_launches_nothing(self):
         tb = port_build(device="cpu", **_kwargs(B=3))
@@ -116,7 +199,7 @@ class TestDispatch:
         kernels.reset_launch_counts()
         got = spike.spike_march(prep, 0, prep.v0, prep.edge0, 0, 2)
         want = spike.spike_march_reference(prep, 0, prep.v0, prep.edge0, 0, 2)
-        assert kernels.launch_counts["spike_march"] == 0
+        assert not any(kernels.launch_counts.values())
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -125,6 +208,12 @@ class TestDispatch:
         prep = spike.prepare_spike(tb, tb.sigma, 128, 32, ((1.0, 0),))
         with pytest.raises(ValueError, match="CUDA tensors"):
             kernels.spike_march_cuda(prep, 0, prep.v0, prep.edge0, 0, 2)
+        am = spike.prepare_spike(tb, tb.sigma, 128, 32, ((1.0, 0),), american=True)
+        lam = torch.zeros_like(am.v0)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.spike_march_american_cuda(am, 0, am.v0, am.edge0, lam, 0, 2)
+        with pytest.raises(ValueError, match="needs an American prep"):
+            kernels.spike_march_american_cuda(prep, 0, prep.v0, prep.edge0, lam, 0, 2)
 
     def test_other_devices_raise(self):
         tb = port_build(device="cpu", **_kwargs(B=2))
