@@ -15,7 +15,11 @@ phase:
 - the American path, ``price_american_batch`` on the benchmark's American
   trade set (bench.py make_american_batch): B=4096 one-year puts at f32,
   price only, with greeks and with two cash dividends per trade; and the
-  float64 rung, B=256 with greeks, against the f64 scan.
+  float64 rung, B=256 with greeks, against the f64 scan;
+- the fused path, ``price_barrier_batch_fused`` (the march with
+  Hillis–Steele scans) on the barrier trade set at B=4096 x 1024 x 512 f32,
+  and the cyclic-reduction path, ``cn_barrier_solve_cr``, on the same
+  trades at N=1026, each held against the f64 routes.
 
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
@@ -44,6 +48,7 @@ T_EXP = 31.0 / 365.0
 STRIKE, RATE, BARRIER = 190.0, 0.0705, 420.0
 B_MAIN = 4096
 B_CHECK = 256  # the prefix held against the float64 route and the plain version
+N_CR = 1026  # the cyclic-reduction march needs N - 2 a power of two
 
 # the American trade set (bench.py make_american_batch): 1-year puts,
 # spots U(80, 120), sigma U(0.15, 0.40), seed 7, K=100, r=0.06, b=0.02;
@@ -68,7 +73,7 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bench_trades(B: int):
+def bench_trades(B: int, n_nodes: int = N_NODES):
     rng = np.random.default_rng(0)
     spots = rng.uniform(180.0, 250.0, 4096)[:B]
     sigmas = rng.uniform(0.2, 0.35, 4096)[:B]
@@ -77,7 +82,7 @@ def bench_trades(B: int):
         t_expiry=[T_EXP] * B, r=[RATE] * B, b=[RATE] * B, is_call=[True] * B,
         n_time_steps=N_STEPS,
         monitor_times=[[T_EXP * (k + 1) / 24.0 for k in range(24)]] * B,
-        upper=[BARRIER] * B, num_space_nodes=N_NODES - 1,
+        upper=[BARRIER] * B, num_space_nodes=n_nodes - 1,
     )
     return kw, spots, sigmas
 
@@ -196,6 +201,44 @@ def bound(prep, segments, n_jumps: int = 0):
     peak = PEAK_F64_FLOPS if prep.v0.element_size() == 8 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes, matvec_flops
+
+
+def fused_bound(prep, kind: str) -> dict:
+    """The bound of one fused march (``kind`` "hs" or "cr") and what its
+    design spends beyond it.
+
+    The bound counts about 10 flops per interior node and step (rhs 5, and
+    the 5 of a tridiagonal solve: forward 3, backward 2) over the peak rate
+    of the dtype, and the bytes of each input read once and the values
+    written once (the solver data, the mask, the schedule, the payoff in
+    and V out) over the memory rate; the larger of the two. ``extra_flops``
+    is the design's own arithmetic in place of the solve's 5 per node:
+    for the scans (kernels.hs_block's R rows on T threads) per step and
+    scan, each thread composes its rows (3R), runs 5 shuffle stages (3
+    each) and applies the entry value to its rows (2 + 2R), and warp 0
+    scans the warp maps (5 stages of 3 per lane); for cyclic reduction 4
+    flops per row eliminated and 5 per row substituted (one a division),
+    n - 1 rows each, and the 1x1 pivot.
+    """
+    from finite_difference_tpu_torch import kernels
+
+    B, N = prep.v0.shape
+    steps = prep.n_steps
+    item = prep.v0.element_size()
+    flops = 10 * B * (N - 2) * steps
+    words = sum(x.numel() for x in (prep.trade, prep.coef, prep.solver, prep.omask, prep.tau,
+                                    prep.mon, prep.v0)) + B * N
+    nbytes = words * item
+    if kind == "hs":
+        rows, threads = kernels.hs_block(N)
+        extra = B * steps * 2 * (threads * (5 * rows + 17) + 32 * 15)
+    else:
+        n = N - 2
+        extra = B * steps * (9 * (n - 1) + 1)
+    peak = PEAK_F64_FLOPS if item == 8 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes, extra_flops=extra)
 
 
 def host_ms(fn):
@@ -408,6 +451,162 @@ def american_phases(dev, card: dict, limits: dict):
     return k1a, k2
 
 
+def fused_phases(dev, card: dict, limits: dict):
+    """The two fused marches off the routed path: each kernel against its
+    plain version, the fused path (``price_barrier_batch_fused``) and the
+    cyclic-reduction path (``cn_barrier_solve_cr``), each checked, and
+    their timing. Returns the K3 and K4 entries of the kernels' summary."""
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.pde import cr, fused
+    from finite_difference_tpu_torch.models.pde.batch import (
+        _interp,
+        _solve_scan,
+        build_trade_batch,
+        price_barrier_batch,
+    )
+
+    marches = {
+        "hs": (fused.prepare_fused, kernels.hs_march_cuda, fused.hs_march_reference),
+        "cr": (cr.prepare_cr, kernels.cr_march_cuda, cr.cr_march_reference),
+    }
+
+    def vs_plain(kind, label, tb, n_nodes):
+        prepare, kernel, plain = marches[kind]
+        prep = prepare(tb, tb.sigma, n_nodes)
+        v_k = kernel(prep)
+        v_r, plain_ms = host_ms(lambda: plain(prep))
+        scale = float(v_r.abs().max())
+        err = float((v_k - v_r).abs().max())
+        limit = limits[tb.sigma.dtype]
+        emit(f"{kind}_kernel_vs_plain", size=label, dtype=str(tb.sigma.dtype), B=tb.batch_size,
+             N=n_nodes, steps=tb.n_steps, max_abs_err=err, max_abs_v=scale, ratio=err / scale,
+             limit=limit, plain_ms_per_march=plain_ms, **card)
+        check(math.isfinite(err) and err <= limit * scale,
+              f"{kind} kernel vs plain {label} {tb.sigma.dtype}: {err / scale:.3e} > {limit}")
+
+    # 9. K3 and K4 against their plain versions ----------------------------
+    for kind, n_small, n_main in (("hs", 128, N_NODES), ("cr", 130, N_CR)):
+        for dtype in limits:
+            tb = build_trade_batch(dtype=dtype, device=dev, **mixed_trades(8, 32, n_small - 1))
+            vs_plain(kind, "small", tb, n_small)
+            tb = build_trade_batch(dtype=dtype, device=dev, **bench_trades(B_CHECK, n_main)[0])
+            vs_plain(kind, "main_width", tb, n_main)
+
+    def rel_errors(out, ref, per_trade_price: bool):
+        errs = {}
+        for key, val in ref.items():
+            r = val.double().cpu().numpy()
+            g = out[key][: r.shape[0]].double().cpu().numpy()
+            if key == "price" and per_trade_price:
+                errs[key] = float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-8)))
+            else:
+                errs[key] = float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
+        return errs
+
+    # 10. the fused path (K3) -------------------------------------------------
+    kw, spots, sigmas = bench_trades(B_MAIN)
+    tb = build_trade_batch(dtype=torch.float32, device=dev, **kw)
+    kernels.reset_launch_counts()
+    out_p = fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=False)
+    out_g = fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    check(launches["hs_march_f32"] > 0, "the fused path launched no hs_march kernel")
+    for key, val in {**out_p, **out_g}.items():
+        check(val.shape == (B_MAIN,) and bool(torch.isfinite(val).all()), f"fused {key} not finite")
+    bs = black_scholes_call(spots, sigmas)
+    price = out_p["price"].double().cpu().numpy()
+    bs_err = float(np.max(np.abs(price - bs) / np.maximum(bs, 1e-8)))
+    tb64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_CHECK)[0])
+    spike64 = price_barrier_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
+    f32_vs_f64 = rel_errors(out_g, spike64, per_trade_price=True)
+    fused64 = fused.price_barrier_batch_fused(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
+    f64_vs_spike = rel_errors(fused64, spike64, per_trade_price=False)
+    limits_f64 = {"price": 1e-3, "delta": 1e-2, "gamma": 1e-2, "theta": 1e-2, "vega": 5e-2}
+    emit("fused_path", B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float32", launches=launches,
+         far_barrier_max_rel_err_vs_bs=bs_err, f32_vs_f64_spike_first_256=f32_vs_f64,
+         limits=limits_f64, f64_vs_f64_spike=f64_vs_spike, f64_limit=1e-9, **card)
+    check(bs_err <= 1e-3, f"fused far-barrier price vs Black–Scholes {bs_err:.3e} > 1e-3")
+    for key, lim in limits_f64.items():
+        check(f32_vs_f64[key] <= lim, f"fused f32 vs f64 {key}: {f32_vs_f64[key]:.3e} > {lim}")
+    for key, val in f64_vs_spike.items():
+        check(val <= 1e-9, f"fused f64 vs the f64 spike route {key}: {val:.3e} > 1e-9")
+    k3 = dict(launches=launches["hs_march_f32"])
+
+    # 11. the cyclic-reduction path (K4) ---------------------------------------
+    kw_cr, spots_cr, sigmas_cr = bench_trades(B_MAIN, N_CR)
+    tbc = build_trade_batch(dtype=torch.float32, device=dev, **kw_cr)
+    kernels.reset_launch_counts()
+    v_cr = cr.cn_barrier_solve_cr(tbc, tbc.sigma, N_CR, N_STEPS)
+    torch.cuda.synchronize()
+    launches_cr = dict(kernels.launch_counts)
+    check(launches_cr["cr_march_f32"] > 0, "the cyclic-reduction path launched no cr_march kernel")
+    check(v_cr.shape == (B_MAIN, N_CR) and bool(torch.isfinite(v_cr).all()), "CR values not finite")
+    i = torch.arange(N_CR, dtype=torch.float64, device=dev)
+    s_cr = torch.exp(tbc.x_min.double()[:, None] + i[None, :] * tbc.dx.double()[:, None])
+    price_cr = _interp(tbc.s_eff.double(), s_cr, v_cr.double()).cpu().numpy()
+    bs_cr = black_scholes_call(spots_cr, sigmas_cr)
+    bs_err_cr = float(np.max(np.abs(price_cr - bs_cr) / np.maximum(bs_cr, 1e-8)))
+    tbc64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_CHECK, N_CR)[0])
+    v64 = cr.cn_barrier_solve_cr(tbc64, tbc64.sigma, N_CR, N_STEPS)
+    v_scan, _ = _solve_scan(tbc64, tbc64.sigma, N_CR)
+    scan_err = float((v64 - v_scan).abs().max() / v_scan.abs().max())
+    emit("cr_path", B=B_MAIN, N=N_CR, steps=N_STEPS, dtype="float32", launches=launches_cr,
+         far_barrier_max_rel_err_vs_bs=bs_err_cr, f64_B=B_CHECK, f64_vs_f64_scan=scan_err,
+         f64_limit=1e-9, **card)
+    check(bs_err_cr <= 1e-3, f"CR far-barrier price vs Black–Scholes {bs_err_cr:.3e} > 1e-3")
+    check(scan_err <= 1e-9, f"CR f64 vs the f64 scan: {scan_err:.3e} > 1e-9")
+    k4 = dict(launches=launches_cr["cr_march_f32"])
+
+    # 12. timing ---------------------------------------------------------------
+    def grids_per_s(with_greeks: bool, iters: int) -> float:
+        fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=with_greeks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=with_greeks)
+        torch.cuda.synchronize()
+        return B_MAIN * iters / (time.perf_counter() - t0)
+
+    gps = grids_per_s(False, 5)
+    gps_greeks = grids_per_s(True, 3)
+    timing = {}
+    for kind, entry, batch, n_nodes in (("hs", k3, tb, N_NODES), ("cr", k4, tbc, N_CR)):
+        prepare, kernel, plain = marches[kind]
+        prep, prep_ms = host_ms(lambda: prepare(batch, batch.sigma, n_nodes))
+        ms = cuda_ms(lambda: kernel(prep), reps=5)
+        # the kernel against its plain version at the path's own shapes
+        v_r, plain_ms = host_ms(lambda: plain(prep))
+        v_k = kernel(prep)
+        torch.cuda.synchronize()
+        scale = float(v_r.abs().max())
+        err = float((v_k - v_r).abs().max())
+        emit(f"{kind}_kernel_vs_plain", size="main_path", dtype=str(torch.float32), B=B_MAIN,
+             N=n_nodes, steps=N_STEPS, max_abs_err=err, max_abs_v=scale, ratio=err / scale,
+             limit=limits[torch.float32], plain_ms_per_march=plain_ms, **card)
+        check(math.isfinite(err) and err <= limits[torch.float32] * scale,
+              f"{kind} kernel vs plain main path: {err / scale:.3e} > {limits[torch.float32]}")
+        b = fused_bound(prep, kind)
+        entry.update(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        timing[kind] = dict(prep_ms=prep_ms, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms,
+                            launches_per_march=1, N=n_nodes, **b)
+        del prep, v_r, v_k
+    call_ms = B_MAIN / gps * 1e3
+    emit("fused_timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks, call_ms=call_ms,
+         launches_per_call={"price_only": 1, "greeks": 2}, B=B_MAIN, steps=N_STEPS,
+         hs=timing["hs"], cr=timing["cr"], **card)
+    emit("fused_profile", **profile_call(
+        lambda: fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=False), call_ms), **card)
+    k3.update(name="hs_march_f32", source="finite_difference_tpu_torch/csrc/hs_march.cu",
+              replaces="finite_difference_tpu/models/pde/pallas_kernel.py:70")
+    k4.update(name="cr_march_f32", source="finite_difference_tpu_torch/csrc/cr_march.cu",
+              replaces="finite_difference_tpu/models/pde/pallas_cr.py:129")
+    return k3, k4
+
+
 def main() -> int:
     import torch
 
@@ -557,12 +756,18 @@ def main() -> int:
 
     # 5-8. the American path ------------------------------------------------
     k1a, k2 = american_phases(dev, card, limits)
+    for k in (k1, k1a, k2):
+        k["source"] = "finite_difference_tpu_torch/csrc/spike_march.cu"
 
-    # 9. summary ------------------------------------------------------------
-    source = "finite_difference_tpu_torch/csrc/spike_march.cu"
+    # 9-12. the fused marches -------------------------------------------------
+    k3, k4 = fused_phases(dev, card, limits)
+
+    # 13. summary -----------------------------------------------------------
+    # library_ms is null for every kernel: no PyTorch call computes these
+    # marches, and torch has no batched tridiagonal solve
     print(json.dumps({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": source, **k, "library_ms": None}
-        for k in (k1, k1a, k2)
+        {"name": k["name"], "route": "cuda", **k, "library_ms": None}
+        for k in (k1, k1a, k2, k3, k4)
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

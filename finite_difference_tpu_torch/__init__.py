@@ -6,10 +6,12 @@ imports neither ``jax`` nor anything of ``finite_difference_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card, the default device raises instead of falling back to the CPU.
-The TPU kernels on the ported paths (the SPIKE march, European and
-American, and its double-float twin) are one hand-written CUDA kernel,
-``csrc/spike_march.cu``, in float and double, built on first use by
-:mod:`finite_difference_tpu_torch.kernels`. The host batch builder's C++
+Every TPU kernel of the JAX package has a hand-written CUDA counterpart,
+in float and double, built on first use by
+:mod:`finite_difference_tpu_torch.kernels`: the SPIKE march, European and
+American, and its double-float twin (``csrc/spike_march.cu``), the fused
+march with Hillis–Steele scans (``csrc/hs_march.cu``) and the fused march
+with cyclic reduction (``csrc/cr_march.cu``). The host batch builder's C++
 library (:mod:`finite_difference_tpu_torch.native`) is built by ``g++`` on
 first use.
 """

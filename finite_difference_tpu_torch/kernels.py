@@ -1,17 +1,26 @@
-"""Build, load and launch the port's hand-written CUDA kernel.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-The source ``csrc/spike_march.cu`` exposes a plain C interface. On first
-use it is compiled by ``nvcc`` (no PyTorch headers, so a build takes
-seconds) into ``build/torch_kernels/`` at the root of the checkout, under a
-name keyed by the source and flags, and loaded with ``ctypes``. Pointers
-and the stream go over as ``c_void_p``. Nothing here runs at import time:
-the CPU tests import this module on machines with no ``nvcc`` and no card.
+Each source under ``csrc/`` exposes a plain C interface:
 
-The source holds one kernel in two branches, European and American
-(Ikonen–Toivanen), each instantiated in float and double. The launch
-wrappers check device, dtype, shape and contiguity, launch on PyTorch's
-current stream, raise when the C function reports a CUDA error, and add one
-to :data:`launch_counts` under ``spike_march[_american]_{f32,f64}``.
+- ``spike_march.cu``, the SPIKE march (K1, K1a, K2): one kernel in two
+  branches, European and American (Ikonen–Toivanen), each in float and
+  double (``spike_march[_american]_{f32,f64}``);
+- ``hs_march.cu``, the fused march with Hillis–Steele scans (K3,
+  ``hs_march_{f32,f64}``);
+- ``cr_march.cu``, the fused march with cyclic reduction (K4,
+  ``cr_march_{f32,f64}``).
+
+On first use a source is compiled by ``nvcc`` (no PyTorch headers, so a
+build takes seconds) into ``build/torch_kernels/`` at the root of the
+checkout, under a name keyed by the source and flags, and loaded with
+``ctypes``; :func:`build` compiles every missing source at once, one
+``nvcc`` each, all started together. Pointers and the stream go over as
+``c_void_p``. Nothing here runs at import time: the CPU tests import this
+module on machines with no ``nvcc`` and no card.
+
+The launch wrappers check device, dtype, shape and contiguity, launch on
+PyTorch's current stream, raise when the C function reports a CUDA error,
+and add one to :data:`launch_counts` under the C function's name.
 """
 from __future__ import annotations
 
@@ -22,23 +31,41 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "spike_march.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("spike_march", "hs_march", "cr_march")}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts: Dict[str, int] = {
-    f"spike_march{branch}_{dt}": 0 for branch in ("", "_american") for dt in ("f32", "f64")
-}
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
+# the C functions of each library, with the argument types after their pointers
+_SPIKE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_FUNCTIONS = {
+    "spike_march": {
+        f"spike_march{branch}_{dt}": _SPIKE_ARGS + ([ctypes.c_void_p] * 3 if branch else [])
+        for branch in ("", "_american") for dt in _DTYPE_TAG.values()
+    },
+    "hs_march": {
+        f"hs_march_{dt}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        for dt in _DTYPE_TAG.values()
+    },
+    "cr_march": {
+        f"cr_march_{dt}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        for dt in _DTYPE_TAG.values()
+    },
+}
 
-_LIB: Optional[ctypes.CDLL] = None
+launch_counts: Dict[str, int] = {name: 0 for fns in _FUNCTIONS.values() for name in fns}
+
+MAX_SMEM = 232448  # 227 KB, the most shared memory one block may use
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -50,72 +77,93 @@ def reset_launch_counts() -> None:
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernel is built on first use")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on first use")
     return nvcc
 
 
-def library_path() -> Path:
-    """Where the shared library of ``csrc/spike_march.cu`` is (or will be) built."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libspike_march_{digest.hexdigest()[:16]}.so"
+def library_path(name: str) -> Path:
+    """Where the shared library of ``csrc/<name>.cu`` is (or will be) built."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the kernel unless it is built already. Returns the compiler's
-    output (register and shared-memory use from ``-Xptxas -v``), empty when
-    there was nothing to build; raises on failure."""
-    out = library_path()
-    if out.exists():
+def build(names: Optional[Iterable[str]] = None) -> str:
+    """Compile the named sources (all by default) that are not built yet,
+    one ``nvcc`` each, all started together. Returns the compilers' output
+    (register and shared-memory use from ``-Xptxas -v``), empty when there
+    was nothing to build; raises on failure, after every compiler ended."""
+    todo = [n for n in (SOURCES if names is None else names) if not library_path(n).exists()]
+    if not todo:
         return ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    jobs = []
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        jobs.append((name, out, tmp, proc))
+    logs, failed = [], []
+    for name, out, tmp, proc in jobs:
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {SOURCES[name].name}:\n{text}")
+            continue
+        os.replace(tmp, out)
+        logs.append(f"{SOURCES[name].name}:\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "\n".join(logs)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
+def _lib(name: str) -> ctypes.CDLL:
     with _LOCK:
-        if _LIB is None:
-            build()
-            lib = ctypes.CDLL(str(library_path()))
-            head = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-            for name in launch_counts:
-                fn = getattr(lib, name)
-                fn.argtypes = head + ([ctypes.c_void_p] * 3 if "american" in name else [])
+        if name not in _LIBS:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn_name, argtypes in _FUNCTIONS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.spike_march_error_string.argtypes = [ctypes.c_int]
-            lib.spike_march_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, like: torch.Tensor) -> None:
+def _raise_on(kind: str, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(_LIBS[kind], f"{kind}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {rc})")
+
+
+def _check(kind: str, name: str, x: torch.Tensor, shape: tuple, like: torch.Tensor) -> None:
     if x.device != like.device or x.dtype != like.dtype:
         raise ValueError(
-            f"spike_march: {name} is {x.dtype} on {x.device}, "
+            f"{kind}: {name} is {x.dtype} on {x.device}, "
             f"expected {like.dtype} on {like.device}"
         )
     if tuple(x.shape) != shape:
-        raise ValueError(f"spike_march: {name} has shape {tuple(x.shape)}, expected {shape}")
+        raise ValueError(f"{kind}: {name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
-        raise ValueError(f"spike_march: {name} must be contiguous")
+        raise ValueError(f"{kind}: {name} must be contiguous")
+
+
+def _check_device(kind: str, v: torch.Tensor) -> None:
+    if v.device.type != "cuda":
+        raise ValueError(f"{kind}_cuda needs CUDA tensors, got {v.device}")
+    if v.dtype not in _DTYPE_TAG:
+        raise TypeError(f"{kind}_cuda supports float32 and float64, got {v.dtype}")
 
 
 def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int, lam=None):
     """Check the operands of one segment's march and launch the kernel of
     the prep's branch; returns (v, edges[, lam]) new tensors."""
-    if v.device.type != "cuda":
-        raise ValueError(f"spike_march_cuda needs CUDA tensors, got {v.device}")
-    if v.dtype not in _DTYPE_TAG:
-        raise TypeError(f"spike_march_cuda supports float32 and float64, got {v.dtype}")
+    _check_device("spike_march", v)
     B, n_pad = v.shape
     m, P = prep.m, prep.P
     n_sched = prep.tau.shape[1]
@@ -136,7 +184,7 @@ def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int
     if prep.american:
         tail = {"payoff": (prep.v0, (B, n_pad)), "lam": (lam, (B, n_pad))}
     for name, (x, shape) in {**args, **tail}.items():
-        _check(name, x, shape, v)
+        _check("spike_march", name, x, shape, v)
     v_out = torch.empty_like(v)
     e_out = torch.empty_like(edges)
     outs = (v_out, e_out)
@@ -148,7 +196,7 @@ def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int
     if B == 0:
         return outs
     name = f"spike_march{'_american' if prep.american else ''}_{_DTYPE_TAG[v.dtype]}"
-    lib = _lib()
+    lib = _lib("spike_march")
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         rc = getattr(lib, name)(
@@ -156,9 +204,7 @@ def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int
             v_out.data_ptr(), e_out.data_ptr(),
             B, n_pad, m, P, prep.il, k0, k1 - k0, n_sched, stream, *extra,
         )
-    if rc != 0:
-        msg = lib.spike_march_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {rc})")
+    _raise_on("spike_march", name, rc)
     launch_counts[name] += 1
     return outs
 
@@ -187,3 +233,84 @@ def spike_march_american_cuda(
     if not prep.american:
         raise ValueError("spike_march_american_cuda needs an American prep")
     return _launch(prep, t, v, edges, k0, k1, lam)
+
+
+def _fused_launch(kind: str, prep, solver_shape: tuple, shape_args: tuple) -> torch.Tensor:
+    """Check the operands of one fused march (a ``models.pde.fused.FusedPrep``)
+    and launch ``<kind>_{f32,f64}`` over all its steps; returns V (B, N)."""
+    v0 = prep.v0
+    _check_device(kind, v0)
+    B, N = v0.shape
+    n_steps = prep.tau.shape[1]
+    if not 0 <= prep.n_rann <= n_steps:
+        raise ValueError(f"{kind}_cuda: n_rann={prep.n_rann} outside [0, {n_steps}]")
+    args = {
+        "trade": (prep.trade, (B, 9)),
+        "coef": (prep.coef, (2, B, 5)),
+        "solver": (prep.solver, solver_shape),
+        "omask": (prep.omask, (B, N)),
+        "tau": (prep.tau, (B, n_steps)),
+        "mon": (prep.mon, (B, n_steps)),
+        "v0": (v0, (B, N)),
+    }
+    for name, (x, shape) in args.items():
+        _check(kind, name, x, shape, v0)
+    v_out = torch.empty_like(v0)
+    if B == 0:
+        return v_out
+    name = f"{kind}_{_DTYPE_TAG[v0.dtype]}"
+    lib = _lib(kind)
+    with torch.cuda.device(v0.device):
+        stream = torch.cuda.current_stream(v0.device).cuda_stream
+        rc = getattr(lib, name)(
+            *(x.data_ptr() for x, _ in args.values()), v_out.data_ptr(),
+            B, N, *shape_args, n_steps, prep.n_rann, stream,
+        )
+    _raise_on(kind, name, rc)
+    launch_counts[name] += 1
+    return v_out
+
+
+def hs_block(n_nodes: int):
+    """(rows per thread, threads per block) of the scan march, as
+    ``csrc/hs_march.cu`` chooses them: the fewest rows (1, 2 or 4) that keep
+    a block at <= 256 threads, else 4 rows; at most 1024 threads."""
+    per_rows = lambda rows: -(-n_nodes // rows)  # threads that own a row
+    rows = 1
+    while rows < 4 and per_rows(rows) > 256:
+        rows *= 2
+    return rows, (per_rows(rows) + 31) // 32 * 32
+
+
+def hs_march_cuda(prep) -> torch.Tensor:
+    """Launch the fused march with Hillis–Steele scans (``csrc/hs_march.cu``)
+    over all steps of ``prep`` (``models.pde.fused.prepare_fused``): one
+    block per trade. Returns V (B, N), a new tensor; 3 <= N <= 4096."""
+    B, N = prep.v0.shape
+    if N < 3 or hs_block(N)[1] > 1024:
+        raise ValueError(f"hs_march_cuda takes 3 <= N <= 4096 nodes, got {N}")
+    return _fused_launch("hs_march", prep, (2, 3, B, N), ())
+
+
+def cr_smem_bytes(n_nodes: int, element_size: int) -> int:
+    """Shared memory of one block of the CR march: the value row, the two
+    ping-pong buffers of the reduction, the stack of evens and both sets'
+    level scalars."""
+    n = n_nodes - 2
+    n_levels = n.bit_length() - 1
+    return (n_nodes + n + n // 2 + n + 2 * n_levels * 16) * element_size
+
+
+def cr_march_cuda(prep) -> torch.Tensor:
+    """Launch the fused march with cyclic reduction (``csrc/cr_march.cu``)
+    over all steps of ``prep`` (``models.pde.cr.prepare_cr``): one block per
+    trade. Returns V (B, N), a new tensor; N - 2 must be a power of two
+    >= 2 and the block's shared memory (:func:`cr_smem_bytes`) at most 227 KB."""
+    B, N = prep.v0.shape
+    n = N - 2
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"cr_march_cuda: n_nodes - 2 must be a power of two (at least 2), got {n}")
+    n_levels = n.bit_length() - 1
+    if cr_smem_bytes(N, prep.v0.element_size()) > MAX_SMEM:
+        raise ValueError(f"cr_march_cuda: N={N} needs more than 227 KB of shared memory per block")
+    return _fused_launch("cr_march", prep, (2, B, n_levels, 16), (n_levels,))

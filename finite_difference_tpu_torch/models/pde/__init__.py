@@ -6,5 +6,9 @@
   ``price_american_batch`` (the main paths);
 - :mod:`.stepper` — the batched CN step loop (``solver="scan"``);
 - :mod:`.spike` — the SPIKE march host prep, its plain reference and the
-  dispatch to the CUDA kernel (``solver="spike"``).
+  dispatch to the CUDA kernel (``solver="spike"``);
+- :mod:`.fused` — the fused march with Hillis–Steele scans
+  (``price_barrier_batch_fused``, ``cn_barrier_solve_fused``);
+- :mod:`.cr` — the fused march with cyclic reduction
+  (``cn_barrier_solve_cr``).
 """

@@ -416,6 +416,27 @@ def spike_march(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, lam=None):
     raise ValueError(f"spike_march: unsupported device {v.device}")
 
 
+def require_default_schedule(batch, n_steps: int, rannacher_steps: int, what: str, hint: str = "") -> None:
+    """Raise ValueError unless the first ``n_steps`` steps of ``batch`` have
+    a uniform dt per trade, theta = 1 on the first ``rannacher_steps`` of
+    them and 1/2 after, and no dividends: the schedule family that one
+    (theta, dt) pair per Rannacher phase describes. Applied to another
+    schedule, such a march would silently price with ``dt[:, 0]``
+    everywhere."""
+    n_rann = min(rannacher_steps, n_steps)
+    dt = batch.dt[:, :n_steps]
+    expect = torch.where(torch.arange(n_steps, device=dt.device) < n_rann, 1.0, 0.5)
+    if not (
+        bool((dt == dt[:, :1]).all())
+        and bool((batch.theta[:, :n_steps] == expect.to(batch.theta.dtype)).all())
+        and not bool((batch.div_amount != 0).any())
+    ):
+        raise ValueError(
+            f"{what} assumes globally-uniform dt with a {n_rann}-step "
+            f"Rannacher prefix and no dividends{hint}"
+        )
+
+
 def default_segments(n_steps: int, rannacher_steps: int = 2):
     """(segments, set_defs) of a globally uniform dt with a Rannacher prefix."""
     n_rann = min(rannacher_steps, n_steps)
@@ -533,23 +554,11 @@ def cn_barrier_solve_spike(
     plain version on the CPU.
     """
     if segments is None or set_defs is None:
-        # the default layout assumes globally uniform dt with an n_rann-step
-        # theta=1 prefix and no dividends; applying it to another schedule
-        # would silently price with dt[:, 0] everywhere
-        n_rann = min(rannacher_steps, n_steps)
-        dt = batch.dt[:, :n_steps]
-        expect = torch.where(torch.arange(n_steps, device=dt.device) < n_rann, 1.0, 0.5)
-        if not (
-            bool((dt == dt[:, :1]).all())
-            and bool((batch.theta[:, :n_steps] == expect.to(batch.theta.dtype)).all())
-            and not bool((batch.div_amount != 0).any())
-        ):
-            raise ValueError(
-                "segments=None assumes globally-uniform dt with a "
-                f"{n_rann}-step Rannacher prefix and no dividends; pass the "
-                "host-derived (segments, set_defs) from "
-                "models.pde.batch._spike_schedule_impl for piecewise-constant schedules"
-            )
+        require_default_schedule(
+            batch, n_steps, rannacher_steps, "segments=None",
+            hint="; pass the host-derived (segments, set_defs) from "
+            "models.pde.batch._spike_schedule_impl for piecewise-constant schedules",
+        )
         segments, set_defs = default_segments(n_steps, rannacher_steps)
     if segments[0][0] != 0 or segments[-1][1] != n_steps or any(
         s1[1] != s2[0] for s1, s2 in zip(segments[:-1], segments[1:])

@@ -1,21 +1,26 @@
-"""The port's CUDA kernel on the card (marker ``gpu``; skips without a card).
+"""The port's CUDA kernels on the card (marker ``gpu``; skips without a card).
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-It holds the SPIKE march kernel (csrc/spike_march.cu), European and
-American branches, against its plain version (spike.spike_march_reference)
-on the same prepared inputs, at float64 within 1e-11 and float32 within
-2e-4 of max|V| (float32: FMA contraction and a different rounding order),
-and shows the barrier and American paths launch it.
+It holds each kernel against its plain version on the same prepared
+inputs, at float64 within 1e-11 and float32 within 2e-4 of max|V|
+(float32: FMA contraction and a different rounding order): the SPIKE march
+(csrc/spike_march.cu, European and American branches, against
+spike.spike_march_reference), the fused march with Hillis–Steele scans
+(csrc/hs_march.cu, against fused.hs_march_reference) and the fused march
+with cyclic reduction (csrc/cr_march.cu, against cr.cr_march_reference);
+and it shows that each path launches its kernel.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from finite_difference_tpu_torch import kernels
-from finite_difference_tpu_torch.models.pde import spike
+from finite_difference_tpu_torch.models.pde import cr, fused, spike
 from finite_difference_tpu_torch.models.pde.batch import (
     _spike_schedule_impl,
     build_american_batch,
@@ -124,6 +129,78 @@ def test_large_grid_opts_into_more_shared_memory(cuda):
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= 1e-11 * scale
     assert float((e_k - e_r).abs().max()) <= 1e-11 * scale
+
+
+def _march_vs_plain(prep, kernel, plain, tag_name, dtype, limit):
+    kernels.reset_launch_counts()
+    v_k = kernel(prep)
+    v_r = plain(prep)
+    torch.cuda.synchronize()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    assert kernels.launch_counts[f"{tag_name}_{tag}"] == 1
+    assert float((v_k - v_r).abs().max()) <= limit * float(v_r.abs().max())
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+# 1 row per thread up to 256 nodes, 4 at 1024 and 2048 (256 and 512 threads);
+# 127 and 129 leave phantom rows in the last thread and warp
+@pytest.mark.parametrize("n_nodes", [127, 128, 129, 1024, 2048])
+def test_hs_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
+    tb = build_trade_batch(
+        dtype=dtype, device=cuda, **_kwargs(seed=n_nodes, B=5, num_space_nodes=n_nodes - 1)
+    )
+    prep = fused.prepare_fused(tb, tb.sigma, n_nodes)
+    _march_vs_plain(prep, kernels.hs_march_cuda, fused.hs_march_reference, "hs_march", dtype, limit)
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+@pytest.mark.parametrize("n", [8, 128, 1024, 2048])  # 32, 64, 512 and 1024 threads
+def test_cr_kernel_matches_plain_version(cuda, dtype, limit, n):
+    tb = build_trade_batch(
+        dtype=dtype, device=cuda, **_kwargs(seed=n, B=5, num_space_nodes=n + 1)
+    )
+    prep = cr.prepare_cr(tb, tb.sigma, n + 2)
+    _march_vs_plain(prep, kernels.cr_march_cuda, cr.cr_march_reference, "cr_march", dtype, limit)
+
+
+def test_fused_wrappers_check_dtype_device_and_contiguity(cuda):
+    tb = build_trade_batch(device=cuda, **_kwargs(B=4, num_space_nodes=129))
+    for prepare, launch in ((fused.prepare_fused, kernels.hs_march_cuda),
+                            (cr.prepare_cr, kernels.cr_march_cuda)):
+        prep = prepare(tb, tb.sigma, 130)
+        bad = dataclasses.replace(prep, tau=prep.tau.float())
+        with pytest.raises(ValueError, match="expected torch.float64"):
+            launch(bad)
+        bad = dataclasses.replace(prep, omask=prep.omask.cpu())
+        with pytest.raises(ValueError, match="expected torch.float64 on cuda"):
+            launch(bad)
+        bad = dataclasses.replace(prep, trade=prep.trade.t().contiguous().t())
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(bad)
+        with pytest.raises(TypeError, match="float32 and float64"):
+            launch(dataclasses.replace(prep, v0=prep.v0.half()))
+
+
+def test_fused_path_goes_through_the_kernel(cuda):
+    kw = _kwargs(seed=3)
+    tb = build_trade_batch(device=cuda, **kw)
+    kernels.reset_launch_counts()
+    got = fused.price_barrier_batch_fused(tb, 128)
+    assert kernels.launch_counts["hs_march_f64"] == 2  # base + vega bump
+    ref = fused.price_barrier_batch_fused(tb, 128, device="cpu")
+    assert set(got) == set(KEYS)
+    for k in KEYS:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_cr_path_goes_through_the_kernel(cuda):
+    tb = build_trade_batch(device=cuda, **_kwargs(seed=4, num_space_nodes=129))
+    kernels.reset_launch_counts()
+    got = cr.cn_barrier_solve_cr(tb, tb.sigma, 130, tb.n_steps)
+    assert kernels.launch_counts["cr_march_f64"] == 1
+    tb_cpu = tb.to("cpu")
+    ref = cr.cn_barrier_solve_cr(tb_cpu, tb_cpu.sigma, 130, tb.n_steps)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=1e-11, atol=1e-11)
 
 
 def _american_kwargs(seed=0, B=13, n_steps=40, num_space_nodes=127, is_call=False):

@@ -229,6 +229,8 @@ class TestPortBoundary:
     def test_import_loads_no_jax(self):
         code = (
             "import sys; import finite_difference_tpu_torch.models.pde.batch, "
+            "finite_difference_tpu_torch.models.pde.fused, "
+            "finite_difference_tpu_torch.models.pde.cr, "
             "finite_difference_tpu_torch.kernels, finite_difference_tpu_torch.native, "
             "finite_difference_tpu_torch.ops.interp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
