@@ -21,6 +21,9 @@ phase:
   and the cyclic-reduction path, ``cn_barrier_solve_cr``, on the same
   trades at N=1026, each held against the f64 routes.
 
+The SPIKE march's timing lines also give its design bytes, its trades
+resident per SM and waves (the occupancy API).
+
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
 {...}}``.
@@ -150,57 +153,79 @@ def black_scholes_call(spots, sigmas):
     return np.asarray(out)
 
 
-def march_cost(prep, segments, n_jumps: int = 0):
-    """(flops, bytes, matvec_flops) of one march.
+def march_cost(prep, segments, n_jumps: int = 0) -> dict:
+    """What one march costs, by count.
 
-    The bound counts the work the march itself needs: about 14 flops per
-    interior node and step (rhs 5, forward 3, backward 2, correction 4),
-    plus the reduced interface system, which couples each of its 2P
-    unknowns only to b_{j-1} and t_{j+1} and so is banded: a solve with
-    precomputed factors takes about 9 flops per unknown. The American
-    branch adds 9 per node and step, counted from the kernel: the source
-    term dt*lambda (2) and the projection (7: payoff - x, the division by
-    dt, the add to lambda, its max with 0, dt*lambda, x minus it, the max
-    with the payoff). Bytes: each input read once and each output written
-    once, per launch (American: the payoff, lambda in and lambda out too);
-    the interface system's entries are the tips of the spike vectors,
-    already in ``fields``. Each dividend jump between launches reads and
-    writes the (B, N) grid and takes about 30 flops per node (spline
-    system 8, coefficients 10, evaluation 8, the shift and the check 4).
-    ``matvec_flops`` is what this design spends instead on the dense
-    2P x 2P inverse matvec, 2*(2P)^2 per trade and step: overhead of the
-    design, not part of the bound.
+    ``flops`` and ``bytes`` are the work the march itself needs, from which
+    the bound follows: about 14 flops per interior node and step (rhs 5,
+    forward 3, backward 2, correction 4), plus the reduced interface
+    system, which couples each of its 2P unknowns only to b_{j-1} and
+    t_{j+1} and so is banded: a solve with precomputed factors takes about
+    9 flops per unknown. The American branch adds 9 per node and step,
+    counted from the kernel: the source term dt*lambda (2) and the
+    projection (7: payoff - x, the division by dt, the add to lambda, its
+    max with 0, dt*lambda, x minus it, the max with the payoff). Bytes:
+    each input read once and each output written once, per launch
+    (American: the payoff, lambda in and lambda out too), in the prep's
+    compressed layout. Each dividend jump between launches reads and
+    writes the (B, N) grid and takes about 30 flops per node (spline system
+    8, coefficients 10, evaluation 8, the shift and the check 4).
+
+    ``design_bytes`` is what the kernel itself requests from global memory
+    per march, by the design's own count: per launch the trade's constants,
+    coefficients, the two solver columns (10 m values) and the interface
+    factors (8 P) once, v and the edges in and out, tau and the monitor
+    flag once per step, and in the American branch lambda in and out and
+    the payoff once per step (it is read from L2, not held on chip); the
+    dividend jumps are not the kernel's. ``iface_flops`` is what the
+    kernel's interface solve spends per march: per pair and step 40 (the
+    entry term 3, two 5-stage scans of affine maps at 3 each, the second
+    recurrence's entry 5, the b_j term 2).
     """
     B, n_pad = prep.v0.shape
-    P, n_int = prep.P, prep.n_int
+    P, m, n_int = prep.P, prep.m, prep.n_int
     item = prep.v0.element_size()
     per_node = 14 + (9 if prep.american else 0)
-    flops = nbytes = matvec_flops = 0
+    flops = nbytes = design = iface_flops = 0
     for k0, k1, _ in segments:
         ns = k1 - k0
         flops += ns * B * (per_node * n_int + 9 * 2 * P)
-        matvec_flops += ns * B * 2 * (2 * P) ** 2
-        words = (
-            B * 11 + B * 7 + 5 * B * n_pad  # trade, coef, fields
-            + B * n_pad + 2 * B * ns  # knock-out mask, tau and monitor slices
-            + 2 * (B * n_pad + 2 * B)  # v and edges in, v and edges out
-            + (3 * B * n_pad if prep.american else 0)  # payoff, lambda in and out
-        )
+        iface_flops += ns * B * 40 * (P - 1)
+        # each input once: trade, coef, the two solver columns (10 m values)
+        # and the interface factors (8 P), tau and the monitor flag; v and
+        # the edges in and out; American: lambda in and out, the payoff
+        words = (B * 13 + B * 7 + B * 10 * m + B * 8 * P + 2 * B * ns
+                 + 2 * (B * n_pad + 2 * B) + (3 * B * n_pad if prep.american else 0))
         nbytes += words * item
+        # the kernel reads the payoff once per step
+        design += (words + ((ns - 1) * B * n_pad if prep.american else 0)) * item
     n_full = n_int + 2
     flops += n_jumps * 30 * B * n_full
     nbytes += n_jumps * 2 * B * n_full * item
-    return flops, nbytes, matvec_flops
+    return dict(flops=flops, bytes=nbytes, design_bytes=design, iface_flops=iface_flops)
 
 
 def bound(prep, segments, n_jumps: int = 0):
-    """(bound_ms, bound_by, flops, bytes, matvec_flops) of one march on the
-    card: the larger of its operations over the peak rate of its dtype and
-    its bytes over the memory rate."""
-    flops, nbytes, matvec_flops = march_cost(prep, segments, n_jumps)
+    """(bound_ms, bound_by, cost) of one march on the card: the larger of
+    its operations over the peak rate of its dtype and its bytes over the
+    memory rate; ``cost`` is :func:`march_cost`."""
+    cost = march_cost(prep, segments, n_jumps)
     peak = PEAK_F64_FLOPS if prep.v0.element_size() == 8 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes, matvec_flops
+    t_ops, t_bytes = cost["flops"] / peak * 1e3, cost["bytes"] / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", cost
+
+
+def residency(prep) -> dict:
+    """Trades of the SPIKE march resident per SM (the occupancy API, through
+    the kernel library) and the waves its batch takes on this card."""
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+
+    resident = kernels.spike_resident_trades(prep)
+    sms = torch.cuda.get_device_properties(prep.v0.device).multi_processor_count
+    return dict(resident_trades_per_sm=resident, sms=sms,
+                waves=math.ceil(prep.v0.shape[0] / (resident * sms)))
 
 
 def fused_bound(prep, kind: str) -> dict:
@@ -321,13 +346,14 @@ def american_phases(dev, card: dict, limits: dict):
         scale = float(v_r.abs().max())
         err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
         ms = cuda_ms(lambda: march(spike.spike_march), reps) if reps else None
+        b_ms, b_by, cost = bound(prep, segments, len(div_steps))
+        timed = dict(**cost, **residency(prep)) if reps else {}
         emit("american_kernel_vs_plain", size=label, dtype=str(tb.sigma.dtype), B=tb.batch_size,
              N=n_nodes, steps=tb.n_steps, P=prep.P, launches_per_march=len(segments),
              dividend_jumps=len(div_steps), max_abs_err=err, max_abs_v=scale, ratio=err / scale,
-             limit=limit, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms, **card)
+             limit=limit, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms, **timed, **card)
         check(math.isfinite(err) and err <= limit * scale,
               f"American kernel vs plain {label} {tb.sigma.dtype}: {err / scale:.3e} > {limit}")
-        b_ms, b_by = bound(prep, segments, len(div_steps))[:2]
         return dict(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -429,13 +455,14 @@ def american_phases(dev, card: dict, limits: dict):
     # the price-only batch's march: kernel launches only, no jumps
     prep, segments, _, march = american_prep(tb, N_NODES)
     ms = cuda_ms(lambda: march(spike.spike_march), reps=5)
-    b_ms, b_by = bound(prep, segments)[:2]
+    b_ms, b_by, cost = bound(prep, segments)
     n_div = len(_spike_schedule_impl(tb_div, N_NODES)[0])
     call_ms = B_MAIN / gps * 1e3
     emit("american_timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks,
          div_grids_per_s=gps_div, f64_greeks_grids_per_s=gps64_greeks, f64_B=B_AM64,
          call_ms=call_ms, kernel_ms_per_march=ms, launches_per_march=len(segments),
          bound_ms=b_ms, bound_by=b_by,
+         **cost, **residency(prep),
          div_kernel_ms_per_march=k1a["ms"], div_plain_ms_per_march=k1a["plain_ms"],
          div_launches_per_march=n_div,
          f64_kernel_ms_per_march=k2["ms"], f64_plain_ms_per_march=k2["plain_ms"],
@@ -737,15 +764,15 @@ def main() -> int:
           f"kernel vs plain main path: {main_err / scale:.3e} > {limits[torch.float32]}")
     del v_r, e_r, v_k, e_k
 
-    bound_ms, bound_by, flops, nbytes, matvec_flops = bound(prep, segments)
+    bound_ms, bound_by, cost = bound(prep, segments)
     call_ms = B_MAIN / gps * 1e3
     emit("timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks, call_ms=call_ms,
          schedule_ms=sched_ms, prep_ms=prep_ms,
          rest_ms=call_ms - sched_ms - prep_ms - ms, kernel_ms_per_march=ms,
          launches_per_march=len(segments), kernel_ms_per_cn_launch=ms_cn_launch,
-         cn_launch_steps=k1 - k0, plain_ms_per_march=plain_ms, flops=flops, bytes=nbytes,
-         dense_matvec_flops=matvec_flops, bound_ms=bound_ms, bound_by=bound_by,
-         B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P, **card)
+         cn_launch_steps=k1 - k0, plain_ms_per_march=plain_ms, **cost, **residency(prep),
+         bound_ms=bound_ms, bound_by=bound_by, B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P,
+         **card)
     emit("profile", **profile_call(lambda: price_barrier_batch(tb, N_NODES, with_greeks=False),
                                    call_ms), **card)
     del tb, prep

@@ -9,49 +9,67 @@
 // which also documents the layout: a trade's interior rows are stored as
 // r = ii*P + j (chunk j, in-chunk row ii), trades on the leading axis.
 //
-// American branch (Ikonen-Toivanen). Each trade has a second n_pad row of
-// shared memory for lambda, beside the value row; lane j reads and writes
-// only the lambda of its own chunk, so it needs no extra synchronisation.
-// Per step: the rhs is written in row-sum form, bsum*v + bl*(v_prev - v) +
-// bu*(v_next - v) with bsum = 1 - (1-theta)*dt*r from the host (equal to
-// bc*v + bl*v_prev + bu*v_next in exact arithmetic; at the American grid's
-// dt/dx^2 rounding bc to float keeps only ~90% of the discount term, see
-// spike_march_reference), it gains dt*lambda, and after the spike correction
-// v = max(payoff, x - dt*lambda), lambda = max(0, lambda + (payoff - x)/dt)
-// with a true division (the plain version divides too). The payoff is
-// segment-constant and read from global memory, like the solver vectors;
-// dt is the sixth coefficient column. On a pad row payoff = lambda = x = 0,
-// so the update keeps it 0. The put's lower edge is K e^{-r tau}. The
-// second row doubles the shared memory a trade needs (8 KB in f32, 16 KB in
-// f64 at N=1024), so at B=4096 in f32 not every trade is resident at once.
-// The European instantiation compiles as before: every American addition is
-// behind `if constexpr`.
+// Mapping. One warp per trade, lane j < P walks chunk j; four trades per
+// block. A warp's shared memory holds, for the whole launch:
+//   - the value row (n_pad values); the forward-sweep scratch `dp` aliases
+//     it in place, because lane j reads only its own chunk once the two
+//     cross-chunk neighbours of a step are captured, and each row is
+//     consumed before its slot is overwritten;
+//   - American only: the lambda row (n_pad values; lane j reads and writes
+//     only its own chunk's);
+//   - the solver data, loaded once per launch with coalesced reads: the
+//     five per-row vectors w, af, ab, vsp, wsp in their two columns (the
+//     prep's (5, 2, m), stored here as [field][ii][column] so that the
+//     shared column, a broadcast to lanes 0..P-2, and lane P-1's own column
+//     sit in adjacent banks), and the eight factors of the banded interface
+//     solve per pair (spike.IFACE_ROWS).
+// A step reads from global memory only tau and the monitor flag, and in the
+// American branch the payoff (segment-constant, 4 KB per trade at f32 and
+// N=1024, 16.7 MB for B=4096: it stays in the 50 MB L2; holding it in
+// shared memory instead would cut the resident trades from 20 to 12 per SM).
+// The knock-out rows are a prefix and a suffix of the grid: two indices per
+// trade in `trade`, compared with the global row g = j*m + ii.
 //
-// Mapping. One warp per trade, lane j < P walks chunk j. The trade's value
-// row (n_pad values) lives in shared memory for the whole segment; the
-// forward-sweep scratch `dp` aliases it in place, because lane j reads only
-// its own chunk once the two cross-chunk neighbours of a step are captured,
-// and each row is consumed before its slot is overwritten. That halves the
-// shared memory a trade needs (4 KB at N=1024 in f32), so all 4096 trades of
-// the main path are resident at once (31 per SM). The five solver vectors
-// and the interface inverse are constant over the segment and are read from
-// global memory (L2), one coalesced 32-wide row per band. The 2P x 2P
-// interface matvec runs across the lanes, with the chunk tips broadcast by
-// warp shuffles. Steps run inside the kernel; nothing is allocated here.
+// Interface solve. The pairs z_j = (b_j, t_{j+1}) form a block-tridiagonal
+// system whose couplings have rank one, so its block LU (precomputed at
+// float64 by spike.interface_factors) leaves two first-order recurrences
+// across the lanes: hb_j = a_j hb_{j-1} + c_j upwards, then
+// zt_j = a'_j zt_{j+1} + ht_j downwards. Each runs as a Kogge-Stone scan of
+// affine maps over the warp (5 shuffle stages); a serial pass through the
+// P-1 pairs was measured slower (PERF.md). spike.spike_march_reference
+// follows the scan's order.
+// Nothing in the march is a matrix product, so it uses no tensor cores.
+//
+// American branch (Ikonen-Toivanen). Per step: the rhs is written in
+// row-sum form, bsum*v + bl*(v_prev - v) + bu*(v_next - v) with
+// bsum = 1 - (1-theta)*dt*r from the host (equal to bc*v + bl*v_prev +
+// bu*v_next in exact arithmetic; at the American grid's dt/dx^2 rounding bc
+// to float keeps only ~90% of the discount term, see spike_march_reference),
+// it gains dt*lambda, and after the spike correction
+// v = max(payoff, x - dt*lambda), lambda = max(0, lambda + (payoff - x)/dt)
+// with a true division (the plain version divides too). dt is the sixth
+// coefficient column. On a pad row payoff = lambda = x = 0, so the update
+// keeps it 0. The put's lower edge is K e^{-r tau}. Every American addition
+// is behind `if constexpr`.
 //
 // Bound. Per interior node and step about 14 flops (rhs 5, forward 3,
-// backward 2, correction 4), plus a banded solve of the 2P-unknown interface
-// system (each unknown couples only to b_{j-1} and t_{j+1}), about 9 flops
-// per unknown: at B=4096, N=1024, 512 steps and P=32 about 3.1e10 flops,
-// 0.47 ms at the published 67 TFLOP/s f32, against about 0.07 ms for the
-// bytes the march must move. So the bound is operations. The dense 2P x 2P
-// matvec used here spends 2*(2P)^2 flops per trade and step instead (1.7e10
-// more at that size): overhead of this design, kept because it is one
-// shuffle-broadcast loop across the lanes. What limits the kernel is not
-// measured yet; a likely limiter is latency, since each step is two
-// dependent chains of m = N/P rows per lane. The design shortens them with
-// P=32 (chains of 32, not 128 as with the TPU's P=8) and keeps every trade
-// resident so that other warps can cover a chain's stalls.
+// backward 2, correction 4), 23 in the American branch, plus the banded
+// interface solve: at B=4096, N=1024, 512 steps and P=32 about 3.1e10 flops,
+// 0.47 ms at the published 67 TFLOP/s f32, against about 0.1 ms for the
+// bytes the march must move. With no per-step stream of solver data left,
+// what limits this design is the rate at which the SMs dispatch its
+// instructions: each row of a step costs shared-memory loads and stores,
+// index arithmetic and the edge and pad rows' branches beside its ~14 flops,
+// by count about 30 warp instructions per row and 1,000 per trade-step, and
+// the measured 5.0 ms per march (B=4096, PERF.md) implies about twice that
+// if dispatch is the limit; a warp-per-trade march cannot come near the flop
+// bound. The launch bounds keep the European f32 kernel at <= 64 registers
+// so that 8 blocks (32 trades) are resident per SM, one wave for B=4096 on
+// 132 SMs. The American f32 kernel's two rows and its solver data take 10.25
+// KiB of shared memory per trade at N=1024, so 20 trades are resident per SM
+// and B=4096 takes two waves: 32 trades would need 328 KiB of the SM's 228
+// KiB, and lambda in registers 32 more per thread than the 64 that 32
+// resident warps allow.
 //
 // Precise math only: expf/exp, no --use_fast_math. nvcc contracts a*b+c into
 // FMA by default, which is why f32 results differ from the plain version at
@@ -61,11 +79,24 @@
 
 namespace {
 
-constexpr int kTradeCols = 11;  // spike.TRADE_COLS
+constexpr int kTradeCols = 13;  // spike.TRADE_COLS
 constexpr int kCoefCols = 7;    // spike.COEF_COLS
+constexpr int kFieldRows = 5;   // spike.FIELD_ROWS
+constexpr int kIfaceRows = 8;   // spike.IFACE_ROWS
 constexpr int kTradesPerBlock = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use
 constexpr unsigned kFull = 0xffffffffu;
+
+// blocks per SM the launch bounds ask registers for: what shared memory
+// allows at N=1024, the main path's width (f32 European 8, American 5; f64
+// 4 and 2). Tuned to that width: at other N the shared-memory limit
+// differs, so re-derive these when the main width changes.
+template <typename T, bool American>
+constexpr int kMinBlocks = sizeof(T) == 4 ? (American ? 5 : 8) : (American ? 2 : 4);
+
+__host__ __device__ inline int trade_smem_elems(bool american, int n_pad, int m, int P) {
+  return n_pad * (american ? 2 : 1) + kFieldRows * 2 * m + kIfaceRows * P;
+}
 
 __device__ __forceinline__ float exp_(float x) { return expf(x); }
 __device__ __forceinline__ double exp_(double x) { return exp(x); }
@@ -73,14 +104,43 @@ __device__ __forceinline__ double exp_(double x) { return exp(x); }
 template <typename T>
 __device__ __forceinline__ T max_(T a, T b) { return a > b ? a : b; }
 
+// x_j = a_j x_{j-1} + b_j across the lanes (x_{-1} = 0): inclusive scan
+template <typename T>
+__device__ __forceinline__ T scan_up(T a, T b, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T a_l = __shfl_up_sync(kFull, a, off);
+    const T b_l = __shfl_up_sync(kFull, b, off);
+    if (lane >= off) {
+      b = a * b_l + b;
+      a = a * a_l;
+    }
+  }
+  return b;
+}
+
+// x_j = a_j x_{j+1} + b_j across the lanes (x_32 = 0): inclusive scan down
+template <typename T>
+__device__ __forceinline__ T scan_down(T a, T b, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const T a_r = __shfl_down_sync(kFull, a, off);
+    const T b_r = __shfl_down_sync(kFull, b, off);
+    if (lane + off < 32) {
+      b = a * b_r + b;
+      a = a * a_r;
+    }
+  }
+  return b;
+}
+
 template <typename T, bool American>
-__global__ void __launch_bounds__(32 * kTradesPerBlock)
+__global__ void __launch_bounds__(32 * kTradesPerBlock, (kMinBlocks<T, American>))
 spike_march_kernel(
-    const T* __restrict__ trade,   // (B, 11)
+    const T* __restrict__ trade,   // (B, 13)
     const T* __restrict__ coef,    // (B, 7) bl, bc, bu, al, au, dt, bsum
-    const T* __restrict__ fields,  // (5, B, n_pad): spike.FIELD_ROWS
-    const T* __restrict__ rinv,    // (B, 2P, 2P) [trade, column, row]
-    const T* __restrict__ omask,   // (B, n_pad)
+    const T* __restrict__ fields,  // (B, 5, 2, m): spike.FIELD_ROWS x column
+    const T* __restrict__ iface,   // (B, 8, P): spike.IFACE_ROWS x pair
     const T* __restrict__ tau,     // (B, n_sched)
     const T* __restrict__ mon,     // (B, n_sched)
     const T* __restrict__ v_in,    // (B, n_pad)
@@ -96,9 +156,11 @@ spike_march_kernel(
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // ragged last block: whole warps drop out
-  constexpr int kRows = American ? 2 : 1;
-  T* __restrict__ row = reinterpret_cast<T*>(smem_raw) + (size_t)warp * kRows * n_pad;
-  T* __restrict__ lam = row + n_pad;  // American only
+  T* __restrict__ row =
+      reinterpret_cast<T*>(smem_raw) + (size_t)warp * trade_smem_elems(American, n_pad, m, P);
+  T* __restrict__ lam = row + n_pad;                      // American only
+  T* __restrict__ fs = row + n_pad * (American ? 2 : 1);  // [field][ii][column]
+  T* __restrict__ fz = fs + kFieldRows * 2 * m;           // [factor][pair]
   const bool act = lane < P;
   const int j = lane;
 
@@ -107,29 +169,41 @@ spike_march_kernel(
   const T rebate = tr[4], rebate_rate = tr[6], s_min = tr[7], s_max = tr[8];
   const bool is_call = tr[1] != T(0), at_hit = tr[5] != T(0);
   const bool omask_lo = tr[9] != T(0), omask_hi = tr[10] != T(0);
+  // knocked-out rows of this lane's chunk: ii < ko_lo_j, and
+  // ko_hi_j <= ii < real_j (the chunk's real rows end at real_j)
+  const int g0 = j * m;
+  const int ko_lo_j = (int)tr[11] - g0, ko_hi_j = (int)tr[12] - g0;
+  const int real_j = (P - 1) * m + il + 1 - g0;
   const T* cf = coef + (size_t)b * kCoefCols;
   const T bl = cf[0], bc = cf[1], bu = cf[2], al = cf[3], au = cf[4];
   const T dt = cf[5], bsum = cf[6];  // read by the American branch only
 
-  const size_t plane = (size_t)B * n_pad;
   const size_t base = (size_t)b * n_pad;
-  const T* __restrict__ w = fields + base;
-  const T* __restrict__ af = fields + plane + base;
-  const T* __restrict__ ab = fields + 2 * plane + base;
-  const T* __restrict__ vsp = fields + 3 * plane + base;
-  const T* __restrict__ wsp = fields + 4 * plane + base;
-  const T* __restrict__ om = omask + base;
-  const T* __restrict__ ri = rinv + (size_t)b * (2 * P) * (2 * P);
   const T* __restrict__ tau_b = tau + (size_t)b * n_sched + k0;
   const T* __restrict__ mon_b = mon + (size_t)b * n_sched + k0;
-
   const T* __restrict__ pay = American ? payoff + base : nullptr;
+
+  // segment-constant solver data into shared memory, once per launch
+  const T* __restrict__ f_src = fields + (size_t)b * kFieldRows * 2 * m;
+  for (int i = lane; i < kFieldRows * 2 * m; i += 32) {
+    const int fld = i / (2 * m), rem = i - fld * 2 * m;
+    const int c = rem >= m ? 1 : 0;
+    fs[(fld * m + rem - c * m) * 2 + c] = f_src[i];
+  }
+  const T* __restrict__ z_src = iface + (size_t)b * kIfaceRows * P;
+  for (int i = lane; i < kIfaceRows * P; i += 32) fz[i] = z_src[i];
   if (act)
     for (int ii = 0; ii < m; ++ii) row[ii * P + j] = v_in[base + ii * P + j];
   if constexpr (American) {
     if (act)
       for (int ii = 0; ii < m; ++ii) lam[ii * P + j] = lam_in[base + ii * P + j];
   }
+  // this lane's column: the shared one, or chunk P-1's own
+  const T* __restrict__ fw = fs + (j == P - 1 ? 1 : 0);
+  const T* __restrict__ faf = fw + 2 * m;
+  const T* __restrict__ fab = fw + 4 * m;
+  const T* __restrict__ fvs = fw + 6 * m;
+  const T* __restrict__ fws = fw + 8 * m;
   T v_lo = edge_in[2 * b], v_hi = edge_in[2 * b + 1];
   const int last = (m - 1) * P;
 
@@ -143,7 +217,8 @@ spike_march_kernel(
     const T v_max_n = is_call ? s_max * growth - strike * disc : T(0);
 
     // the two cross-chunk neighbours of this step, captured before any
-    // lane overwrites its rows with the forward-sweep values
+    // lane overwrites its rows with the forward-sweep values (the first
+    // step's __syncwarp also publishes the loads above)
     __syncwarp();
     T v_prev = T(0), v_cur = T(0), up_fix = T(0);
     if (act) {
@@ -181,7 +256,7 @@ spike_march_kernel(
             else if (ii > il) rhs = T(0);  // pad rows
           }
         }
-        d = ii == 0 ? w[ri_] * rhs : w[ri_] * rhs + af[ri_] * d;
+        d = ii == 0 ? fw[2 * ii] * rhs : fw[2 * ii] * rhs + faf[2 * ii] * d;
         row[ri_] = d;
         v_prev = v_cur;
         v_cur = v_next;
@@ -194,31 +269,26 @@ spike_march_kernel(
 #pragma unroll 4
       for (int ii = m - 2; ii >= 0; --ii) {
         const int ri_ = ii * P + j;
-        x = row[ri_] + ab[ri_] * x;
+        x = row[ri_] + fab[2 * ii] * x;
         row[ri_] = x;
       }
     }
     const T y_top = x;
 
-    // 2P interface solve with the precomputed inverse: lane j forms
-    // u[j] = t_j and u[P+j] = b_j
-    T ut = T(0), ub = T(0);
-    for (int c = 0; c < P; ++c) {
-      const T yt = __shfl_sync(kFull, y_top, c);
-      const T yb = __shfl_sync(kFull, y_bot, c);
-      if (act) {
-        const T* ct = ri + (size_t)c * (2 * P);
-        const T* cb = ri + (size_t)(P + c) * (2 * P);
-        ut = ut + ct[j] * yt;
-        ut = ut + cb[j] * yb;
-        ub = ub + ct[P + j] * yt;
-        ub = ub + cb[P + j] * yb;
-      }
-    }
-    const T b_left = __shfl_sync(kFull, ub, (lane + 31) & 31);
-    const T t_right = __shfl_sync(kFull, ut, (lane + 1) & 31);
-    const T bprev = j == 0 ? T(0) : b_left;       // b_{j-1}
-    const T tnext = j == P - 1 ? T(0) : t_right;  // t_{j+1}
+    // banded interface solve (spike.interface_solve): lane j < P-1 owns
+    // pair z_j = (b_j, t_{j+1}); the factors are 0 on lanes >= P-1
+    T zf[kIfaceRows];
+#pragma unroll
+    for (int q = 0; q < kIfaceRows; ++q) zf[q] = act ? fz[q * P + j] : T(0);
+    const T yt_next = __shfl_down_sync(kFull, y_top, 1);
+    const T c = zf[1] * y_bot + zf[2] * yt_next;
+    const T hb = scan_up(zf[0], c, lane);
+    const T hb_up = __shfl_up_sync(kFull, hb, 1);
+    const T ht = zf[3] * (j == 0 ? T(0) : hb_up) + zf[4] * y_bot + zf[5] * yt_next;
+    const T tnext = scan_down(zf[6], ht, lane);
+    const T zb = hb + zf[7] * __shfl_down_sync(kFull, tnext, 1);  // b_j
+    const T b_left = __shfl_up_sync(kFull, zb, 1);
+    const T bprev = j == 0 ? T(0) : b_left;  // b_{j-1}
 
     // spike correction + knock-out projection with rebate PV
     const bool mon_k = mon_b[k] != T(0);
@@ -227,19 +297,21 @@ spike_march_kernel(
 #pragma unroll 4
       for (int ii = 0; ii < m; ++ii) {
         const int ri_ = ii * P + j;
-        T xr = row[ri_] - bprev * vsp[ri_] - tnext * wsp[ri_];
+        T xr = row[ri_] - bprev * fvs[2 * ii] - tnext * fws[2 * ii];
         if constexpr (American) {
           const T lam_old = lam[ri_], p = pay[ri_];
           lam[ri_] = max_(lam_old + (p - xr) / dt, T(0));
           xr = max_(p, xr - dt * lam_old);
         }
-        row[ri_] = (mon_k && om[ri_] != T(0)) ? rebate_pv : xr;
+        const bool ko = ii < ko_lo_j || (ii >= ko_hi_j && ii < real_j);
+        row[ri_] = (mon_k && ko) ? rebate_pv : xr;
       }
     }
     v_lo = (mon_k && omask_lo) ? rebate_pv : v_min_n;
     v_hi = (mon_k && omask_hi) ? rebate_pv : v_max_n;
   }
 
+  __syncwarp();
   if (act)
     for (int ii = 0; ii < m; ++ii) v_out[base + ii * P + j] = row[ii * P + j];
   if constexpr (American) {
@@ -252,73 +324,108 @@ spike_march_kernel(
   }
 }
 
+// trades per block and dynamic shared memory of a launch; false if even
+// one trade per block does not fit
+template <typename T, bool American>
+bool config(int n_pad, int m, int P, int* tpb, size_t* smem) {
+  const size_t per_trade = (size_t)trade_smem_elems(American, n_pad, m, P) * sizeof(T);
+  int t = kTradesPerBlock;
+  while (t > 1 && t * per_trade > kMaxSmem) t /= 2;
+  *tpb = t;
+  *smem = t * per_trade;
+  return *smem <= kMaxSmem;
+}
+
+template <typename T, bool American>
+cudaError_t opt_in(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(spike_march_kernel<T, American>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <typename T, bool American>
 int launch(const void* trade, const void* coef, const void* fields,
-           const void* rinv, const void* omask, const void* tau,
-           const void* mon, const void* v_in, const void* edge_in,
-           void* v_out, void* edge_out, const void* payoff,
-           const void* lam_in, void* lam_out, int B, int n_pad, int m, int P,
-           int il, int k0, int ns, int n_sched, void* stream) {
+           const void* iface, const void* tau, const void* mon,
+           const void* v_in, const void* edge_in, void* v_out, void* edge_out,
+           const void* payoff, const void* lam_in, void* lam_out, int B,
+           int n_pad, int m, int P, int il, int k0, int ns, int n_sched,
+           void* stream) {
   if (B <= 0 || P < 1 || P > 32 || m < 1 || n_pad != m * P || ns < 1 ||
       k0 < 0 || k0 + ns > n_sched || il < 0 || il >= m)
     return (int)cudaErrorInvalidValue;
   if (American && (payoff == nullptr || lam_in == nullptr || lam_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t per_trade = (size_t)n_pad * sizeof(T) * (American ? 2 : 1);
-  int tpb = kTradesPerBlock;
-  while (tpb > 1 && tpb * per_trade > kMaxSmem) tpb /= 2;
-  const size_t smem = tpb * per_trade;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        spike_march_kernel<T, American>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int tpb;
+  size_t smem;
+  if (!config<T, American>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = opt_in<T, American>(smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + tpb - 1) / tpb);
   spike_march_kernel<T, American><<<grid, 32 * tpb, smem, (cudaStream_t)stream>>>(
-      (const T*)trade, (const T*)coef, (const T*)fields, (const T*)rinv,
-      (const T*)omask, (const T*)tau, (const T*)mon, (const T*)v_in,
-      (const T*)edge_in, (T*)v_out, (T*)edge_out, (const T*)payoff,
-      (const T*)lam_in, (T*)lam_out, B, n_pad, m, P, il, k0, ns, n_sched);
+      (const T*)trade, (const T*)coef, (const T*)fields, (const T*)iface,
+      (const T*)tau, (const T*)mon, (const T*)v_in, (const T*)edge_in,
+      (T*)v_out, (T*)edge_out, (const T*)payoff, (const T*)lam_in,
+      (T*)lam_out, B, n_pad, m, P, il, k0, ns, n_sched);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool American>
+int occupancy(int n_pad, int m, int P, int* trades_per_sm) {
+  int tpb;
+  size_t smem;
+  if (!config<T, American>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = opt_in<T, American>(smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, spike_march_kernel<T, American>, 32 * tpb, smem);
+  if (e != cudaSuccess) return (int)e;
+  *trades_per_sm = blocks * tpb;
+  return 0;
 }
 
 }  // namespace
 
-#define SPIKE_MARCH_ARGS                                                     \
-  const void *trade, const void *coef, const void *fields, const void *rinv, \
-      const void *omask, const void *tau, const void *mon, const void *v_in, \
-      const void *edge_in, void *v_out, void *edge_out, int B, int n_pad,    \
-      int m, int P, int il, int k0, int ns, int n_sched, void *stream
+#define SPIKE_MARCH_ARGS                                                       \
+  const void *trade, const void *coef, const void *fields, const void *iface,  \
+      const void *tau, const void *mon, const void *v_in, const void *edge_in, \
+      void *v_out, void *edge_out, int B, int n_pad, int m, int P, int il,     \
+      int k0, int ns, int n_sched, void *stream
 #define SPIKE_MARCH_SHAPE B, n_pad, m, P, il, k0, ns, n_sched, stream
 #define SPIKE_MARCH_IO \
-  trade, coef, fields, rinv, omask, tau, mon, v_in, edge_in, v_out, edge_out
+  trade, coef, fields, iface, tau, mon, v_in, edge_in, v_out, edge_out
 
 extern "C" {
 
 int spike_march_f32(SPIKE_MARCH_ARGS) {
-  return launch<float, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr,
-                              SPIKE_MARCH_SHAPE);
+  return launch<float, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr, SPIKE_MARCH_SHAPE);
 }
 
 int spike_march_f64(SPIKE_MARCH_ARGS) {
-  return launch<double, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr,
-                               SPIKE_MARCH_SHAPE);
+  return launch<double, false>(SPIKE_MARCH_IO, nullptr, nullptr, nullptr, SPIKE_MARCH_SHAPE);
 }
 
 // the American march: the European arguments followed by the payoff, lambda
 // in and lambda out, each (B, n_pad)
 int spike_march_american_f32(SPIKE_MARCH_ARGS, const void* payoff,
                              const void* lam_in, void* lam_out) {
-  return launch<float, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out,
-                             SPIKE_MARCH_SHAPE);
+  return launch<float, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out, SPIKE_MARCH_SHAPE);
 }
 
 int spike_march_american_f64(SPIKE_MARCH_ARGS, const void* payoff,
                              const void* lam_in, void* lam_out) {
-  return launch<double, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out,
-                              SPIKE_MARCH_SHAPE);
+  return launch<double, true>(SPIKE_MARCH_IO, payoff, lam_in, lam_out, SPIKE_MARCH_SHAPE);
+}
+
+// trades resident per SM for a launch of this shape
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times trades per block)
+int spike_march_occupancy(int american, int f64, int n_pad, int m, int P,
+                          int* trades_per_sm) {
+  if (f64)
+    return american ? occupancy<double, true>(n_pad, m, P, trades_per_sm)
+                    : occupancy<double, false>(n_pad, m, P, trades_per_sm);
+  return american ? occupancy<float, true>(n_pad, m, P, trades_per_sm)
+                  : occupancy<float, false>(n_pad, m, P, trades_per_sm);
 }
 
 const char* spike_march_error_string(int code) {

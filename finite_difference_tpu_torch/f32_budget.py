@@ -60,7 +60,7 @@ def main(argv=None) -> None:
                         "gamma_err": float((gamma(v) - g_ref).abs().max()) / scale}
     r32 = lambda x: x.float().double()
     out = {}
-    for name in ("coef", "fields", "rinv", "v0"):
+    for name in ("coef", "fields", "iface", "v0"):
         out[f"f64 march, {name} rounded"] = report(
             march(t64, dataclasses.replace(prep, **{name: r32(getattr(prep, name))}))
         )

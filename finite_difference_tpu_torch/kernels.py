@@ -4,7 +4,8 @@ Each source under ``csrc/`` exposes a plain C interface:
 
 - ``spike_march.cu``, the SPIKE march (K1, K1a, K2): one kernel in two
   branches, European and American (Ikonen–Toivanen), each in float and
-  double (``spike_march[_american]_{f32,f64}``);
+  double (``spike_march[_american]_{f32,f64}``), and its occupancy query
+  (:func:`spike_resident_trades`);
 - ``hs_march.cu``, the fused march with Hillis–Steele scans (K3,
   ``hs_march_{f32,f64}``);
 - ``cr_march.cu``, the fused march with cyclic reduction (K4,
@@ -45,7 +46,7 @@ NVCC_FLAGS = (
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # the C functions of each library, with the argument types after their pointers
-_SPIKE_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_SPIKE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _FUNCTIONS = {
     "spike_march": {
         f"spike_march{branch}_{dt}": _SPIKE_ARGS + ([ctypes.c_void_p] * 3 if branch else [])
@@ -59,6 +60,11 @@ _FUNCTIONS = {
         f"cr_march_{dt}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         for dt in _DTYPE_TAG.values()
     },
+}
+
+# C functions that launch nothing (not counted)
+_QUERIES = {
+    "spike_march": {"spike_march_occupancy": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]},
 }
 
 launch_counts: Dict[str, int] = {name: 0 for fns in _FUNCTIONS.values() for name in fns}
@@ -124,7 +130,7 @@ def _lib(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            for fn_name, argtypes in _FUNCTIONS[name].items():
+            for fn_name, argtypes in {**_FUNCTIONS[name], **_QUERIES.get(name, {})}.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -170,11 +176,10 @@ def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int
     if not (1 <= P <= 32 and n_pad == m * P and 0 <= k0 < k1 <= n_sched):
         raise ValueError(f"spike_march_cuda: bad shape P={P} m={m} n_pad={n_pad} steps=[{k0}, {k1})")
     args = {
-        "trade": (prep.trade, (B, 11)),
+        "trade": (prep.trade, (B, 13)),
         "coef": (prep.coef[t], (B, 7)),
-        "fields": (prep.fields[t], (5, B, n_pad)),
-        "rinv": (prep.rinv[t], (B, 2 * P, 2 * P)),
-        "omask": (prep.omask, (B, n_pad)),
+        "fields": (prep.fields[t], (B, 5, 2, m)),
+        "iface": (prep.iface[t], (B, 8, P)),
         "tau": (prep.tau, (B, n_sched)),
         "mon": (prep.mon, (B, n_sched)),
         "v": (v, (B, n_pad)),
@@ -233,6 +238,23 @@ def spike_march_american_cuda(
     if not prep.american:
         raise ValueError("spike_march_american_cuda needs an American prep")
     return _launch(prep, t, v, edges, k0, k1, lam)
+
+
+def spike_resident_trades(prep) -> int:
+    """Trades of ``prep``'s march resident per SM on the current card, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers, shared
+    memory and threads of the kernel as built)."""
+    _check_device("spike_march", prep.v0)
+    lib = _lib("spike_march")
+    out = ctypes.c_int(0)
+    n_pad = prep.m * prep.P
+    with torch.cuda.device(prep.v0.device):
+        rc = lib.spike_march_occupancy(
+            int(prep.american), int(prep.v0.dtype == torch.float64), n_pad, prep.m, prep.P,
+            ctypes.byref(out),
+        )
+    _raise_on("spike_march", "spike_march_occupancy", rc)
+    return out.value
 
 
 def _fused_launch(kind: str, prep, solver_shape: tuple, shape_args: tuple) -> torch.Tensor:

@@ -10,25 +10,37 @@ branches, which here is the CUDA kernel ``csrc/spike_march.cu`` with
 same kernel, compiled at ``double``, takes the place of the TPU's
 double-float kernel ``_kernel_spike_df64``: the H100 has native float64.
 
-Each step's implicit tridiagonal solve splits the n_int interior rows into P
-chunks of m rows. Each chunk runs its own Thomas chain; the chunks are
-coupled through the 2P-unknown SPIKE interface system, whose (per segment
-constant) inverse is precomputed here, so a step's interface solve is one
-2P x 2P matvec. With ``american=True`` each step also carries the
-Ikonen–Toivanen multiplier lambda: a ``dt*lambda`` source term in the
-right-hand side, the projection ``max(payoff, v - dt*lambda)`` and the
-update ``lambda = max(0, lambda + (payoff - v)/dt)``; lambda is threaded
-across segments.
+Each step's implicit tridiagonal solve splits the n_int interior rows
+into P chunks of m rows. Each chunk runs its own Thomas chain; the
+chunks are coupled through the 2P-unknown SPIKE interface system. That
+system is banded: the pairs z_j = (b_j, t_{j+1}) form a
+block-tridiagonal system with 2x2 blocks whose off-diagonal blocks have
+rank one, so its block LU (:func:`interface_factors`, per segment
+constant, computed here at float64) reduces a step's interface solve to
+two first-order recurrences across the chunks (:func:`interface_solve`).
+With ``american=True`` each step also carries the Ikonen–Toivanen
+multiplier lambda: a ``dt*lambda`` source term in the right-hand side,
+the projection ``max(payoff, v - dt*lambda)`` and the update ``lambda =
+max(0, lambda + (payoff - v)/dt)``; lambda is threaded across segments.
 
-Layout. Interior row g = j*m + ii (chunk j, in-chunk row ii) is stored at
-position r = ii*P + j of a trade's (n_pad,) row, n_pad = m*P; trades are
-the leading axis, so prepared fields are (B, n_pad). With P = 32 a warp
-holds one trade and lane j walks chunk j: each band ii is one coalesced
-row read. Rows g >= n_int are identity pad rows pinned to 0, all in the
-tail of chunk P-1 (at least one exists by the choice of m), so the
-global-last row's in-chunk upper neighbour is always a zero pad and its
-boundary coupling is folded into the right-hand side. On a pad row the
-payoff, lambda and the solve are all 0, so the American update keeps it 0.
+Layout. Interior row g = j*m + ii (chunk j, in-chunk row ii) is stored
+at position r = ii*P + j of a trade's (n_pad,) row, n_pad = m*P; trades
+are the leading axis, so value rows are (B, n_pad). With P = 32 a warp
+holds one trade and lane j walks chunk j. Rows g >= n_int are identity
+pad rows pinned to 0, all in the tail of chunk P-1 (at least one exists
+by the choice of m), so the global-last row's in-chunk upper neighbour
+is always a zero pad and its boundary coupling is folded into the
+right-hand side. On a pad row the payoff, lambda and the solve are all
+0, so the American update keeps it 0.
+
+Compressed solver data. The per-chunk tridiagonals depend on the chunk
+only through the masks of real, lower- and upper-coupled rows, and those
+are the same for every chunk j < P-1 (``spike_shape`` guarantees
+(P-1)*m < n_int). So each per-row vector has two distinct columns of m
+values: column 0, shared by chunks 0..P-2, and column 1, chunk P-1's own
+(with the pads); :func:`expand_fields` gives the (B, m, P) rows back.
+The knock-out mask is a prefix and a suffix of the monotone grid, so two
+row indices per trade (``ko_lo``, ``ko_hi`` in ``trade``) describe it.
 
 P is this port's own parameter: :func:`spike_p` takes the largest of 32,
 16 and 8 that the grid's shape admits (32 for the 1024-node main path).
@@ -49,12 +61,22 @@ from .stepper import _payoff
 P_CANDIDATES = (32, 16, 8)
 
 # column order of SpikePrep.trade and SpikePrep.coef (the kernel reads the same)
+# ko_lo: interior rows g < ko_lo are knocked out from below; ko_hi: rows
+# ko_hi <= g < n_int from above (omask_lo/omask_hi: the two edge nodes)
 TRADE_COLS = (
     "strike", "is_call", "r", "growth_rate", "rebate", "rebate_at_hit",
-    "rebate_rate", "s_min", "s_max", "omask_lo", "omask_hi",
+    "rebate_rate", "s_min", "s_max", "omask_lo", "omask_hi", "ko_lo", "ko_hi",
 )
 COEF_COLS = ("bl", "bc", "bu", "al", "au", "dt", "bsum")
 FIELD_ROWS = ("w", "af", "ab", "vsp", "wsp")
+# the banded interface solve's factors for pair j (interface_factors):
+#   hb_j = hb_h*hb_{j-1} + hb_yb*y_bot_j + hb_yt*y_top_{j+1}
+#   ht_j = ht_h*hb_{j-1} + ht_yb*y_bot_j + ht_yt*y_top_{j+1}
+#   t_{j+1} = zt_j = zt_z*zt_{j+1} + ht_j,   b_j = zb_j = hb_j + zb_z*zt_{j+1}
+IFACE_ROWS = ("hb_h", "hb_yb", "hb_yt", "ht_h", "ht_yb", "ht_yt", "zt_z", "zb_z")
+# the least block-pivot determinant the interface elimination accepts (see
+# require_stable_interface)
+DET_FLOOR = 1e-3
 
 
 def spike_shape(n_nodes: int, P: int) -> Tuple[int, int, int]:
@@ -86,11 +108,14 @@ def spike_p(n_nodes: int) -> Optional[int]:
 class SpikePrep:
     """The prepared tensors one SPIKE march reads (all on one device, one dtype).
 
-    ``trade`` (B, 11) per-trade constants in :data:`TRADE_COLS` order;
-    ``coef`` (S, B, 7) explicit/implicit CN coefficients, dt and the
-    explicit row sum per solver set; ``fields`` (S, 5, B, n_pad) per-row Thomas and spike vectors;
-    ``rinv`` (S, B, 2P, 2P) interface inverses stored [set, trade, column,
-    row]; ``omask`` (B, n_pad) knock-out mask; ``tau``/``mon`` (B, n_steps)
+    ``trade`` (B, 13) per-trade constants in :data:`TRADE_COLS` order
+    (with the knock-out row indices); ``coef`` (S, B, 7) explicit/implicit
+    CN coefficients, dt and the explicit row sum per solver set;
+    ``fields`` (S, B, 5, 2, m) the :data:`FIELD_ROWS` per-row Thomas and
+    spike vectors in their two columns (shared by chunks 0..P-2, and chunk
+    P-1's own); ``iface`` (S, B, 8, P) the :data:`IFACE_ROWS` factors of
+    the banded interface solve, per pair j < P-1 (column P-1 is zero);
+    ``tau``/``mon`` (B, n_steps)
     schedule; ``v0`` (B, n_pad) payoff and ``edge0`` (B, 2) its edge values.
     ``american`` selects the Ikonen–Toivanen branch of the march, whose
     exercise target is ``v0`` (the payoff) in every segment, and the
@@ -100,8 +125,7 @@ class SpikePrep:
     trade: torch.Tensor
     coef: torch.Tensor
     fields: torch.Tensor
-    rinv: torch.Tensor
-    omask: torch.Tensor
+    iface: torch.Tensor
     tau: torch.Tensor
     mon: torch.Tensor
     v0: torch.Tensor
@@ -114,7 +138,7 @@ class SpikePrep:
 
 
 def _per_row_thomas(l, c, u):
-    """(w, af, ab) for the per-chunk tridiagonals; all (B, m, P)."""
+    """(w, af, ab) for the per-chunk tridiagonals; all (B, m, K), K chunks or columns."""
     w = torch.empty_like(c)
     w_prev = torch.zeros_like(c[:, 0])
     u_prev = torch.zeros_like(c[:, 0])
@@ -125,7 +149,7 @@ def _per_row_thomas(l, c, u):
 
 
 def _chunk_solve(w, af, ab, rhs):
-    """Solve the per-chunk tridiagonals for (B, m, P) right-hand sides."""
+    """Solve the per-chunk tridiagonals for (B, m, K) right-hand sides."""
     m = rhs.shape[1]
     y = torch.empty_like(rhs)
     d = torch.zeros_like(rhs[:, 0])
@@ -139,46 +163,159 @@ def _chunk_solve(w, af, ab, rhs):
     return y
 
 
-def _build_solver_set(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
-    """One (theta, dt) solver set: (coef (B, 7), fields (5, B, n_pad), rinv (B, 2P, 2P)).
+def expand_fields(fields, P: int):
+    """The five (B, m, P) per-row vectors of compressed ``fields`` (B, 5, 2, m):
+    column 0 for chunks 0..P-2, column 1 for chunk P-1, and chunk 0's vsp
+    zero (it has no left coupling)."""
+    col = torch.tensor([0] * (P - 1) + [1], device=fields.device)
+    w, af, ab, vsp, wsp = fields.transpose(2, 3)[..., col].unbind(1)
+    vsp = torch.cat([torch.zeros_like(vsp[..., :1]), vsp[..., 1:]], dim=-1)
+    return w, af, ab, vsp, wsp
 
-    The 2P x 2P interface inverse is ``torch.linalg.inv`` at the prep's
-    float64, outside the kernel, as JAX calls ``jnp.linalg.inv`` outside
-    Pallas (the TPU version Newton-refines an f32 seed because the TPU's LU
-    is f32 only; the H100's float64 is native and needs no such step).
+
+def interface_tips(fields, P: int):
+    """The spike vectors' tips per chunk, (p, q, r, s) each (B, P):
+    p_j = vsp_j[0], r_j = vsp_j[m-1], q_j = wsp_j[0], s_j = wsp_j[m-1], with
+    p_0 = r_0 = 0 and q_{P-1} = s_{P-1} = 0. The interface system is
+        t_j + p_j b_{j-1} + q_j t_{j+1} = y_top_j
+        b_j + r_j b_{j-1} + s_j t_{j+1} = y_bot_j."""
+    _, _, _, vsp, wsp = expand_fields(fields, P)
+    return vsp[:, 0], wsp[:, 0], vsp[:, -1], wsp[:, -1]
+
+
+def interface_factors(p, q, r, s):
+    """Block LU of the reduced interface system: (iface (B, 8, P), det (B, P-1)).
+
+    The unknowns pair as z_j = (b_j, t_{j+1}), j = 0..P-2, in a block
+    tridiagonal system with diagonal blocks D_j = [[1, s_j], [p_{j+1}, 1]]
+    and rank-one couplings r_j (to b_{j-1}) and q_{j+1} (to t_{j+2}). The
+    elimination changes only D_j[0, 1], to s_j - r_j q_j Dinv_{j-1}[0, 1],
+    and leaves two scalar recurrences across the pairs (see
+    :data:`IFACE_ROWS`); t_0 and b_{P-1} are not needed by the correction.
+    No pivoting: ``det`` is each eliminated block's determinant, which
+    :func:`require_stable_interface` holds above :data:`DET_FLOOR`.
+    Exact (no truncation of far couplings).
     """
-    B = dt.shape[0]
+    # the only sequential part: D'_j[0, 1] through Dinv_{j-1}[0, 1]
+    rq = r * q
+    i01 = torch.zeros_like(p[:, 0])
+    d01 = []
+    for j in range(p.shape[1] - 1):
+        d01.append(s[:, j] - rq[:, j] * i01)
+        i01 = d01[-1] / (d01[-1] * p[:, j + 1] - 1.0)
+    if not d01:  # P = 1: no pairs
+        return p.new_zeros(p.shape[0], len(IFACE_ROWS), 1), p.new_zeros(p.shape[0], 0)
+    d01 = torch.stack(d01, dim=1)  # (B, P-1)
+    p_next, r_j, q_next = p[:, 1:], r[:, :-1], q[:, 1:]
+    det = 1.0 - d01 * p_next
+    i00, i01, i10 = 1.0 / det, -d01 / det, -p_next / det  # Dinv_j; [1, 1] = [0, 0]
+    rows = [-i00 * r_j, i00, i01, -i10 * r_j, i10, i00, -i00 * q_next, -i01 * q_next]
+    iface = torch.stack(rows, dim=1)
+    return torch.cat([iface, torch.zeros_like(iface[:, :, :1])], dim=2), det
+
+
+def require_stable_interface(p, q, r, s, det) -> None:
+    """Raise ValueError unless the interface elimination, which does not
+    pivot, is safe for every trade: the reduced system is strictly
+    diagonally dominant by rows (|p_j| + |q_j| < 1 and |r_j| + |s_j| < 1;
+    it is when A is, as when |mu|*dx <= sigma^2), so that elimination
+    without pivoting is backward stable, and every block pivot's
+    determinant is at least :data:`DET_FLOOR`, so that the factors, which
+    grow like 1/det, amplify the float32 rounding of the tips (6e-8) to at
+    most 6e-5, inside the kernel's 2e-4 float32 limit. Tips and ``det`` as
+    :func:`interface_tips` and :func:`interface_factors` give them."""
+    row_sum = torch.maximum(p.abs() + q.abs(), r.abs() + s.abs())
+    bad = (row_sum >= 1.0).any(dim=1) | (det < DET_FLOOR).any(dim=1)
+    if bool(bad.any()):
+        raise ValueError(
+            f"SPIKE interface elimination without pivoting is unsafe for "
+            f"{int(bad.sum())} of {bad.numel()} trade solver sets: largest tip row "
+            f"sum {float(row_sum.max()):.3g} (must be < 1), least block pivot "
+            f"determinant {float(det.min()) if det.numel() else 1.0:.3g} (must be "
+            f">= {DET_FLOOR:g}); a drift-dominated trade (|mu|*dx > sigma^2) or "
+            f"a coarse time grid does this; use solver='scan'"
+        )
+
+
+def _scan_up(a, b):
+    """x_j = a_j x_{j-1} + b_j with x_{-1} = 0, for every j: an inclusive
+    Kogge–Stone scan across the chunk axis, in the kernel's order."""
+    off = 1
+    while off < a.shape[1]:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
+        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def _scan_down(a, b):
+    """x_j = a_j x_{j+1} + b_j with x_P = 0: the scan of :func:`_scan_up` downwards."""
+    off = 1
+    while off < a.shape[1]:
+        b = torch.cat([a[:, :-off] * b[:, off:] + b[:, :-off], b[:, -off:]], dim=1)
+        a = torch.cat([a[:, :-off] * a[:, off:], a[:, -off:]], dim=1)
+        off *= 2
+    return b
+
+
+def interface_solve(iface, y_top, y_bot):
+    """The banded interface solve of one step, in the kernel's order:
+    (bprev, tnext) (B, P), chunk j's b_{j-1} and t_{j+1} (0 where they do
+    not exist), from the chunk solves' tips y_top, y_bot (B, P)."""
+    hb_h, hb_yb, hb_yt, ht_h, ht_yb, ht_yt, zt_z, zb_z = iface.unbind(1)
+    col0 = torch.zeros_like(y_top[:, :1])
+    up = lambda x: torch.cat([col0, x[:, :-1]], dim=1)  # lane j takes lane j-1's
+    down = lambda x: torch.cat([x[:, 1:], col0], dim=1)  # lane j takes lane j+1's
+    yt_next = down(y_top)
+    hb = _scan_up(hb_h, hb_yb * y_bot + hb_yt * yt_next)
+    ht = ht_h * up(hb) + ht_yb * y_bot + ht_yt * yt_next
+    zt = _scan_down(zt_z, ht)
+    zb = hb + zb_z * down(zt)
+    return up(zb), zt
+
+
+def ko_rows(prep: SpikePrep):
+    """The knock-out mask (B, m, P) of the prep's interior rows, from the
+    trade's two row indices; pads are never knocked out."""
+    m, P = prep.m, prep.P
+    ii = torch.arange(m, device=prep.trade.device)[:, None]
+    g = torch.arange(P, device=prep.trade.device)[None, :] * m + ii
+    ko_lo, ko_hi = (prep.trade[:, TRADE_COLS.index(k)][:, None, None] for k in ("ko_lo", "ko_hi"))
+    return (g < ko_lo) | ((g >= ko_hi) & (g < prep.n_int))
+
+
+def _build_solver_sets(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
+    """Every (theta, dt) solver set at once, theta (S, 1) and dt (S, B):
+    (coef (S, B, 7), fields (S, B, 5, 2, m), iface (S, B, 8, P)).
+
+    ``has_l``, ``has_u`` and ``real`` are the (m, 2) row masks of the two
+    columns. The interface factors replace the dense 2P x 2P inverse that
+    JAX computes with ``jnp.linalg.inv`` outside Pallas.
+    """
+    S, B = dt.shape
     a_l = -theta * dt * a_coef
     a_c_diag = 1.0 - theta * dt * b_coef
     a_u = -theta * dt * c_coef
-    col = lambda x: x[:, None, None]
-    l = torch.where(has_l, col(a_l), 0.0)  # (B, m, P)
+    col = lambda x: x.reshape(-1)[:, None, None]
+    l = torch.where(has_l, col(a_l), 0.0)  # (S*B, m, 2)
     c = torch.where(real, col(a_c_diag), 1.0)
     u = torch.where(has_u, col(a_u), 0.0)
     w, af, ab = _per_row_thomas(l, c, u)
-    # spike vectors: vsp_j = a_l A_j^{-1} e_0 (coupling to b_{j-1}),
-    # wsp_j = a_u A_j^{-1} e_{m-1} (coupling to t_{j+1}); chunk 0 has no
-    # left coupling, chunk P-1 no right coupling
-    e0 = torch.zeros_like(c)
-    e0[:, 0] = 1.0
-    em = torch.zeros_like(c)
-    em[:, m - 1] = 1.0
-    vsp = col(a_l) * _chunk_solve(w, af, ab, e0)
-    vsp[:, :, 0] = 0.0
-    wsp = col(a_u) * _chunk_solve(w, af, ab, em)
-    wsp[:, :, P - 1] = 0.0
-    # reduced interface system R u = tips in block ordering
-    # (u = [t_0..t_{P-1}, b_0..b_{P-1}], tips = [y_j[0], y_j[m-1]]):
-    #   t_j + vsp_j[0]   b_{j-1} + wsp_j[0]   t_{j+1} = y_j[0]
-    #   b_j + vsp_j[m-1] b_{j-1} + wsp_j[m-1] t_{j+1} = y_j[m-1]
-    R = torch.eye(2 * P, dtype=dt.dtype, device=dt.device).repeat(B, 1, 1)
-    j = torch.arange(1, P, device=dt.device)
-    R[:, j, P + j - 1] = vsp[:, 0, 1:]
-    R[:, P + j, P + j - 1] = vsp[:, m - 1, 1:]
-    j = torch.arange(P - 1, device=dt.device)
-    R[:, j, j + 1] = wsp[:, 0, : P - 1]
-    R[:, P + j, j + 1] = wsp[:, m - 1, : P - 1]
-    rinv = torch.linalg.inv(R).transpose(1, 2).contiguous()  # [trade, col, row]
+    # spike vectors, both right-hand sides in one solve: vsp_j = a_l A_j^{-1} e_0
+    # (coupling to b_{j-1}), wsp_j = a_u A_j^{-1} e_{m-1} (coupling to
+    # t_{j+1}); chunk P-1 has no right coupling (chunk 0's missing left one
+    # is expand_fields' zero)
+    e = torch.zeros_like(c).repeat(1, 1, 2)
+    e[:, 0, :2] = 1.0
+    e[:, m - 1, 2:] = 1.0
+    y = _chunk_solve(*(x.repeat(1, 1, 2) for x in (w, af, ab)), e)
+    vsp = col(a_l) * y[..., :2]
+    wsp = col(a_u) * y[..., 2:]
+    wsp[:, :, 1] = 0.0
+    fields = torch.stack([w, af, ab, vsp, wsp], dim=1).transpose(2, 3)  # (S*B, 5, 2, m)
+    tips = interface_tips(fields, P)
+    iface, det = interface_factors(*tips)
+    require_stable_interface(*tips, det)
     coef = torch.stack(
         [
             (1.0 - theta) * dt * a_coef,
@@ -191,10 +328,9 @@ def _build_solver_set(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, 
             # rhs (see spike_march_reference)
             1.0 - (1.0 - theta) * dt * r,
         ],
-        dim=1,
+        dim=2,
     )
-    fields = torch.stack([x.reshape(B, m * P) for x in (w, af, ab, vsp, wsp)])
-    return coef, fields, rinv
+    return coef, fields.view(S, B, 5, 2, m), iface.view(S, B, len(IFACE_ROWS), P)
 
 
 def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool = False) -> SpikePrep:
@@ -206,7 +342,7 @@ def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool =
 
     The prep runs at float64 whatever the march's dtype (that of
     ``batch.x_min``) and is rounded to it once at the end. At float32 the
-    per-chunk Thomas recursion and the 2P x 2P inverse would otherwise
+    per-chunk Thomas recursion and the interface solve would otherwise
     perturb the discrete operator by many roundings, differently for sigma
     and sigma + dv: on the benchmark trade set (CPU, B=48) the float64 prep
     cut the f32 march's vega error against the f64 route from 4.8e-2 to
@@ -237,45 +373,45 @@ def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool =
     c_coef = alpha_c + beta_adv
     b_coef = -2.0 * alpha_c - r
 
-    # chunk layout: interior row g = j*m + ii at position r = ii*P + j
+    # the two columns' row masks: chunk 0 (as every chunk j < P-1) and
+    # chunk P-1; interior row g = j*m + ii
     ii = torch.arange(m, device=device)[:, None]
-    jj = torch.arange(P, device=device)[None, :]
-    g = jj * m + ii  # (m, P)
+    g = torch.tensor([0, P - 1], device=device)[None, :] * m + ii  # (m, 2)
     real = g < n_int
     has_l = real & (ii > 0)
     has_u = real & (ii < m - 1) & (g < n_int - 1)
 
-    sets = [
-        _build_solver_set(
-            theta, f(batch.dt[:, k_col]), r, a_coef, b_coef, c_coef,
-            has_l, has_u, real, m, P,
-        )
-        for theta, k_col in set_defs
-    ]
-    coef, fields, rinv = (torch.stack(x) for x in zip(*sets))
-
-    out_mask = (batch.has_lower[:, None] & (s <= f(batch.lower)[:, None])) | (
-        batch.has_upper[:, None] & (s >= f(batch.upper)[:, None])
+    theta = torch.tensor([th for th, _ in set_defs], dtype=torch.float64, device=device)
+    dt = torch.stack([f(batch.dt[:, k_col]) for _, k_col in set_defs])
+    coef, fields, iface = _build_solver_sets(
+        theta[:, None], dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P
     )
-    g_flat = torch.clamp(g, max=n_int - 1).reshape(-1)
-    real_flat = real.reshape(-1)
-    to_rows = lambda full: torch.where(real_flat, full[:, 1 : N - 1][:, g_flat], 0.0)
+
+    # knock-out rows: s is increasing, so each barrier knocks out a prefix
+    # (s <= lower) or a suffix (s >= upper) of the interior rows
+    below = batch.has_lower[:, None] & (s <= f(batch.lower)[:, None])
+    above = batch.has_upper[:, None] & (s >= f(batch.upper)[:, None])
+    ko_lo = f(below[:, 1 : N - 1].sum(dim=1))
+    ko_hi = n_int - f(above[:, 1 : N - 1].sum(dim=1))
     trade = torch.stack(
         [
             strike, f(batch.is_call), r, b - q - r, f(batch.rebate),
             f(batch.rebate_at_hit), f(batch.rebate_rate), s[:, 0], s[:, -1],
-            f(out_mask[:, 0]), f(out_mask[:, -1]),
+            f(below[:, 0] | above[:, 0]), f(below[:, -1] | above[:, -1]), ko_lo, ko_hi,
         ],
         dim=1,
     )
+    gp = torch.arange(P, device=device)[None, :] * m + ii  # (m, P) rows at r = ii*P + j
+    g_flat = torch.clamp(gp, max=n_int - 1).reshape(-1)
+    real_flat = (gp < n_int).reshape(-1)
+    to_rows = lambda full: torch.where(real_flat, full[:, 1 : N - 1][:, g_flat], 0.0)
     g_last = n_int - 1
     out = lambda x: x.to(dtype).contiguous()
     return SpikePrep(
         trade=out(trade),
         coef=out(coef),
         fields=out(fields),
-        rinv=out(rinv),
-        omask=out(to_rows(f(out_mask))),
+        iface=out(iface),
         tau=out(batch.tau_next),
         mon=out(batch.monitor),
         v0=out(to_rows(payoff)),
@@ -295,7 +431,9 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, l
     returns the state after step k1-1, ``(v, edges)``. For an American prep
     ``lam`` (B, n_pad) is the Ikonen–Toivanen multiplier entering step k0
     and the return is ``(v, edges, lam)``. Follows the TPU kernel
-    ``_kernel_spike`` band by band, both branches.
+    ``_kernel_spike`` band by band, both branches, except the interface
+    solve: the banded :func:`interface_solve` in place of JAX's dense
+    inverse matvec, and the knock-out rows from two indices per trade.
 
     One deliberate difference in the American branch: its explicit rhs is
     ``bsum*v + bl*(v_prev - v) + bu*(v_next - v)``, with the row sum
@@ -313,13 +451,13 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, l
     B = v.shape[0]
     m, P, il = prep.m, prep.P, prep.il
     (strike, is_call, r, growth_rate, rebate, at_hit, rebate_rate,
-     s_min, s_max, omask_lo, omask_hi) = prep.trade.unbind(1)
+     s_min, s_max, omask_lo, omask_hi) = prep.trade.unbind(1)[:11]
     is_call, at_hit = is_call != 0, at_hit != 0
     omask_lo, omask_hi = omask_lo != 0, omask_hi != 0
     bl, bc, bu, al, au, dt, bsum = (x[:, None] for x in prep.coef[t].unbind(1))
-    w, af, ab, vsp, wsp = (x.view(B, m, P) for x in prep.fields[t])
-    rinv = prep.rinv[t]
-    out_mask = prep.omask.view(B, m, P) != 0
+    w, af, ab, vsp, wsp = expand_fields(prep.fields[t], P)
+    iface = prep.iface[t]
+    out_mask = ko_rows(prep)
     zero = torch.zeros_like(strike)
     if prep.american:
         payoff = prep.v0.view(B, m, P)
@@ -374,15 +512,7 @@ def spike_march_reference(prep: SpikePrep, t: int, v, edges, k0: int, k1: int, l
             dp[:, ii] = x
         y_top = x
 
-        # 2P interface solve with the precomputed inverse, in the kernel's order
-        u = rinv[:, 0] * y_top[:, :1]
-        u = u + rinv[:, P] * y_bot[:, :1]
-        for j in range(1, P):
-            u = u + rinv[:, j] * y_top[:, j : j + 1]
-            u = u + rinv[:, P + j] * y_bot[:, j : j + 1]
-        col0 = torch.zeros_like(u[:, :1])
-        bprev = torch.cat([col0, u[:, P : 2 * P - 1]], dim=1)  # b_{j-1}
-        tnext = torch.cat([u[:, 1:P], col0], dim=1)  # t_{j+1}
+        bprev, tnext = interface_solve(iface, y_top, y_bot)  # b_{j-1}, t_{j+1}
 
         # spike correction + KO projection
         mon = prep.mon[:, k] != 0

@@ -85,6 +85,34 @@ def test_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
     assert float((e_k - e_r).abs().max()) <= limit * scale
 
 
+def test_wrapper_refuses_the_old_prep_layout(cuda):
+    """The dense-inverse layout (fields (5, B, n_pad), a (B, 2P, 2P)
+    inverse in place of the factors) no longer launches."""
+    tb = build_trade_batch(device=cuda, **_kwargs(B=4))
+    prep = spike.prepare_spike(tb, tb.sigma, 128, 32, ((1.0, 0),))
+    B, n_pad = prep.v0.shape
+    old_fields = prep.fields.new_zeros(1, 5, B, n_pad)
+    with pytest.raises(ValueError, match="fields has shape"):
+        kernels.spike_march_cuda(dataclasses.replace(prep, fields=old_fields), 0, prep.v0, prep.edge0, 0, 2)
+    old_inv = prep.iface.new_zeros(1, B, 64, 64)
+    with pytest.raises(ValueError, match="iface has shape"):
+        kernels.spike_march_cuda(dataclasses.replace(prep, iface=old_inv), 0, prep.v0, prep.edge0, 0, 2)
+    with pytest.raises(ValueError, match="trade has shape"):
+        kernels.spike_march_cuda(dataclasses.replace(prep, trade=prep.trade[:, :11].contiguous()),
+                                 0, prep.v0, prep.edge0, 0, 2)
+
+
+@pytest.mark.parametrize("american", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_trades_query(cuda, american, dtype):
+    tb = build_trade_batch(dtype=dtype, device=cuda, **_kwargs(B=4, num_space_nodes=1023))
+    prep = spike.prepare_spike(tb, tb.sigma, 1024, 32, ((1.0, 0),), american=american)
+    kernels.reset_launch_counts()
+    resident = kernels.spike_resident_trades(prep)
+    assert 1 <= resident <= 64 and resident % 4 == 0
+    assert not any(kernels.launch_counts.values())
+
+
 def test_cuda_solve_matches_cpu_solve(cuda):
     tb = build_trade_batch(device="cpu", **_kwargs(seed=9))
     v_cpu = spike.cn_barrier_solve_spike(tb, tb.sigma, 128, 32)
@@ -114,8 +142,9 @@ def test_main_path_goes_through_the_kernel(cuda):
 
 
 def test_large_grid_opts_into_more_shared_memory(cuda):
-    """f64 at N=2048: 4 trades x 2048 rows x 8 bytes = 64 KB per block, above
-    the 48 KB default, so the launch first raises the kernel's limit."""
+    """f64 at N=2048: 4 trades x 2048 rows x 8 bytes = 64 KB per block (with
+    the solver data more), above the 48 KB default, so the launch first
+    raises the kernel's limit."""
     n_nodes = 2048
     tb = build_trade_batch(device=cuda, **_kwargs(seed=5, B=6, n_steps=8, num_space_nodes=n_nodes - 1))
     segments, set_defs = spike.default_segments(tb.n_steps)
@@ -277,3 +306,26 @@ def test_american_f64_opts_into_more_shared_memory(cuda):
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= 1e-11 * scale
     assert float((e_k - e_r).abs().max()) <= 1e-11 * scale
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+def test_american_kernel_matches_plain_version_at_main_width(cuda, dtype, limit):
+    """N=1024 (P=32, m=32, the main path's shape) at a small batch, with
+    dividends: the whole march against the plain version."""
+    n_nodes = 1024
+    tb = build_american_batch(dtype=dtype, device=cuda, **_american_kwargs(
+        seed=11, B=5, n_steps=24, num_space_nodes=n_nodes - 1))
+    segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    assert (prep.m, prep.P) == (32, 32)
+    kernels.reset_launch_counts()
+    v_k, e_k = spike.march_segments(tb, prep, segments, div_steps, reset_steps)
+    tag = "f64" if dtype == torch.float64 else "f32"
+    assert kernels.launch_counts[f"spike_march_american_{tag}"] == len(segments)
+    v_r, e_r = spike.march_segments(
+        tb, prep, segments, div_steps, reset_steps, step=spike.spike_march_reference
+    )
+    torch.cuda.synchronize()
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= limit * scale
+    assert float((e_k - e_r).abs().max()) <= limit * scale
