@@ -22,7 +22,10 @@ phase:
   trades at N=1026, each held against the f64 routes.
 
 The SPIKE march's timing lines also give its design bytes, its trades
-resident per SM and waves (the occupancy API).
+resident per SM and waves (the occupancy API); so does the CR march's. The
+SPIKE march is also held against its plain version and timed at P = 32, 64
+and 128 chunks per trade (one warp per trade, two and four) on the float64
+rung's batch.
 
 The last three lines are the kernels' summary (JSON), the card's name and
 power limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
@@ -51,7 +54,12 @@ T_EXP = 31.0 / 365.0
 STRIKE, RATE, BARRIER = 190.0, 0.0705, 420.0
 B_MAIN = 4096
 B_CHECK = 256  # the prefix held against the float64 route and the plain version
+SPIKE_P_CHECKED = (32, 64, 128)  # the SPIKE march's P held against the plain version at B_CHECK
 N_CR = 1026  # the cyclic-reduction march needs N - 2 a power of two
+P_RULE_B = (256, 512, 1024, 2048, 4096)  # batches at which the SPIKE march is timed at each P
+RULE_REPS = 7  # host-clock repetitions of each solve there
+CR_TRADES_PER_SM = (4, 8, 16, 24)  # the CR march's occupancy sweep at N_CR
+CR_SWEEP_N = (130, 258, 514, 1026, 2050)  # its grid sweep at 4 trades per SM
 
 # the American trade set (bench.py make_american_batch): 1-year puts,
 # spots U(80, 120), sigma U(0.15, 0.40), seed 7, K=100, r=0.06, b=0.02;
@@ -215,14 +223,15 @@ def bound(prep, segments, n_jumps: int = 0):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", cost
 
 
-def residency(prep) -> dict:
-    """Trades of the SPIKE march resident per SM (the occupancy API, through
-    the kernel library) and the waves its batch takes on this card."""
+def residency(prep, query=None) -> dict:
+    """Trades of a march resident per SM (the occupancy API, through the
+    kernel library: ``query``, by default the SPIKE march's) and the waves
+    its batch takes on this card."""
     import torch
 
     from finite_difference_tpu_torch import kernels
 
-    resident = kernels.spike_resident_trades(prep)
+    resident = (query or kernels.spike_resident_trades)(prep)
     sms = torch.cuda.get_device_properties(prep.v0.device).multi_processor_count
     return dict(resident_trades_per_sm=resident, sms=sms,
                 waves=math.ceil(prep.v0.shape[0] / (resident * sms)))
@@ -264,6 +273,19 @@ def fused_bound(prep, kind: str) -> dict:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes, extra_flops=extra)
+
+
+def cr_design_bytes(prep) -> int:
+    """What the CR kernel requests from global memory per march, by the
+    design's own count (as :func:`march_cost` counts the SPIKE kernel's):
+    per trade its constants (9 values), both theta sets' coefficients (10)
+    and level scalars (32 per level) once, the value row in and out (N
+    each), tau and the monitor flag once per step, and the knock-out mask's
+    N values on each monitor step."""
+    B, N = prep.v0.shape
+    n_mon = int((prep.mon != 0).sum())
+    words = B * (9 + 10 + 32 * prep.solver.shape[2] + 2 * N + 2 * prep.n_steps) + n_mon * N
+    return words * prep.v0.element_size()
 
 
 def host_ms(fn):
@@ -324,22 +346,22 @@ def american_phases(dev, card: dict, limits: dict):
         price_american_batch,
     )
 
-    def american_prep(tb, n_nodes):
+    def american_prep(tb, n_nodes, P=None):
+        """The American march of ``tb`` at ``P`` chunks (the batch-size rule's
+        P by default)."""
         sched = _spike_schedule_impl(tb, n_nodes)
         check(sched is not None, "an American batch of the run is not SPIKE-eligible")
         segments, set_defs, div_steps, reset_steps = sched
-        prep = spike.prepare_spike(
-            tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True
-        )
+        prep = spike.prepare_spike(tb, tb.sigma, n_nodes, P, set_defs, american=True)
         march = lambda step: spike.march_segments(tb, prep, segments, div_steps, reset_steps, step=step)
         return prep, segments, div_steps, march
 
-    def vs_plain(label, tb, n_nodes, reps=0):
+    def vs_plain(label, tb, n_nodes, reps=0, P=None):
         """The American march (kernel launches, lambda resets and dividend
         jumps between them) against its plain version; ``reps`` > 0 also
         times the kernel's march. On CUDA tensors spike.spike_march is the
         kernel, never the plain version."""
-        prep, segments, div_steps, march = american_prep(tb, n_nodes)
+        prep, segments, div_steps, march = american_prep(tb, n_nodes, P)
         limit = limits[tb.sigma.dtype]
         v_k, e_k = march(spike.spike_march)
         (v_r, e_r), plain_ms = host_ms(lambda: march(spike.spike_march_reference))
@@ -347,15 +369,19 @@ def american_phases(dev, card: dict, limits: dict):
         err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
         ms = cuda_ms(lambda: march(spike.spike_march), reps) if reps else None
         b_ms, b_by, cost = bound(prep, segments, len(div_steps))
+        shape = dict(P=prep.P, warps_per_trade=max(1, prep.P // 32))
         timed = dict(**cost, **residency(prep)) if reps else {}
         emit("american_kernel_vs_plain", size=label, dtype=str(tb.sigma.dtype), B=tb.batch_size,
-             N=n_nodes, steps=tb.n_steps, P=prep.P, launches_per_march=len(segments),
+             N=n_nodes, steps=tb.n_steps, **shape, launches_per_march=len(segments),
              dividend_jumps=len(div_steps), max_abs_err=err, max_abs_v=scale, ratio=err / scale,
              limit=limit, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms, **timed, **card)
         check(math.isfinite(err) and err <= limit * scale,
               f"American kernel vs plain {label} {tb.sigma.dtype}: {err / scale:.3e} > {limit}")
-        return dict(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        out = dict(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **shape)
+        if reps:
+            out.update(resident_trades_per_sm=timed["resident_trades_per_sm"], waves=timed["waves"])
+        return out
 
     # 5. the American kernel against its plain version ---------------------
     for is_call in (False, True):
@@ -367,6 +393,13 @@ def american_phases(dev, card: dict, limits: dict):
     k1a = vs_plain("main_width_dividends", tb_div, N_NODES, reps=3)
     tb64 = build_american_batch(dtype=torch.float64, device=dev, **american_trades(B_AM64)[0])
     k2 = vs_plain("rung_f64", tb64, N_NODES, reps=5)
+    # the rung's batch at every checked P, f32 and f64; K2's march timed at each
+    tb32_rung = build_american_batch(dtype=torch.float32, device=dev, **american_trades(B_AM64)[0])
+    k2_ms_by_p = {k2["P"]: k2["ms"]}
+    for P in SPIKE_P_CHECKED:
+        vs_plain(f"rung_batch_p{P}", tb32_rung, N_NODES, P=P)
+        if P != k2["P"]:
+            k2_ms_by_p[P] = vs_plain(f"rung_f64_p{P}", tb64, N_NODES, reps=5, P=P)["ms"]
 
     # 6. the American path at f32 -------------------------------------------
     kw, _, _ = american_trades(B_MAIN)
@@ -466,6 +499,9 @@ def american_phases(dev, card: dict, limits: dict):
          div_kernel_ms_per_march=k1a["ms"], div_plain_ms_per_march=k1a["plain_ms"],
          div_launches_per_march=n_div,
          f64_kernel_ms_per_march=k2["ms"], f64_plain_ms_per_march=k2["plain_ms"],
+         f64_P=k2["P"], f64_warps_per_trade=k2["warps_per_trade"],
+         f64_kernel_ms_per_march_p32=k2_ms_by_p[32],
+         f64_kernel_ms_per_march_by_p={str(p): ms for p, ms in sorted(k2_ms_by_p.items())},
          launches_per_call={"price_only": len(segments), "greeks": 2 * len(segments),
                             "dividends": n_div},
          B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P, **card)
@@ -616,10 +652,14 @@ def fused_phases(dev, card: dict, limits: dict):
         check(math.isfinite(err) and err <= limits[torch.float32] * scale,
               f"{kind} kernel vs plain main path: {err / scale:.3e} > {limits[torch.float32]}")
         b = fused_bound(prep, kind)
+        design = {}
+        if kind == "cr":
+            design = dict(design_bytes=cr_design_bytes(prep),
+                          **residency(prep, kernels.cr_resident_trades))
         entry.update(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,
-                     plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+                     plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"], **design)
         timing[kind] = dict(prep_ms=prep_ms, kernel_ms_per_march=ms, plain_ms_per_march=plain_ms,
-                            launches_per_march=1, N=n_nodes, **b)
+                            launches_per_march=1, N=n_nodes, **b, **design)
         del prep, v_r, v_k
     call_ms = B_MAIN / gps * 1e3
     emit("fused_timing", grids_per_s=gps, greeks_grids_per_s=gps_greeks, call_ms=call_ms,
@@ -632,6 +672,88 @@ def fused_phases(dev, card: dict, limits: dict):
     k4.update(name="cr_march_f32", source="finite_difference_tpu_torch/csrc/cr_march.cu",
               replaces="finite_difference_tpu/models/pde/pallas_cr.py:129")
     return k3, k4
+
+
+def rule_phases(dev, card: dict) -> None:
+    """What two launch choices rest on, timed on the card.
+
+    - The SPIKE march's P against the batch size
+      (``spike.spike_p_choices``): on the barrier set at f32 and the
+      American set at f32 and f64, at each B of :data:`P_RULE_B` and each P
+      of :data:`SPIKE_P_CHECKED`, the solve (``cn_barrier_solve_spike``:
+      the prep and the march) and the prep alone (host clock, median of
+      :data:`RULE_REPS`, the P in turns), the march alone (CUDA events) and
+      the prep's device kernels, beside the P that the rule takes.
+    - The CR march against its occupancy: microseconds per step at N=1026
+      with each count of :data:`CR_TRADES_PER_SM` trades on every SM
+      (blocks of 4 trades); a march whose time does not grow with the
+      trades per SM is bound by latency. And at each N of
+      :data:`CR_SWEEP_N` at 4 trades per SM (one warp per SM scheduler):
+      the time per step against the levels (log2 n) and the rows (n).
+    """
+    import statistics
+
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.pde import cr, spike
+    from finite_difference_tpu_torch.models.pde.batch import (
+        _spike_schedule_impl,
+        build_american_batch,
+        build_trade_batch,
+    )
+
+    # 13. the SPIKE march's P against the batch size ---------------------------
+    for path, dtype in (("barrier", torch.float32), ("american", torch.float32),
+                        ("american", torch.float64)):
+        american = path == "american"
+        for B in P_RULE_B:
+            if american:
+                tb = build_american_batch(dtype=dtype, device=dev, **american_trades(B)[0])
+            else:
+                tb = build_trade_batch(dtype=dtype, device=dev, **bench_trades(B)[0])
+            segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, N_NODES)
+            events = dict(div_steps=div_steps, reset_steps=reset_steps) if american else {}
+            prepare = lambda P: spike.prepare_spike(tb, tb.sigma, N_NODES, P, set_defs, american)
+            solve = lambda P: spike.cn_barrier_solve_spike(
+                tb, tb.sigma, N_NODES, tb.n_steps, p_chunks=P, segments=segments,
+                set_defs=set_defs, american=american, **events)
+            # the P in turns, so that the host's drift reaches each alike
+            solve_ms = {P: [] for P in SPIKE_P_CHECKED}
+            prep_ms = {P: [] for P in SPIKE_P_CHECKED}
+            for rep in range(RULE_REPS + 1):
+                for P in SPIKE_P_CHECKED:
+                    t_solve, t_prep = host_ms(lambda: solve(P))[1], host_ms(lambda: prepare(P))[1]
+                    if rep:  # the first turn warms up
+                        solve_ms[P].append(t_solve)
+                        prep_ms[P].append(t_prep)
+            by_p = {}
+            for P in SPIKE_P_CHECKED:
+                prep = prepare(P)
+                ms = cuda_ms(lambda: spike.march_segments(tb, prep, segments, **events), reps=3)
+                by_p[str(P)] = dict(solve_ms=statistics.median(solve_ms[P]),
+                                    prep_ms=statistics.median(prep_ms[P]), march_ms=ms)
+                if B == P_RULE_B[0]:  # the prep's launches do not depend on B
+                    by_p[str(P)]["prep_device_kernels"] = profile_call(
+                        lambda: prepare(P), 1.0)["device_kernels"]
+            rule = prepare(None).P
+            emit("spike_p_rule", path=path, dtype=str(dtype), B=B, N=N_NODES, steps=N_STEPS,
+                 rule_P=rule, by_P=by_p, reps=RULE_REPS, **card)
+            del tb, prep
+
+    # 14. the CR march against its occupancy and its grid ----------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def cr_march(B, n_nodes):
+        tb = build_trade_batch(dtype=torch.float32, device=dev, **bench_trades(B, n_nodes)[0])
+        prep = cr.prepare_cr(tb, tb.sigma, n_nodes)
+        ms = cuda_ms(lambda: kernels.cr_march_cuda(prep), reps=3)
+        return dict(B=B, N=n_nodes, ms=ms, us_per_step=ms * 1e3 / N_STEPS)
+
+    occupancy = [dict(trades_per_sm=k, **cr_march(k * sms, N_CR)) for k in CR_TRADES_PER_SM]
+    grid = [cr_march(4 * sms, n) for n in CR_SWEEP_N]
+    emit("cr_sweep", dtype="torch.float32", steps=N_STEPS, sms=sms, occupancy=occupancy,
+         grid=grid, **card)
 
 
 def main() -> int:
@@ -670,25 +792,28 @@ def main() -> int:
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0, ptxas=ptxas)
 
     # 2. kernel against its plain version on the card -----------------------
+    # (main width: one warp per trade at P=32, and P/32 warps at P=64, the
+    # batch-size rule's choice for B=256, and at P=128)
     limits = {torch.float64: 1e-11, torch.float32: 2e-4}
-    for label, kw_fn, n_nodes in (
-        ("small", lambda: mixed_trades(8, 32, 127), 128),
-        ("main_width", lambda: bench_trades(B_CHECK)[0], N_NODES),
+    for label, kw_fn, n_nodes, p_list in (
+        ("small", lambda: mixed_trades(8, 32, 127), 128, (None,)),
+        ("main_width", lambda: bench_trades(B_CHECK)[0], N_NODES, SPIKE_P_CHECKED),
     ):
-        for dtype, limit in limits.items():
-            tb = build_trade_batch(dtype=dtype, device=dev, **kw_fn())
-            segments, set_defs = spike.default_segments(tb.n_steps)
-            prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
-            v_k, e_k = spike.march_segments(tb, prep, segments, step=kernels.spike_march_cuda)
-            v_r, e_r = spike.march_segments(tb, prep, segments, step=spike.spike_march_reference)
-            torch.cuda.synchronize()
-            scale = float(v_r.abs().max())
-            err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
-            emit("kernel_vs_plain", size=label, dtype=str(dtype), B=tb.batch_size,
-                 N=n_nodes, steps=tb.n_steps, P=prep.P, max_abs_err=err, max_abs_v=scale,
-                 ratio=err / scale, limit=limit)
-            check(math.isfinite(err) and err <= limit * scale,
-                  f"kernel vs plain {label} {dtype}: {err / scale:.3e} > {limit}")
+        for P_req in p_list:
+            for dtype, limit in limits.items():
+                tb = build_trade_batch(dtype=dtype, device=dev, **kw_fn())
+                segments, set_defs = spike.default_segments(tb.n_steps)
+                prep = spike.prepare_spike(tb, tb.sigma, n_nodes, P_req, set_defs)
+                v_k, e_k = spike.march_segments(tb, prep, segments, step=kernels.spike_march_cuda)
+                v_r, e_r = spike.march_segments(tb, prep, segments, step=spike.spike_march_reference)
+                torch.cuda.synchronize()
+                scale = float(v_r.abs().max())
+                err = max(float((v_k - v_r).abs().max()), float((e_k - e_r).abs().max()))
+                emit("kernel_vs_plain", size=label, dtype=str(dtype), B=tb.batch_size,
+                     N=n_nodes, steps=tb.n_steps, P=prep.P, max_abs_err=err, max_abs_v=scale,
+                     ratio=err / scale, limit=limit)
+                check(math.isfinite(err) and err <= limit * scale,
+                      f"kernel vs plain {label} P={prep.P} {dtype}: {err / scale:.3e} > {limit}")
 
     # 3. the main path ------------------------------------------------------
     kw, spots, sigmas = bench_trades(B_MAIN)
@@ -741,9 +866,7 @@ def main() -> int:
     sched, sched_ms = host_ms(lambda: _spike_schedule_impl(tb, N_NODES))
     check(sched is not None, "the main path's batch is not SPIKE-eligible")
     segments, set_defs = sched[:2]
-    prep, prep_ms = host_ms(
-        lambda: spike.prepare_spike(tb, tb.sigma, N_NODES, spike.spike_p(N_NODES), set_defs)
-    )
+    prep, prep_ms = host_ms(lambda: spike.prepare_spike(tb, tb.sigma, N_NODES, None, set_defs))
     march = lambda step: spike.march_segments(tb, prep, segments, step=step)
     ms = cuda_ms(lambda: march(kernels.spike_march_cuda), reps=10)
     k0, k1, t_cn = segments[-1]
@@ -789,7 +912,10 @@ def main() -> int:
     # 9-12. the fused marches -------------------------------------------------
     k3, k4 = fused_phases(dev, card, limits)
 
-    # 13. summary -----------------------------------------------------------
+    # 13-14. what the SPIKE P rule and the CR launch rest on ---------------------
+    rule_phases(dev, card)
+
+    # 15. summary -----------------------------------------------------------
     # library_ms is null for every kernel: no PyTorch call computes these
     # marches, and torch has no batched tridiagonal solve
     print(json.dumps({"kernels": [

@@ -9,8 +9,11 @@
 // which also documents the layout: a trade's interior rows are stored as
 // r = ii*P + j (chunk j, in-chunk row ii), trades on the leading axis.
 //
-// Mapping. One warp per trade, lane j < P walks chunk j; four trades per
-// block. A warp's shared memory holds, for the whole launch:
+// Mapping (template parameter W, warps per trade). W = 1 for P <= 32: one
+// warp per trade, lane j < P walks chunk j; four trades per block. W = P/32
+// for P = 64 and 128: one trade per block of W warps, chunk j = 32*warp +
+// lane (see "Several warps per trade" below). A trade's shared memory holds,
+// for the whole launch:
 //   - the value row (n_pad values); the forward-sweep scratch `dp` aliases
 //     it in place, because lane j reads only its own chunk once the two
 //     cross-chunk neighbours of a step are captured, and each row is
@@ -39,6 +42,32 @@
 // P-1 pairs was measured slower (PERF.md). spike.spike_march_reference
 // follows the scan's order.
 // Nothing in the march is a matrix product, so it uses no tensor cores.
+//
+// Several warps per trade (W > 1). A small batch (spike.spike_p: P=64 for
+// at most 2048 trades) leaves the card short of warps at one warp per
+// trade: the f64
+// rung's 256 trades made 64 blocks of 4 warps on 132 SMs, and each step
+// walked m = 32 rows three times through dependent f64 FMAs and
+// shared-memory loads (latency, not issue rate, bounds it). At W warps per
+// trade the chain per step is m = 8 or 16 rows and 256 trades fill all SMs.
+// The exchanges that cross a warp's edge go through a few values per warp
+// of shared memory after a block barrier, five per step:
+//   1. the chunk neighbours' edge rows (each lane keeps its chunk's first
+//      and last row in registers from the previous step's correction; the
+//      lanes beside it give them by shuffle, the warps beside it through
+//      shared memory);
+//   2. y_top of chunk j+1 across the warp's upper edge;
+//   3. and 4. each scan runs over the warp's 32 lanes, whose last (first)
+//      lane then publishes the warp's composed map; each warp composes the
+//      at most 3 maps before (after) it into the value entering it, which
+//      is also hb_{j-1} (t_{j+1}) across the warp's edge;
+//   5. b_{j-1} across the warp's lower edge.
+// spike.interface_solve runs the same order: 32-lane scans, then the carry.
+// Each lane touches only its own chunk's rows, so no other barrier is
+// needed. W = 1 keeps the one-warp code path unchanged (if constexpr). On
+// one NVIDIA H100 80GB HBM3 (700 W) the f64 American march of 256 trades
+// at N=1024 takes 2.0 ms at P=128, 3.4 ms at P=64 and 5.9 ms at P=32
+// (chip_smoke.py).
 //
 // American branch (Ikonen-Toivanen). Per step: the rhs is written in
 // row-sum form, bsum*v + bl*(v_prev - v) + bu*(v_next - v) with
@@ -87,12 +116,23 @@ constexpr int kTradesPerBlock = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use
 constexpr unsigned kFull = 0xffffffffu;
 
-// blocks per SM the launch bounds ask registers for: what shared memory
-// allows at N=1024, the main path's width (f32 European 8, American 5; f64
-// 4 and 2). Tuned to that width: at other N the shared-memory limit
-// differs, so re-derive these when the main width changes.
-template <typename T, bool American>
-constexpr int kMinBlocks = sizeof(T) == 4 ? (American ? 5 : 8) : (American ? 2 : 4);
+constexpr int kXchRows = 8;  // W > 1: values per warp exchanged across warps
+
+// blocks per SM the launch bounds ask registers for. W = 1: what shared
+// memory allows at N=1024, the main path's width (f32 European 8, American
+// 5; f64 4 and 2 blocks of 4 warps). Tuned to that width: at other N the
+// shared-memory limit differs, so re-derive these when the main width
+// changes. W > 1 asks for the same resident warps per SM as W = 1
+// (4/W times the blocks), so the same register cap per thread: 64 for f32
+// European, 102 for f32 American, 128 and 255 at f64. Shared memory is not
+// the limit there (one trade per block, 6.8 to 25 KB at N=1024), and a
+// batch that takes W > 1 fills the card with fewer warps than that.
+template <int W>
+constexpr int kThreads = 32 * (W == 1 ? kTradesPerBlock : W);
+
+template <typename T, bool American, int W>
+constexpr int kMinBlocks =
+    (sizeof(T) == 4 ? (American ? 5 : 8) : (American ? 2 : 4)) * 32 * kTradesPerBlock / kThreads<W>;
 
 __host__ __device__ inline int trade_smem_elems(bool american, int n_pad, int m, int P) {
   return n_pad * (american ? 2 : 1) + kFieldRows * 2 * m + kIfaceRows * P;
@@ -104,9 +144,10 @@ __device__ __forceinline__ double exp_(double x) { return exp(x); }
 template <typename T>
 __device__ __forceinline__ T max_(T a, T b) { return a > b ? a : b; }
 
-// x_j = a_j x_{j-1} + b_j across the lanes (x_{-1} = 0): inclusive scan
+// x_j = a_j x_{j-1} + b_j across the lanes (x_{-1} = 0): inclusive scan;
+// (a, b) become lane j's map composed with those of the lanes below it
 template <typename T>
-__device__ __forceinline__ T scan_up(T a, T b, int lane) {
+__device__ __forceinline__ void scan_up(T& a, T& b, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const T a_l = __shfl_up_sync(kFull, a, off);
@@ -116,12 +157,11 @@ __device__ __forceinline__ T scan_up(T a, T b, int lane) {
       a = a * a_l;
     }
   }
-  return b;
 }
 
 // x_j = a_j x_{j+1} + b_j across the lanes (x_32 = 0): inclusive scan down
 template <typename T>
-__device__ __forceinline__ T scan_down(T a, T b, int lane) {
+__device__ __forceinline__ void scan_down(T& a, T& b, int lane) {
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
     const T a_r = __shfl_down_sync(kFull, a, off);
@@ -131,11 +171,10 @@ __device__ __forceinline__ T scan_down(T a, T b, int lane) {
       a = a * a_r;
     }
   }
-  return b;
 }
 
-template <typename T, bool American>
-__global__ void __launch_bounds__(32 * kTradesPerBlock, (kMinBlocks<T, American>))
+template <typename T, bool American, int W>
+__global__ void __launch_bounds__(kThreads<W>, (kMinBlocks<T, American, W>))
 spike_march_kernel(
     const T* __restrict__ trade,   // (B, 13)
     const T* __restrict__ coef,    // (B, 7) bl, bc, bu, al, au, dt, bsum
@@ -154,15 +193,22 @@ spike_march_kernel(
   extern __shared__ unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  // W = 1: four trades per block, one per warp; W > 1: one trade per block
+  const int b = W == 1 ? blockIdx.x * (blockDim.x >> 5) + warp : blockIdx.x;
   if (b >= B) return;  // ragged last block: whole warps drop out
-  T* __restrict__ row =
-      reinterpret_cast<T*>(smem_raw) + (size_t)warp * trade_smem_elems(American, n_pad, m, P);
+  const int wv = W == 1 ? 0 : warp;  // the warp within the trade
+  T* __restrict__ row = reinterpret_cast<T*>(smem_raw) +
+                        (W == 1 ? (size_t)warp * trade_smem_elems(American, n_pad, m, P) : 0);
   T* __restrict__ lam = row + n_pad;                      // American only
   T* __restrict__ fs = row + n_pad * (American ? 2 : 1);  // [field][ii][column]
   T* __restrict__ fz = fs + kFieldRows * 2 * m;           // [factor][pair]
-  const bool act = lane < P;
-  const int j = lane;
+  // W > 1: kXchRows x W values exchanged across the trade's warps
+  T* __restrict__ xch = fz + kIfaceRows * P;
+  const bool act = W > 1 || lane < P;
+  const int j = 32 * wv + lane;
+  // the loads of the segment's data: a warp (W = 1) or the whole block
+  const int tid = W == 1 ? lane : (int)threadIdx.x;
+  constexpr int kLoaders = 32 * W;
 
   const T* tr = trade + (size_t)b * kTradeCols;
   const T strike = tr[0], r = tr[2], growth_rate = tr[3];
@@ -185,13 +231,13 @@ spike_march_kernel(
 
   // segment-constant solver data into shared memory, once per launch
   const T* __restrict__ f_src = fields + (size_t)b * kFieldRows * 2 * m;
-  for (int i = lane; i < kFieldRows * 2 * m; i += 32) {
+  for (int i = tid; i < kFieldRows * 2 * m; i += kLoaders) {
     const int fld = i / (2 * m), rem = i - fld * 2 * m;
     const int c = rem >= m ? 1 : 0;
     fs[(fld * m + rem - c * m) * 2 + c] = f_src[i];
   }
   const T* __restrict__ z_src = iface + (size_t)b * kIfaceRows * P;
-  for (int i = lane; i < kIfaceRows * P; i += 32) fz[i] = z_src[i];
+  for (int i = tid; i < kIfaceRows * P; i += kLoaders) fz[i] = z_src[i];
   if (act)
     for (int ii = 0; ii < m; ++ii) row[ii * P + j] = v_in[base + ii * P + j];
   if constexpr (American) {
@@ -206,6 +252,15 @@ spike_march_kernel(
   const T* __restrict__ fws = fw + 8 * m;
   T v_lo = edge_in[2 * b], v_hi = edge_in[2 * b + 1];
   const int last = (m - 1) * P;
+  // W > 1: this chunk's first and last rows, kept in registers from step to
+  // step; the warp's edge lanes publish theirs for the warps beside it
+  T my_first = T(0), my_last = T(0);
+  if constexpr (W > 1) {
+    my_first = row[j];
+    my_last = row[last + j];
+    if (lane == 0) xch[wv] = my_first;
+    if (lane == 31) xch[W + wv] = my_last;
+  }
 
   for (int k = 0; k < ns; ++k) {
     const T t = tau_b[k];
@@ -216,17 +271,27 @@ spike_march_kernel(
     const T v_min_n = is_call ? T(0) : v_min_put;
     const T v_max_n = is_call ? s_max * growth - strike * disc : T(0);
 
-    // the two cross-chunk neighbours of this step, captured before any
-    // lane overwrites its rows with the forward-sweep values (the first
-    // step's __syncwarp also publishes the loads above)
-    __syncwarp();
     T v_prev = T(0), v_cur = T(0), up_fix = T(0);
-    if (act) {
-      v_prev = j == 0 ? v_lo : row[last + j - 1];
-      v_cur = row[j];
-      up_fix = row[j + 1 < P ? j + 1 : 0];
+    if constexpr (W == 1) {
+      // the two cross-chunk neighbours of this step, captured before any
+      // lane overwrites its rows with the forward-sweep values (the first
+      // step's __syncwarp also publishes the loads above)
+      __syncwarp();
+      if (act) {
+        v_prev = j == 0 ? v_lo : row[last + j - 1];
+        v_cur = row[j];
+        up_fix = row[j + 1 < P ? j + 1 : 0];
+      }
+      __syncwarp();
+    } else {
+      // barrier 1: the edge rows the previous step (or the load) published
+      __syncthreads();
+      const T last_l = __shfl_up_sync(kFull, my_last, 1);
+      const T first_r = __shfl_down_sync(kFull, my_first, 1);
+      v_prev = lane > 0 ? last_l : (wv > 0 ? xch[W + wv - 1] : v_lo);
+      v_cur = my_first;
+      up_fix = lane < 31 ? first_r : xch[(wv + 1) % W];  // chunk 0's at j = P-1
     }
-    __syncwarp();
 
     // band-streamed rhs fused into the forward Thomas chain; row ii's slot
     // takes d'_ii once v_ii has been read
@@ -280,15 +345,60 @@ spike_march_kernel(
     T zf[kIfaceRows];
 #pragma unroll
     for (int q = 0; q < kIfaceRows; ++q) zf[q] = act ? fz[q * P + j] : T(0);
-    const T yt_next = __shfl_down_sync(kFull, y_top, 1);
-    const T c = zf[1] * y_bot + zf[2] * yt_next;
-    const T hb = scan_up(zf[0], c, lane);
-    const T hb_up = __shfl_up_sync(kFull, hb, 1);
-    const T ht = zf[3] * (j == 0 ? T(0) : hb_up) + zf[4] * y_bot + zf[5] * yt_next;
-    const T tnext = scan_down(zf[6], ht, lane);
-    const T zb = hb + zf[7] * __shfl_down_sync(kFull, tnext, 1);  // b_j
-    const T b_left = __shfl_up_sync(kFull, zb, 1);
-    const T bprev = j == 0 ? T(0) : b_left;  // b_{j-1}
+    T tnext, bprev;  // t_{j+1}, b_{j-1}
+    if constexpr (W == 1) {
+      const T yt_next = __shfl_down_sync(kFull, y_top, 1);
+      T a = zf[0], hb = zf[1] * y_bot + zf[2] * yt_next;
+      scan_up(a, hb, lane);
+      const T hb_up = __shfl_up_sync(kFull, hb, 1);
+      const T ht = zf[3] * (j == 0 ? T(0) : hb_up) + zf[4] * y_bot + zf[5] * yt_next;
+      T a2 = zf[6];
+      tnext = ht;
+      scan_down(a2, tnext, lane);
+      const T zb = hb + zf[7] * __shfl_down_sync(kFull, tnext, 1);  // b_j
+      const T b_left = __shfl_up_sync(kFull, zb, 1);
+      bprev = j == 0 ? T(0) : b_left;
+    } else {
+      T* __restrict__ x_top = xch + 2 * W;  // y_top of each warp's lane 0
+      T* __restrict__ agg = xch + 3 * W;    // the warps' maps: a, b up; a, b down
+      T* __restrict__ x_zb = xch + 7 * W;   // b_j of each warp's lane 31
+      if (lane == 0) x_top[wv] = y_top;
+      __syncthreads();  // barrier 2
+      const T top_r = __shfl_down_sync(kFull, y_top, 1);
+      const T yt_next = lane < 31 ? top_r : (wv + 1 < W ? x_top[wv + 1] : T(0));
+      T a = zf[0], hb = zf[1] * y_bot + zf[2] * yt_next;
+      scan_up(a, hb, lane);
+      if (lane == 31) {
+        agg[wv] = a;
+        agg[W + wv] = hb;
+      }
+      __syncthreads();  // barrier 3
+      // hb_{32 wv - 1}, the value entering this warp
+      T carry = T(0);
+      for (int v = 0; v < wv; ++v) carry = agg[v] * carry + agg[W + v];
+      hb = a * carry + hb;
+      const T hb_l = __shfl_up_sync(kFull, hb, 1);
+      const T hb_up = lane > 0 ? hb_l : carry;  // 0 at j = 0
+      const T ht = zf[3] * hb_up + zf[4] * y_bot + zf[5] * yt_next;
+      T a2 = zf[6];
+      tnext = ht;
+      scan_down(a2, tnext, lane);
+      if (lane == 0) {
+        agg[2 * W + wv] = a2;
+        agg[3 * W + wv] = tnext;
+      }
+      __syncthreads();  // barrier 4
+      // t_{32 wv + 32}, the value entering this warp from above
+      T carry2 = T(0);
+      for (int v = W - 1; v > wv; --v) carry2 = agg[2 * W + v] * carry2 + agg[3 * W + v];
+      tnext = a2 * carry2 + tnext;
+      const T tn_r = __shfl_down_sync(kFull, tnext, 1);
+      const T zb = hb + zf[7] * (lane < 31 ? tn_r : carry2);  // b_j
+      if (lane == 31) x_zb[wv] = zb;
+      __syncthreads();  // barrier 5
+      const T b_left = __shfl_up_sync(kFull, zb, 1);
+      bprev = lane > 0 ? b_left : (wv > 0 ? x_zb[wv - 1] : T(0));
+    }
 
     // spike correction + knock-out projection with rebate PV
     const bool mon_k = mon_b[k] != T(0);
@@ -307,41 +417,74 @@ spike_march_kernel(
         row[ri_] = (mon_k && ko) ? rebate_pv : xr;
       }
     }
+    if constexpr (W > 1) {
+      my_first = row[j];
+      my_last = row[last + j];
+      if (lane == 0) xch[wv] = my_first;
+      if (lane == 31) xch[W + wv] = my_last;
+    }
     v_lo = (mon_k && omask_lo) ? rebate_pv : v_min_n;
     v_hi = (mon_k && omask_hi) ? rebate_pv : v_max_n;
   }
 
-  __syncwarp();
+  // each lane writes its own chunk's rows
+  if constexpr (W == 1) __syncwarp();
   if (act)
     for (int ii = 0; ii < m; ++ii) v_out[base + ii * P + j] = row[ii * P + j];
   if constexpr (American) {
     if (act)
       for (int ii = 0; ii < m; ++ii) lam_out[base + ii * P + j] = lam[ii * P + j];
   }
-  if (lane == 0) {
+  if (j == 0) {
     edge_out[2 * b] = v_lo;
     edge_out[2 * b + 1] = v_hi;
   }
 }
 
 // trades per block and dynamic shared memory of a launch; false if even
-// one trade per block does not fit
-template <typename T, bool American>
+// one trade per block does not fit. W > 1: one trade per block, with its
+// exchange values.
+template <typename T, bool American, int W>
 bool config(int n_pad, int m, int P, int* tpb, size_t* smem) {
-  const size_t per_trade = (size_t)trade_smem_elems(American, n_pad, m, P) * sizeof(T);
-  int t = kTradesPerBlock;
+  const size_t per_trade =
+      ((size_t)trade_smem_elems(American, n_pad, m, P) + (W > 1 ? kXchRows * W : 0)) * sizeof(T);
+  int t = W == 1 ? kTradesPerBlock : 1;
   while (t > 1 && t * per_trade > kMaxSmem) t /= 2;
   *tpb = t;
   *smem = t * per_trade;
   return *smem <= kMaxSmem;
 }
 
-template <typename T, bool American>
+template <typename T, bool American, int W>
 cudaError_t opt_in(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(spike_march_kernel<T, American>,
+  return cudaFuncSetAttribute(spike_march_kernel<T, American, W>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+template <typename T, bool American, int W>
+int launch_w(const void* trade, const void* coef, const void* fields,
+             const void* iface, const void* tau, const void* mon,
+             const void* v_in, const void* edge_in, void* v_out, void* edge_out,
+             const void* payoff, const void* lam_in, void* lam_out, int B,
+             int n_pad, int m, int P, int il, int k0, int ns, int n_sched,
+             void* stream) {
+  int tpb;
+  size_t smem;
+  if (!config<T, American, W>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = opt_in<T, American, W>(smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((B + tpb - 1) / tpb);
+  spike_march_kernel<T, American, W><<<grid, 32 * W * tpb, smem, (cudaStream_t)stream>>>(
+      (const T*)trade, (const T*)coef, (const T*)fields, (const T*)iface,
+      (const T*)tau, (const T*)mon, (const T*)v_in, (const T*)edge_in,
+      (T*)v_out, (T*)edge_out, (const T*)payoff, (const T*)lam_in,
+      (T*)lam_out, B, n_pad, m, P, il, k0, ns, n_sched);
+  return (int)cudaGetLastError();
+}
+
+// P in [1, 32] runs one warp per trade; 64 and 128 run P/32 warps per trade
+inline bool valid_p(int P) { return (P >= 1 && P <= 32) || P == 64 || P == 128; }
 
 template <typename T, bool American>
 int launch(const void* trade, const void* coef, const void* fields,
@@ -350,38 +493,40 @@ int launch(const void* trade, const void* coef, const void* fields,
            const void* payoff, const void* lam_in, void* lam_out, int B,
            int n_pad, int m, int P, int il, int k0, int ns, int n_sched,
            void* stream) {
-  if (B <= 0 || P < 1 || P > 32 || m < 1 || n_pad != m * P || ns < 1 ||
+  if (B <= 0 || !valid_p(P) || m < 1 || n_pad != m * P || ns < 1 ||
       k0 < 0 || k0 + ns > n_sched || il < 0 || il >= m)
     return (int)cudaErrorInvalidValue;
   if (American && (payoff == nullptr || lam_in == nullptr || lam_out == nullptr))
     return (int)cudaErrorInvalidValue;
+  const auto run = P == 128 ? launch_w<T, American, 4>
+                 : P == 64  ? launch_w<T, American, 2>
+                            : launch_w<T, American, 1>;
+  return run(trade, coef, fields, iface, tau, mon, v_in, edge_in, v_out, edge_out, payoff,
+             lam_in, lam_out, B, n_pad, m, P, il, k0, ns, n_sched, stream);
+}
+
+template <typename T, bool American, int W>
+int occupancy_w(int n_pad, int m, int P, int* trades_per_sm) {
   int tpb;
   size_t smem;
-  if (!config<T, American>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = opt_in<T, American>(smem);
+  if (!config<T, American, W>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = opt_in<T, American, W>(smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((B + tpb - 1) / tpb);
-  spike_march_kernel<T, American><<<grid, 32 * tpb, smem, (cudaStream_t)stream>>>(
-      (const T*)trade, (const T*)coef, (const T*)fields, (const T*)iface,
-      (const T*)tau, (const T*)mon, (const T*)v_in, (const T*)edge_in,
-      (T*)v_out, (T*)edge_out, (const T*)payoff, (const T*)lam_in,
-      (T*)lam_out, B, n_pad, m, P, il, k0, ns, n_sched);
-  return (int)cudaGetLastError();
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, spike_march_kernel<T, American, W>, 32 * W * tpb, smem);
+  if (e != cudaSuccess) return (int)e;
+  *trades_per_sm = blocks * tpb;
+  return 0;
 }
 
 template <typename T, bool American>
 int occupancy(int n_pad, int m, int P, int* trades_per_sm) {
-  int tpb;
-  size_t smem;
-  if (!config<T, American>(n_pad, m, P, &tpb, &smem)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = opt_in<T, American>(smem);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, spike_march_kernel<T, American>, 32 * tpb, smem);
-  if (e != cudaSuccess) return (int)e;
-  *trades_per_sm = blocks * tpb;
-  return 0;
+  if (!valid_p(P) || m < 1 || n_pad != m * P) return (int)cudaErrorInvalidValue;
+  const auto query = P == 128 ? occupancy_w<T, American, 4>
+                   : P == 64  ? occupancy_w<T, American, 2>
+                              : occupancy_w<T, American, 1>;
+  return query(n_pad, m, P, trades_per_sm);
 }
 
 }  // namespace

@@ -52,7 +52,8 @@ def main(argv=None) -> None:
     gamma = lambda v: nonuniform_central(s, v.double(), idx)[1]
     march = lambda batch, prep: spike.assemble(prep, *spike.march_segments(batch, prep, segments))
 
-    prep = spike.prepare_spike(t64, t64.sigma, N_NODES, spike.spike_p(N_NODES), set_defs, american=True)
+    prep = spike.prepare_spike(t64, t64.sigma, N_NODES, None, set_defs, american=True)
+    P = prep.P
     v_ref = march(t64, prep)
     g_ref = gamma(v_ref)
     scale = float(g_ref.abs().max())
@@ -64,11 +65,11 @@ def main(argv=None) -> None:
         out[f"f64 march, {name} rounded"] = report(
             march(t64, dataclasses.replace(prep, **{name: r32(getattr(prep, name))}))
         )
-    p32 = spike.prepare_spike(t32, t32.sigma, N_NODES, spike.spike_p(N_NODES), set_defs, american=True)
+    p32 = spike.prepare_spike(t32, t32.sigma, N_NODES, P, set_defs, american=True)
     out["f32 march"] = report(march(t32, p32))
     out["f64 values rounded to f32"] = report(v_ref.float())
     for key, val in out.items():
-        print(json.dumps({"case": key, "B": B, **val}))
+        print(json.dumps({"case": key, "B": B, "P": P, **val}))
 
     o32 = price_american_batch(t32, N_NODES, solver="spike", device="cpu")
     o64 = price_american_batch(t64, N_NODES, solver="spike", dv_sigma=1e-2, device="cpu")

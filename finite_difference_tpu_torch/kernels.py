@@ -4,12 +4,14 @@ Each source under ``csrc/`` exposes a plain C interface:
 
 - ``spike_march.cu``, the SPIKE march (K1, K1a, K2): one kernel in two
   branches, European and American (Ikonen–Toivanen), each in float and
-  double (``spike_march[_american]_{f32,f64}``), and its occupancy query
+  double (``spike_march[_american]_{f32,f64}``), at one warp per trade for
+  P <= 32 and P/32 warps for P = 64 and 128, and its occupancy query
   (:func:`spike_resident_trades`);
 - ``hs_march.cu``, the fused march with Hillis–Steele scans (K3,
   ``hs_march_{f32,f64}``);
 - ``cr_march.cu``, the fused march with cyclic reduction (K4,
-  ``cr_march_{f32,f64}``).
+  ``cr_march_{f32,f64}``, one warp per trade), and its occupancy query
+  (:func:`cr_resident_trades`).
 
 On first use a source is compiled by ``nvcc`` (no PyTorch headers, so a
 build takes seconds) into ``build/torch_kernels/`` at the root of the
@@ -65,6 +67,7 @@ _FUNCTIONS = {
 # C functions that launch nothing (not counted)
 _QUERIES = {
     "spike_march": {"spike_march_occupancy": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]},
+    "cr_march": {"cr_march_occupancy": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]},
 }
 
 launch_counts: Dict[str, int] = {name: 0 for fns in _FUNCTIONS.values() for name in fns}
@@ -173,7 +176,7 @@ def _launch(prep, t: int, v: torch.Tensor, edges: torch.Tensor, k0: int, k1: int
     B, n_pad = v.shape
     m, P = prep.m, prep.P
     n_sched = prep.tau.shape[1]
-    if not (1 <= P <= 32 and n_pad == m * P and 0 <= k0 < k1 <= n_sched):
+    if not ((1 <= P <= 32 or P in (64, 128)) and n_pad == m * P and 0 <= k0 < k1 <= n_sched):
         raise ValueError(f"spike_march_cuda: bad shape P={P} m={m} n_pad={n_pad} steps=[{k0}, {k1})")
     args = {
         "trade": (prep.trade, (B, 13)),
@@ -241,7 +244,8 @@ def spike_march_american_cuda(
 
 
 def spike_resident_trades(prep) -> int:
-    """Trades of ``prep``'s march resident per SM on the current card, from
+    """Trades of ``prep``'s march resident per SM on the current card at the
+    prep's P (one warp per trade for P <= 32, else P/32 warps), from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers, shared
     memory and threads of the kernel as built)."""
     _check_device("spike_march", prep.v0)
@@ -314,25 +318,66 @@ def hs_march_cuda(prep) -> torch.Tensor:
     return _fused_launch("hs_march", prep, (2, 3, B, N), ())
 
 
+CR_TRADES_PER_BLOCK = 4
+
+
 def cr_smem_bytes(n_nodes: int, element_size: int) -> int:
-    """Shared memory of one block of the CR march: the value row, the two
-    ping-pong buffers of the reduction, the stack of evens and both sets'
-    level scalars."""
+    """Shared memory of one trade of the CR march (``csrc/cr_march.cu``):
+    the interior value row (n = N-2 values), the reduced buffers of the
+    levels of more than 32 rows after the first (n - 64 values; none for
+    n <= 64, whose levels all run in registers), both theta sets' level
+    scalars (32 per level) and per set the reciprocals of each level's
+    three be classes and of b_final."""
     n = n_nodes - 2
     n_levels = n.bit_length() - 1
-    return (n_nodes + n + n // 2 + n + 2 * n_levels * 16) * element_size
+    l_deep = max(0, n_levels - 6)
+    return (2 * n - (n >> l_deep) + 2 * n_levels * 16 + 2 * (3 * n_levels + 1)) * element_size
+
+
+def cr_block(n_nodes: int, element_size: int):
+    """(trades per block, shared bytes per block) of the CR march, as
+    ``csrc/cr_march.cu`` chooses them: one warp per trade, 4 trades per
+    block, halved while the block's shared memory passes 227 KB; None when
+    even one trade does not fit."""
+    per_trade = cr_smem_bytes(n_nodes, element_size)
+    t = CR_TRADES_PER_BLOCK
+    while t > 1 and t * per_trade > MAX_SMEM:
+        t //= 2
+    return (t, t * per_trade) if t * per_trade <= MAX_SMEM else None
+
+
+def _cr_levels(n_nodes: int) -> int:
+    """log2 (N-2), raising unless N-2 is a power of two >= 2 whose march
+    fits one block's shared memory."""
+    n = n_nodes - 2
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"cr_march_cuda: n_nodes - 2 must be a power of two (at least 2), got {n}")
+    return n.bit_length() - 1
 
 
 def cr_march_cuda(prep) -> torch.Tensor:
     """Launch the fused march with cyclic reduction (``csrc/cr_march.cu``)
-    over all steps of ``prep`` (``models.pde.cr.prepare_cr``): one block per
+    over all steps of ``prep`` (``models.pde.cr.prepare_cr``): one warp per
     trade. Returns V (B, N), a new tensor; N - 2 must be a power of two
-    >= 2 and the block's shared memory (:func:`cr_smem_bytes`) at most 227 KB."""
+    >= 2 and one trade's shared memory (:func:`cr_smem_bytes`) at most 227 KB."""
     B, N = prep.v0.shape
-    n = N - 2
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"cr_march_cuda: n_nodes - 2 must be a power of two (at least 2), got {n}")
-    n_levels = n.bit_length() - 1
-    if cr_smem_bytes(N, prep.v0.element_size()) > MAX_SMEM:
-        raise ValueError(f"cr_march_cuda: N={N} needs more than 227 KB of shared memory per block")
+    n_levels = _cr_levels(N)
+    if cr_block(N, prep.v0.element_size()) is None:
+        raise ValueError(f"cr_march_cuda: N={N} needs more than 227 KB of shared memory per trade")
     return _fused_launch("cr_march", prep, (2, B, n_levels, 16), (n_levels,))
+
+
+def cr_resident_trades(prep) -> int:
+    """Trades of ``prep``'s CR march resident per SM on the current card,
+    from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers,
+    shared memory and threads of the kernel as built)."""
+    _check_device("cr_march", prep.v0)
+    N = prep.v0.shape[1]
+    n_levels = _cr_levels(N)
+    lib = _lib("cr_march")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(prep.v0.device):
+        rc = lib.cr_march_occupancy(int(prep.v0.dtype == torch.float64), N, n_levels,
+                                    ctypes.byref(out))
+    _raise_on("cr_march", "cr_march_occupancy", rc)
+    return out.value

@@ -602,7 +602,8 @@ def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
       dt changes must be shared),
     - at most :data:`SPIKE_MAX_SEGMENTS` runs,
     - a grid the port's SPIKE partitioning admits for some P
-      (:func:`spike.spike_p`). There is no batch-size rule.
+      (:func:`spike.spike_p`, whose choice of P also depends on the batch
+      size; eligibility does not).
 
     Returns ``(segments, set_defs, div_steps, reset_steps)``: segments
     ``((k0, k1, set_idx), ...)``, set_defs ``((theta, k_col), ...)``
@@ -611,7 +612,7 @@ def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
     jumps and resets there; the barrier march ignores them, as the barrier
     scan does).
     """
-    if spike_p(n_nodes) is None:
+    if spike_p(n_nodes, batch.batch_size) is None:
         return None
     # the (B, n_steps) comparisons run where the batch lives; only
     # (n_steps,) reductions come to the host (pulling the whole schedule

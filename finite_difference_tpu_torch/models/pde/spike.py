@@ -25,8 +25,9 @@ max(0, lambda + (payoff - v)/dt)``; lambda is threaded across segments.
 
 Layout. Interior row g = j*m + ii (chunk j, in-chunk row ii) is stored
 at position r = ii*P + j of a trade's (n_pad,) row, n_pad = m*P; trades
-are the leading axis, so value rows are (B, n_pad). With P = 32 a warp
-holds one trade and lane j walks chunk j. Rows g >= n_int are identity
+are the leading axis, so value rows are (B, n_pad). With P <= 32 a warp
+holds one trade and lane j walks chunk j; with P = 64 or 128 a trade
+takes P/32 warps and chunk j = 32*warp + lane. Rows g >= n_int are identity
 pad rows pinned to 0, all in the tail of chunk P-1 (at least one exists
 by the choice of m), so the global-last row's in-chunk upper neighbour
 is always a zero pad and its boundary coupling is folded into the
@@ -42,10 +43,13 @@ values: column 0, shared by chunks 0..P-2, and column 1, chunk P-1's own
 The knock-out mask is a prefix and a suffix of the monotone grid, so two
 row indices per trade (``ko_lo``, ``ko_hi`` in ``trade``) describe it.
 
-P is this port's own parameter: :func:`spike_p` takes the largest of 32,
-16 and 8 that the grid's shape admits (32 for the 1024-node main path).
-Unlike the TPU kernel, P need not be a multiple of 8 and the batch need
-not be a multiple of 128: the CUDA kernel masks a ragged last block.
+P is this port's own parameter, a rule of the grid and the batch size
+(:func:`spike_p`): 32 for the 1024-node main path, and 64 for a batch of
+at most 2048 trades on a fine grid, where one warp per trade would leave
+the card's SMs short of warps, unless the interface guard refuses it
+(:func:`prepare_spike`); P=128 runs when a caller asks for it. Unlike the
+TPU kernel, P need not be a multiple of 8 and the batch need not be a
+multiple of 128: the CUDA kernel masks a ragged last block.
 """
 from __future__ import annotations
 
@@ -59,6 +63,24 @@ from ...ops.interp import cubic_spline_eval, natural_cubic_spline
 from .stepper import _payoff
 
 P_CANDIDATES = (32, 16, 8)
+# chunks of a trade that spans several warps (chunk j = 32*warp + lane)
+P_WIDE = (64, 128)
+LANES = 32
+# spike_p's batch-size rule: a batch of at most WIDE_MAX_BATCH trades takes
+# WIDE_P chunks, two warps per trade, on a grid whose chunks keep at least
+# WIDE_MIN_ROWS rows. On an NVIDIA H100 80GB HBM3 (700 W) at N=1024, 512
+# steps (chip_smoke.py's spike_p_rule lines, PERF.md), P=64 marched faster
+# than P=32 at every batch of 256 to 2048 trades on the barrier set (f32)
+# and the American set (f32, f64), the barrier set least (2.70 against 2.91
+# ms at 2048; slower at 4096, where the one-warp kernel fills the card).
+# P=128 marched faster still at small batches, but its prep's (P-1)-step
+# pivot recurrence launches more host-driven kernels than the march saves,
+# and its 8-row chunks couple the interface system more (largest tip row
+# sum on the American rung set below 0.88, 0.90 and 0.94 at P = 32, 64 and
+# 128, against the guard's limit of 1; tests/test_torch_spike_prep.py)
+WIDE_P = 64
+WIDE_MAX_BATCH = 2048
+WIDE_MIN_ROWS = 8
 
 # column order of SpikePrep.trade and SpikePrep.coef (the kernel reads the same)
 # ko_lo: interior rows g < ko_lo are knocked out from below; ko_hi: rows
@@ -75,14 +97,17 @@ FIELD_ROWS = ("w", "af", "ab", "vsp", "wsp")
 #   t_{j+1} = zt_j = zt_z*zt_{j+1} + ht_j,   b_j = zb_j = hb_j + zb_z*zt_{j+1}
 IFACE_ROWS = ("hb_h", "hb_yb", "hb_yt", "ht_h", "ht_yb", "ht_yt", "zt_z", "zb_z")
 # the least block-pivot determinant the interface elimination accepts (see
-# require_stable_interface)
+# interface_refusal)
 DET_FLOOR = 1e-3
 
 
 def spike_shape(n_nodes: int, P: int) -> Tuple[int, int, int]:
     """(n_int, m, n_pad) of the SPIKE partitioning; raises if it does not fit."""
-    if not 1 <= P <= 32:
-        raise ValueError(f"p_chunks must be in [1, 32] (one warp per trade): {P}")
+    if not (1 <= P <= LANES or P in P_WIDE):
+        raise ValueError(
+            f"p_chunks must be in [1, 32] (one warp per trade) or 64 or 128 "
+            f"(P/32 warps per trade): {P}"
+        )
     n_int = n_nodes - 2
     m = -(-(n_int + 1) // P)  # >= 1 pad row after the last interior row
     n_pad = m * P
@@ -93,15 +118,34 @@ def spike_shape(n_nodes: int, P: int) -> Tuple[int, int, int]:
     return n_int, m, n_pad
 
 
-def spike_p(n_nodes: int) -> Optional[int]:
-    """Largest P in :data:`P_CANDIDATES` that partitions an ``n_nodes`` grid."""
-    for P in P_CANDIDATES:
-        try:
-            spike_shape(n_nodes, P)
-        except ValueError:
-            continue
-        return P
-    return None
+def _fits(n_nodes: int, P: int) -> bool:
+    try:
+        _, m, _ = spike_shape(n_nodes, P)
+    except ValueError:
+        return False
+    return P <= LANES or m >= WIDE_MIN_ROWS
+
+
+def spike_p_choices(n_nodes: int, batch_size: int) -> Tuple[int, ...]:
+    """The P that the rule may take for ``batch_size`` trades on
+    ``n_nodes`` grids, first choice first: :data:`WIDE_P` for a batch of at
+    most :data:`WIDE_MAX_BATCH` trades whose chunks keep at least
+    :data:`WIDE_MIN_ROWS` rows, then the largest P in
+    :data:`P_CANDIDATES` that partitions the grid (one warp per trade).
+    Empty when no P partitions the grid."""
+    wide = [WIDE_P] if batch_size <= WIDE_MAX_BATCH and _fits(n_nodes, WIDE_P) else []
+    narrow = [P for P in P_CANDIDATES if _fits(n_nodes, P)]
+    return tuple(wide + narrow[:1])
+
+
+def spike_p(n_nodes: int, batch_size: int) -> Optional[int]:
+    """The rule's first choice of P (:func:`spike_p_choices`), or None when
+    no P partitions the grid: 32 for the main path (B=4096 at N=1024), 64
+    for a batch of at most 2048 trades at N=1024. :func:`prepare_spike`
+    with ``P=None`` takes it, unless the interface guard refuses a P of
+    several warps: then it takes the one-warp P."""
+    choices = spike_p_choices(n_nodes, batch_size)
+    return choices[0] if choices else None
 
 
 @dataclass
@@ -193,7 +237,7 @@ def interface_factors(p, q, r, s):
     and leaves two scalar recurrences across the pairs (see
     :data:`IFACE_ROWS`); t_0 and b_{P-1} are not needed by the correction.
     No pivoting: ``det`` is each eliminated block's determinant, which
-    :func:`require_stable_interface` holds above :data:`DET_FLOOR`.
+    :func:`interface_refusal` holds above :data:`DET_FLOOR`.
     Exact (no truncation of far couplings).
     """
     # the only sequential part: D'_j[0, 1] through Dinv_{j-1}[0, 1]
@@ -214,9 +258,9 @@ def interface_factors(p, q, r, s):
     return torch.cat([iface, torch.zeros_like(iface[:, :, :1])], dim=2), det
 
 
-def require_stable_interface(p, q, r, s, det) -> None:
-    """Raise ValueError unless the interface elimination, which does not
-    pivot, is safe for every trade: the reduced system is strictly
+def interface_refusal(p, q, r, s, det) -> Optional[str]:
+    """None when the interface elimination, which does not pivot, is safe
+    for every trade, else why not: safe means the reduced system is strictly
     diagonally dominant by rows (|p_j| + |q_j| < 1 and |r_j| + |s_j| < 1;
     it is when A is, as when |mu|*dx <= sigma^2), so that elimination
     without pivoting is backward stable, and every block pivot's
@@ -226,36 +270,50 @@ def require_stable_interface(p, q, r, s, det) -> None:
     :func:`interface_tips` and :func:`interface_factors` give them."""
     row_sum = torch.maximum(p.abs() + q.abs(), r.abs() + s.abs())
     bad = (row_sum >= 1.0).any(dim=1) | (det < DET_FLOOR).any(dim=1)
-    if bool(bad.any()):
-        raise ValueError(
-            f"SPIKE interface elimination without pivoting is unsafe for "
-            f"{int(bad.sum())} of {bad.numel()} trade solver sets: largest tip row "
-            f"sum {float(row_sum.max()):.3g} (must be < 1), least block pivot "
-            f"determinant {float(det.min()) if det.numel() else 1.0:.3g} (must be "
-            f">= {DET_FLOOR:g}); a drift-dominated trade (|mu|*dx > sigma^2) or "
-            f"a coarse time grid does this; use solver='scan'"
-        )
+    if not bool(bad.any()):
+        return None
+    return (
+        f"SPIKE interface elimination without pivoting is unsafe for "
+        f"{int(bad.sum())} of {bad.numel()} trade solver sets at P={p.shape[1]}: "
+        f"largest tip row sum {float(row_sum.max()):.3g} (must be < 1), least block "
+        f"pivot determinant {float(det.min()) if det.numel() else 1.0:.3g} (must be "
+        f">= {DET_FLOOR:g}); a drift-dominated trade (|mu|*dx > sigma^2) or "
+        f"a coarse time grid does this; use solver='scan'"
+    )
+
+
+def _ks_up(a, b):
+    """Inclusive Kogge–Stone scan of the affine maps x -> a_j x + b_j along
+    the last axis, in the kernel's order: the composed maps (a, b)."""
+    off = 1
+    while off < a.shape[-1]:
+        b = torch.cat([b[..., :off], a[..., off:] * b[..., :-off] + b[..., off:]], dim=-1)
+        a = torch.cat([a[..., :off], a[..., off:] * a[..., :-off]], dim=-1)
+        off *= 2
+    return a, b
 
 
 def _scan_up(a, b):
-    """x_j = a_j x_{j-1} + b_j with x_{-1} = 0, for every j: an inclusive
-    Kogge–Stone scan across the chunk axis, in the kernel's order."""
-    off = 1
-    while off < a.shape[1]:
-        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]], dim=1)
-        a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
-        off *= 2
-    return b
+    """x_j = a_j x_{j-1} + b_j with x_{-1} = 0, for every j, in the
+    kernel's order: an inclusive Kogge–Stone scan across the chunk axis
+    within each warp's 32 chunks; for P > 32, each warp's value entering
+    it (the carry) then composed from the warps before it, one at a time."""
+    B, P = a.shape
+    if P <= LANES:
+        return _ks_up(a, b)[1]
+    a, b = _ks_up(a.reshape(B, -1, LANES), b.reshape(B, -1, LANES))
+    carry = torch.zeros_like(a[:, 0, 0])
+    out = []
+    for w in range(a.shape[1]):
+        out.append(a[:, w] * carry[:, None] + b[:, w])
+        carry = a[:, w, -1] * carry + b[:, w, -1]
+    return torch.cat(out, dim=1)
 
 
 def _scan_down(a, b):
-    """x_j = a_j x_{j+1} + b_j with x_P = 0: the scan of :func:`_scan_up` downwards."""
-    off = 1
-    while off < a.shape[1]:
-        b = torch.cat([a[:, :-off] * b[:, off:] + b[:, :-off], b[:, -off:]], dim=1)
-        a = torch.cat([a[:, :-off] * a[:, off:], a[:, -off:]], dim=1)
-        off *= 2
-    return b
+    """x_j = a_j x_{j+1} + b_j with x_P = 0: the scan of :func:`_scan_up`
+    on the reversed chunk axis, which is the kernel's downward order."""
+    return _scan_up(a.flip(1), b.flip(1)).flip(1)
 
 
 def interface_solve(iface, y_top, y_bot):
@@ -286,7 +344,8 @@ def ko_rows(prep: SpikePrep):
 
 def _build_solver_sets(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P):
     """Every (theta, dt) solver set at once, theta (S, 1) and dt (S, B):
-    (coef (S, B, 7), fields (S, B, 5, 2, m), iface (S, B, 8, P)).
+    ((coef (S, B, 7), fields (S, B, 5, 2, m), iface (S, B, 8, P)), None),
+    or (None, the interface guard's refusal).
 
     ``has_l``, ``has_u`` and ``real`` are the (m, 2) row masks of the two
     columns. The interface factors replace the dense 2P x 2P inverse that
@@ -315,7 +374,9 @@ def _build_solver_sets(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real,
     fields = torch.stack([w, af, ab, vsp, wsp], dim=1).transpose(2, 3)  # (S*B, 5, 2, m)
     tips = interface_tips(fields, P)
     iface, det = interface_factors(*tips)
-    require_stable_interface(*tips, det)
+    refusal = interface_refusal(*tips, det)
+    if refusal is not None:
+        return None, refusal
     coef = torch.stack(
         [
             (1.0 - theta) * dt * a_coef,
@@ -330,15 +391,38 @@ def _build_solver_sets(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real,
         ],
         dim=2,
     )
-    return coef, fields.view(S, B, 5, 2, m), iface.view(S, B, len(IFACE_ROWS), P)
+    return (coef, fields.view(S, B, 5, 2, m), iface.view(S, B, len(IFACE_ROWS), P)), None
 
 
-def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool = False) -> SpikePrep:
-    """Host prep of one SPIKE solve.
+def prepare_spike(
+    batch, sigma, n_nodes: int, P: Optional[int], set_defs, american: bool = False
+) -> SpikePrep:
+    """Host prep of one SPIKE solve at ``P`` chunks per trade.
 
     ``set_defs`` is ``((theta, k_col), ...)``: one solver set per entry,
     with dt read from ``batch.dt[:, k_col]``. ``american`` selects the
     Ikonen–Toivanen march (see :class:`SpikePrep`).
+
+    ``P=None`` takes the rule's P (:func:`spike_p_choices`): its first
+    choice, and the one-warp P where the interface guard
+    (:func:`interface_refusal`) refuses a P of several warps, since shorter
+    chunks couple the interface system more. Where the guard refuses an
+    explicit P, or the one-warp P, the prep raises ValueError.
+    """
+    if P is not None:
+        return _prepare(batch, sigma, n_nodes, P, set_defs, american, strict=True)
+    choices = spike_p_choices(n_nodes, batch.x_min.shape[0])
+    if not choices:
+        raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}")
+    for P in choices:
+        prep = _prepare(batch, sigma, n_nodes, P, set_defs, american, strict=P == choices[-1])
+        if prep is not None:
+            return prep
+
+
+def _prepare(batch, sigma, n_nodes, P, set_defs, american, strict) -> Optional[SpikePrep]:
+    """:func:`prepare_spike` at ``P``; where the interface guard refuses,
+    raise ValueError if ``strict``, else return None.
 
     The prep runs at float64 whatever the march's dtype (that of
     ``batch.x_min``) and is rounded to it once at the end. At float32 the
@@ -383,9 +467,14 @@ def prepare_spike(batch, sigma, n_nodes: int, P: int, set_defs, american: bool =
 
     theta = torch.tensor([th for th, _ in set_defs], dtype=torch.float64, device=device)
     dt = torch.stack([f(batch.dt[:, k_col]) for _, k_col in set_defs])
-    coef, fields, iface = _build_solver_sets(
+    sets, refusal = _build_solver_sets(
         theta[:, None], dt, r, a_coef, b_coef, c_coef, has_l, has_u, real, m, P
     )
+    if refusal is not None:
+        if strict:
+            raise ValueError(refusal)
+        return None
+    coef, fields, iface = sets
 
     # knock-out rows: s is increasing, so each barrier knocks out a prefix
     # (s <= lower) or a suffix (s >= upper) of the interior rows
@@ -679,7 +768,8 @@ def cn_barrier_solve_spike(
     ``american=True`` runs the Ikonen–Toivanen branch; ``div_steps`` and
     ``reset_steps`` (American only, from ``batch._spike_schedule_impl``)
     place the dividend jumps and lambda resets between launches (see
-    :func:`march_segments`). ``p_chunks`` defaults to :func:`spike_p`. The
+    :func:`march_segments`). ``p_chunks=None`` takes the rule's P (see
+    :func:`prepare_spike`). The
     march runs on the device of ``batch``: the CUDA kernel on a card, its
     plain version on the CPU.
     """
@@ -694,13 +784,9 @@ def cn_barrier_solve_spike(
         s1[1] != s2[0] for s1, s2 in zip(segments[:-1], segments[1:])
     ):
         raise ValueError(f"segments must tile [0, {n_steps}): {segments}")
-    P = p_chunks if p_chunks is not None else spike_p(n_nodes)
-    if P is None:
-        raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}")
-
     if not american and (div_steps or reset_steps):
         raise ValueError("div_steps and reset_steps apply to American batches only")
 
-    prep = prepare_spike(batch, sigma, n_nodes, P, set_defs, american=american)
+    prep = prepare_spike(batch, sigma, n_nodes, p_chunks, set_defs, american=american)
     v, edges = march_segments(batch, prep, segments, div_steps, reset_steps)
     return assemble(prep, v, edges)

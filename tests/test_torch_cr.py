@@ -10,6 +10,7 @@ against the plain version on the card in tests/test_torch_gpu.py.
 """
 import functools
 import math
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -169,9 +170,38 @@ class TestDispatch:
             kernels.cr_march_cuda(prep)
 
     def test_shared_memory_limit(self):
-        # f64 at N = 8194: (8194 + 2.5 * 8192 + 416) values of 8 bytes > 227 KB
-        assert kernels.cr_smem_bytes(8194, 8) > kernels.MAX_SMEM
+        # one trade: about 2 n values; f64 at N = 16386 takes 260 KB >
+        # 227 KB, N = 8194 fits one trade per block
+        assert kernels.cr_smem_bytes(16386, 8) > kernels.MAX_SMEM
+        assert kernels.cr_block(16386, 8) is None
+        assert kernels.cr_block(8194, 8) == (1, 134528)
         assert kernels.cr_smem_bytes(1026, 8) < 48 * 1024
+
+    # (N, bytes per value) -> (trades per block, shared bytes per block):
+    # 4 trades of one warp each while the block fits in 227 KB
+    @pytest.mark.parametrize(
+        "n_nodes,item,want",
+        [(1026, 4, (4, 37856)), (1026, 8, (4, 75712)), (2050, 8, (4, 142464)),
+         (4098, 8, (2, 137376)), (10, 4, (4, 1984))],
+    )
+    def test_launch_config_mirror(self, n_nodes, item, want):
+        assert kernels.cr_block(n_nodes, item) == want
+        # the value row, the buffers of the levels of more than 32 rows but
+        # the first (none at n <= 64), 32 level scalars and 3 reciprocals
+        # per level and set, and 1/b_final per set
+        n = n_nodes - 2
+        levels = int(math.log2(n))
+        buffers = n - 64 if n > 64 else 0
+        assert kernels.cr_smem_bytes(n_nodes, item) == (n + buffers + 38 * levels + 2) * item
+
+    def test_resident_trades_from_shared_memory(self):
+        # at N=1026 f32 a block of 4 trades takes 37 KB; an SM's 228 KB,
+        # with 1 KB reserved per block, holds 6 such blocks: 24 trades
+        # where registers allow, above the 16 the design aims for (the
+        # card's occupancy API reports what it gets); f64 holds 3 blocks
+        for item, want in ((4, 24), (8, 12)):
+            per_block, smem = kernels.cr_block(1026, item)
+            assert 228 * 1024 // (smem + 1024) * per_block == want
 
     def test_other_devices_raise(self):
         tb = port_build(device="cpu", **mixed_kwargs(B=2, num_space_nodes=129))
@@ -179,3 +209,51 @@ class TestDispatch:
         prep.v0 = prep.v0.to("meta")
         with pytest.raises(ValueError, match="unsupported device"):
             cr.cr_march(prep)
+
+
+def _rn32(x):
+    """The float32 nearest to the Fraction x (ties to even)."""
+    f = np.float32(float(x))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - x), int(c.view(np.int32)) & 1))
+
+
+def _div_fast32(a, b):
+    """csrc/cr_march.cu div_fast at float32, each FMA rounded once exactly:
+    q0 = a*y, y = RN(1/b), one correction with the exact remainder; |a| <
+    2^-90 scaled by 2^100 first, and a scaled quotient on a midpoint of the
+    subnormal grid stepped one ulp to the exact quotient's side."""
+    F = lambda x: Fraction(float(x))
+    fma = lambda x, y, z: _rn32(F(x) * F(y) + F(z))
+    y = np.float32(1) / b
+    small = abs(a) < np.float32(2.0**-90)
+    a_s = np.float32(a * np.float32(2.0**100)) if small else a
+    q0 = np.float32(a_s * y)
+    qs = fma(y, fma(-b, q0, a_s), q0)
+    rs = fma(-b, qs, a_s)
+    gap = np.float32(qs - np.float32(np.float32(qs * np.float32(2.0**-100)) * np.float32(2.0**100)))
+    if small and abs(gap) == np.float32(2.0**-50) and rs != 0:
+        up = (rs > 0) == (b > 0)
+        qs = (qs.view(np.int32) + (1 if up == (qs > 0) else -1)).astype(np.int32).view(np.float32)
+    return np.float32(qs * np.float32(2.0**-100)) if small else qs
+
+
+@pytest.mark.parametrize("kind", ["normal", "subnormal", "midpoint"])
+def test_kernel_division_is_correctly_rounded(kind):
+    """The CR kernel's branch-free division gives IEEE a / b bit for bit in
+    float32: random operands in its range, subnormal dividends, and
+    quotients built to land on a midpoint of the subnormal grid."""
+    rng = np.random.default_rng({"normal": 0, "subnormal": 1, "midpoint": 2}[kind])
+    with np.errstate(all="ignore"):
+        for _ in range(300):
+            if kind == "normal":
+                a = np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-90, 90))
+                b = np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-20, 20))
+            elif kind == "subnormal":
+                a = np.float32(rng.integers(1, 2**20)) * np.float32(2.0**-149)
+                b = np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-3, 10))
+            else:
+                m, k = int(rng.integers(2**10, 2**20)), int(rng.integers(1, 2**9))
+                a, b = np.float32(m) * np.float32(2.0**-149), np.float32(2 * m / (2 * k + 1))
+            a = a * np.float32(rng.choice([-1, 1]))
+            assert _div_fast32(a, b).view(np.int32) == np.float32(a / b).view(np.int32), (a, b)

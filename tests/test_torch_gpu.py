@@ -71,7 +71,7 @@ def test_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
         dtype=dtype, device=cuda, **_kwargs(seed=n_nodes, B=B, num_space_nodes=n_nodes - 1)
     )
     segments, set_defs = spike.default_segments(tb.n_steps)
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, None, set_defs)
     v_k, e_k = v_r, e_r = prep.v0, prep.edge0
     kernels.reset_launch_counts()
     for k0, k1, t in segments:
@@ -83,6 +83,76 @@ def test_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= limit * scale
     assert float((e_k - e_r).abs().max()) <= limit * scale
+
+
+@pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
+@pytest.mark.parametrize("n_nodes", [257, 1024])  # m = 4 and 2, 16 and 8 rows per chunk
+@pytest.mark.parametrize("P", [64, 128])
+def test_wide_kernel_matches_plain_version(cuda, dtype, limit, n_nodes, P):
+    """P/32 warps per trade, one trade per block: the European march, and
+    an American segment from a nonzero lambda, against the plain version."""
+    tb = build_trade_batch(
+        dtype=dtype, device=cuda, **_kwargs(seed=n_nodes, B=5, num_space_nodes=n_nodes - 1)
+    )
+    segments, set_defs = spike.default_segments(tb.n_steps)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, P, set_defs)
+    kernels.reset_launch_counts()
+    v_k, e_k = spike.march_segments(tb, prep, segments, step=kernels.spike_march_cuda)
+    v_r, e_r = spike.march_segments(tb, prep, segments, step=spike.spike_march_reference)
+    torch.cuda.synchronize()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    assert kernels.launch_counts[f"spike_march_{tag}"] == len(segments)
+    scale = float(v_r.abs().max())
+    assert float((v_k - v_r).abs().max()) <= limit * scale
+    assert float((e_k - e_r).abs().max()) <= limit * scale
+
+    ta = build_american_batch(dtype=dtype, device=cuda, **_american_kwargs(
+        seed=n_nodes, B=5, num_space_nodes=n_nodes - 1))
+    segments, set_defs, _, _ = _spike_schedule_impl(ta, n_nodes)
+    prep = spike.prepare_spike(ta, ta.sigma, n_nodes, P, set_defs, american=True)
+    k0, k1, t = segments[1]
+    lam0 = torch.rand(prep.v0.shape, dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    pads = torch.arange(prep.v0.shape[1], device=cuda).view(prep.m, prep.P).T.reshape(-1)[prep.n_int:]
+    lam0[:, pads] = 0.0
+    got = kernels.spike_march_american_cuda(prep, t, prep.v0, prep.edge0, lam0, k0, k1)
+    want = spike.spike_march_reference(prep, t, prep.v0, prep.edge0, k0, k1, lam0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[f"spike_march_american_{tag}"] == 1
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= limit * float(w.abs().max())
+
+
+def test_small_batch_path_runs_several_warps_per_trade(cuda):
+    """B=8 at N=1024: the batch-size rule's P=64 on price_american_batch,
+    against the scan on the CPU."""
+    tb = build_american_batch(device=cuda, **_american_kwargs(seed=8, B=8, num_space_nodes=1023))
+    assert spike.spike_p(1024, tb.batch_size) == 64
+    kernels.reset_launch_counts()
+    got = price_american_batch(tb, 1024)
+    n_seg = len(_spike_schedule_impl(tb, 1024)[0])
+    assert kernels.launch_counts["spike_march_american_f64"] == 2 * n_seg
+    ref = price_american_batch(tb, 1024, solver="scan", device="cpu")
+    for k in got:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_auto_route_takes_one_warp_where_the_guard_refuses_the_wide_p(cuda):
+    """A drift-dominated batch of 2 trades at N=1024 (sigma 1%, carry 30%,
+    8 steps), whose tips the interface guard refuses at P=64: solver="auto"
+    prices it at P=32 on the kernel, within 1e-9 of the scan on the CPU."""
+    B = 2
+    tb = build_trade_batch(
+        device=cuda, spots=[100.0, 104.0], strikes=[100.0] * B, sigmas=[0.01] * B,
+        t_expiry=[1.0] * B, r=[0.05] * B, b=[0.3] * B, is_call=[True] * B, n_time_steps=8,
+        num_space_nodes=1023, upper=[400.0] * B, monitor_times=[[0.5, 1.0]] * B,
+    )
+    assert spike.prepare_spike(tb, tb.sigma, 1024, None, spike.default_segments(8)[1]).P == 32
+    kernels.reset_launch_counts()
+    got = price_barrier_batch(tb, 1024)
+    assert kernels.launch_counts["spike_march_f64"] == 4  # two segments, two solves
+    ref = price_barrier_batch(tb, 1024, solver="scan", device="cpu")
+    for k in got:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
 
 
 def test_wrapper_refuses_the_old_prep_layout(cuda):
@@ -102,14 +172,19 @@ def test_wrapper_refuses_the_old_prep_layout(cuda):
                                  0, prep.v0, prep.edge0, 0, 2)
 
 
+@pytest.mark.parametrize("P", [32, 64, 128])
 @pytest.mark.parametrize("american", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_resident_trades_query(cuda, american, dtype):
+def test_resident_trades_query(cuda, american, dtype, P):
+    """One warp per trade and 4 trades per block at P=32; one trade per
+    block of P/32 warps at P=64 and 128. At most 64 warps per SM."""
     tb = build_trade_batch(dtype=dtype, device=cuda, **_kwargs(B=4, num_space_nodes=1023))
-    prep = spike.prepare_spike(tb, tb.sigma, 1024, 32, ((1.0, 0),), american=american)
+    prep = spike.prepare_spike(tb, tb.sigma, 1024, P, ((1.0, 0),), american=american)
     kernels.reset_launch_counts()
     resident = kernels.spike_resident_trades(prep)
-    assert 1 <= resident <= 64 and resident % 4 == 0
+    warps = max(1, P // 32)
+    assert 1 <= resident and resident * warps <= 64
+    assert resident % (4 if P == 32 else 1) == 0
     assert not any(kernels.launch_counts.values())
 
 
@@ -148,7 +223,7 @@ def test_large_grid_opts_into_more_shared_memory(cuda):
     n_nodes = 2048
     tb = build_trade_batch(device=cuda, **_kwargs(seed=5, B=6, n_steps=8, num_space_nodes=n_nodes - 1))
     segments, set_defs = spike.default_segments(tb.n_steps)
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, 32, set_defs)  # one warp per trade
     assert 4 * prep.v0.shape[1] * prep.v0.element_size() > 48 * 1024
     v_k, e_k = v_r, e_r = prep.v0, prep.edge0
     for k0, k1, t in segments:
@@ -183,13 +258,29 @@ def test_hs_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
-@pytest.mark.parametrize("n", [8, 128, 1024, 2048])  # 32, 64, 512 and 1024 threads
+# one warp per trade: 2 to 32 rows per lane at level 0; n=2048 at f64 takes
+# 35 KB of shared memory per trade, 139 KB per block of 4
+@pytest.mark.parametrize("n", [8, 128, 1024, 2048])
 def test_cr_kernel_matches_plain_version(cuda, dtype, limit, n):
     tb = build_trade_batch(
         dtype=dtype, device=cuda, **_kwargs(seed=n, B=5, num_space_nodes=n + 1)
     )
     prep = cr.prepare_cr(tb, tb.sigma, n + 2)
     _march_vs_plain(prep, kernels.cr_march_cuda, cr.cr_march_reference, "cr_march", dtype, limit)
+
+
+@pytest.mark.parametrize("dtype,elem", [(torch.float32, 4), (torch.float64, 8)])
+def test_cr_resident_trades_query(cuda, dtype, elem):
+    """The occupancy API against the launch mirror: whole blocks of
+    kernels.cr_block's trades, at least 16 per SM at N=1026 in f32."""
+    tb = build_trade_batch(dtype=dtype, device=cuda, **_kwargs(B=4, num_space_nodes=1025))
+    prep = cr.prepare_cr(tb, tb.sigma, 1026)
+    kernels.reset_launch_counts()
+    resident = kernels.cr_resident_trades(prep)
+    per_block, smem = kernels.cr_block(1026, elem)
+    assert resident % per_block == 0 and resident * smem // per_block <= 228 * 1024
+    assert resident >= (16 if dtype == torch.float32 else 8)
+    assert not any(kernels.launch_counts.values())
 
 
 def test_fused_wrappers_check_dtype_device_and_contiguity(cuda):
@@ -251,7 +342,9 @@ def test_american_kernel_matches_plain_version(cuda, dtype, limit, n_nodes, is_c
         seed=n_nodes, num_space_nodes=n_nodes - 1, is_call=is_call))
     segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
     assert div_steps and reset_steps
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    prep = spike.prepare_spike(
+        tb, tb.sigma, n_nodes, spike.spike_p(n_nodes, tb.batch_size), set_defs, american=True
+    )
     # one segment from a nonzero lambda: lambda out, and pad rows that stay 0
     k0, k1, t = segments[1]
     lam0 = torch.rand(prep.v0.shape, dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
@@ -296,7 +389,7 @@ def test_american_f64_opts_into_more_shared_memory(cuda):
     tb = build_american_batch(device=cuda, **_american_kwargs(
         seed=6, B=6, n_steps=12, num_space_nodes=n_nodes - 1))
     segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, 32, set_defs, american=True)  # one warp per trade
     assert 4 * 2 * prep.v0.shape[1] * prep.v0.element_size() > 48 * 1024
     v_k, e_k = spike.march_segments(tb, prep, segments, div_steps, reset_steps)
     v_r, e_r = spike.march_segments(
@@ -316,7 +409,7 @@ def test_american_kernel_matches_plain_version_at_main_width(cuda, dtype, limit)
     tb = build_american_batch(dtype=dtype, device=cuda, **_american_kwargs(
         seed=11, B=5, n_steps=24, num_space_nodes=n_nodes - 1))
     segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, 32, set_defs, american=True)
     assert (prep.m, prep.P) == (32, 32)
     kernels.reset_launch_counts()
     v_k, e_k = spike.march_segments(tb, prep, segments, div_steps, reset_steps)

@@ -16,6 +16,7 @@ from finite_difference_tpu.models.pde import batch as jax_batch
 from finite_difference_tpu.models.pde.batch import build_trade_batch as jax_build
 from finite_difference_tpu.models.pde.pallas_kernel import cn_barrier_solve_spike as jax_spike
 from finite_difference_tpu_torch import kernels
+from finite_difference_tpu_torch.models.pde import batch as port_batch
 from finite_difference_tpu_torch.models.pde import spike
 from finite_difference_tpu_torch.models.pde.batch import (
     _solve_scan,
@@ -51,15 +52,40 @@ def _kwargs(seed=0, B=8, n_steps=32, num_space_nodes=127, **over):
 
 class TestShape:
     def test_port_p(self):
-        assert spike.spike_p(1024) == 32  # the main path: one warp per trade
-        assert spike.spike_p(128) == 32
-        assert spike.spike_p(200) == 16
-        assert spike.spike_p(152) == 8
-        assert spike.spike_p(6) is None
+        assert spike.spike_p(1024, 4096) == 32  # the main path: one warp per trade
+        assert spike.spike_p(128, 8) == 32
+        assert spike.spike_p(200, 8) == 16
+        assert spike.spike_p(152, 8) == 8
+        assert spike.spike_p(6, 8) is None
+
+    # at most 2048 trades take P=64 where its chunks keep >= 8 rows (not at
+    # N=400 or 257); N=1026 leaves too many pad rows for 64
+    @pytest.mark.parametrize(
+        "n_nodes,batch_size,P",
+        [(1024, 4096, 32), (1024, 2049, 32), (1024, 2048, 64), (1024, 256, 64),
+         (1024, 1, 64), (2048, 256, 64), (513, 256, 64), (512, 256, 64), (400, 256, 16),
+         (257, 8, 32), (1026, 256, 32), (200, 8, 16), (6, 8, None)],
+    )
+    def test_batch_size_rule(self, n_nodes, batch_size, P):
+        assert spike.spike_p(n_nodes, batch_size) == P
+        if P is not None:
+            _, m, _ = spike.spike_shape(n_nodes, P)  # the grid admits it
+            assert P <= 32 or m >= spike.WIDE_MIN_ROWS
+
+    # a P of several warps comes first, the one-warp P last (the prep's
+    # choice where the interface guard refuses the first)
+    @pytest.mark.parametrize(
+        "n_nodes,batch_size,choices",
+        [(1024, 256, (64, 32)), (1024, 4096, (32,)), (513, 256, (64, 32)),
+         (400, 256, (16,)), (6, 8, ())],
+    )
+    def test_choices(self, n_nodes, batch_size, choices):
+        assert spike.spike_p_choices(n_nodes, batch_size) == choices
 
     @pytest.mark.parametrize(
         "n_nodes,P,match",
-        [(40, 32, "too small"), (128, 33, r"\[1, 32\]"), (14, 8, "too small")],
+        [(40, 32, "too small"), (128, 33, r"\[1, 32\]"), (14, 8, "too small"),
+         (1024, 96, "or 64 or 128"), (1024, 256, "P/32 warps"), (200, 64, "too small")],
     )
     def test_shape_checks_raise(self, n_nodes, P, match):
         with pytest.raises(ValueError, match=match):
@@ -96,7 +122,7 @@ class TestTwinParity:
     # n_int + 1 = 126, 127, 128: pad rows 3, 2, 1 (a multiple of P at 129)
     @pytest.mark.parametrize("n_nodes", [127, 128, 129])
     def test_twin_at_port_p_matches_port_scan(self, n_nodes):
-        assert spike.spike_p(n_nodes) == 32
+        assert spike.spike_p(n_nodes, 8) == 32
         tb = port_build(device="cpu", **_kwargs(seed=n_nodes, num_space_nodes=n_nodes - 1))
         v_ref, _ = _solve_scan(tb, tb.sigma, n_nodes)
         v = spike.cn_barrier_solve_spike(tb, tb.sigma, n_nodes, 32)
@@ -165,7 +191,9 @@ class TestAmerican:
         ))
         segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
         assert len(div_steps) == 2 and len(reset_steps) == 2
-        prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=True)
+        prep = spike.prepare_spike(
+            tb, tb.sigma, n_nodes, spike.spike_p(n_nodes, tb.batch_size), set_defs, american=True
+        )
         pads = torch.arange(prep.v0.shape[1]).view(prep.m, prep.P).T.reshape(-1)[prep.n_int:]
         v, e, lam = prep.v0, prep.edge0, torch.zeros_like(prep.v0)
         for k0, k1, t in segments:
@@ -190,6 +218,70 @@ class TestAmerican:
             spike.cn_barrier_solve_spike(
                 tb, tb.sigma, 128, 2, segments=((0, 2, 0),), set_defs=((1.0, 0),), div_steps=(1,)
             )
+
+
+def _port_outputs_at_p(tb, n_nodes, P, american):
+    """The port's price and greeks through the plain SPIKE march at P chunks."""
+    segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
+    if not american:
+        div_steps, reset_steps = (), ()
+    solve = lambda sig: spike.cn_barrier_solve_spike(
+        tb, sig, n_nodes, tb.n_steps, p_chunks=P, segments=segments, set_defs=set_defs,
+        american=american, div_steps=div_steps, reset_steps=reset_steps,
+    )
+    return port_batch._outputs(tb, n_nodes, solve, None, True, with_theta=not american)
+
+
+class TestSeveralWarpsPerTrade:
+    """P = 64 and 128 (chunk j = 32*warp + lane; the interface scans run
+    per 32 chunks, then the carry across them) against the JAX package's
+    scan route at float64 (1e-9), on N=257 grids: m = 4 and 2 rows per
+    chunk."""
+
+    @pytest.mark.parametrize("P", [64, 128])
+    def test_barrier_matches_jax_scan(self, P):
+        kw = _kwargs(seed=P, num_space_nodes=256)
+        ref = jax_batch.price_barrier_batch(jax_build(**kw), n_nodes=257, solver="scan")
+        got = _port_outputs_at_p(port_build(device="cpu", **kw), 257, P, american=False)
+        assert set(got) == set(ref)
+        for k in got:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-9, atol=1e-9)
+
+    @pytest.mark.parametrize("P", [64, 128])
+    @pytest.mark.parametrize("is_call", [False, True])
+    def test_american_matches_jax_scan(self, P, is_call):
+        kw = _american_kwargs(seed=P, n_steps=32, num_space_nodes=256, is_call=is_call)
+        ref = jax_batch.price_american_batch(
+            jax_batch.build_american_batch(**kw), n_nodes=257, solver="scan"
+        )
+        got = _port_outputs_at_p(build_american_batch(device="cpu", **kw), 257, P, american=True)
+        assert set(got) == set(ref)
+        for k in got:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-9, atol=1e-9)
+
+    def test_guard_refusing_the_wide_p_gives_the_one_warp_p(self):
+        """A small drift-dominated batch (sigma 1% against a carry of 30%,
+        8 steps) at N=1024: the rule's first choice, P=64, makes chunks of
+        16 rows whose tips break the interface system's dominance (row sum
+        1.25), while P=32 keeps it (0.93). The route prices at P=32 and
+        matches the JAX scan (1e-9); an explicit P=64 raises."""
+        B, n_nodes = 2, 1024
+        kw = dict(
+            spots=[100.0, 104.0], strikes=[100.0] * B, sigmas=[0.01] * B, t_expiry=[1.0] * B,
+            r=[0.05] * B, b=[0.3] * B, is_call=[True] * B, n_time_steps=8,
+            num_space_nodes=n_nodes - 1, upper=[400.0] * B, monitor_times=[[0.5, 1.0]] * B,
+        )
+        tb = port_build(device="cpu", **kw)
+        set_defs = spike.default_segments(tb.n_steps)[1]
+        assert spike.spike_p_choices(n_nodes, B) == (64, 32)
+        with pytest.raises(ValueError, match="unsafe .* at P=64"):
+            spike.prepare_spike(tb, tb.sigma, n_nodes, 64, set_defs)
+        assert spike.prepare_spike(tb, tb.sigma, n_nodes, None, set_defs).P == 32
+        ref = jax_batch.price_barrier_batch(jax_build(**kw), n_nodes=n_nodes, solver="scan")
+        got = port_batch.price_barrier_batch(tb, n_nodes, solver="spike", device="cpu")
+        assert set(got) == set(ref)
+        for k in got:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-9, atol=1e-9)
 
 
 class TestDispatch:

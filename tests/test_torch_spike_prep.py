@@ -40,9 +40,11 @@ def _kwargs(seed=0, B=8, n_steps=16, num_space_nodes=127):
     )
 
 
-def _prep(n_nodes, seed=0, B=8):
+def _prep(n_nodes, seed=0, B=8, P=None):
+    """A prep at ``P`` chunks, by default the one-warp P that the rule
+    gives the main path's batch size."""
     tb = build_trade_batch(device="cpu", **_kwargs(seed=seed, B=B, num_space_nodes=n_nodes - 1))
-    P = spike.spike_p(n_nodes)
+    P = P or spike.spike_p(n_nodes, chip_smoke.B_MAIN)
     return tb, spike.prepare_spike(tb, tb.sigma, n_nodes, P, ((1.0, 0), (0.5, 0)))
 
 
@@ -120,6 +122,22 @@ def test_banded_interface_solve_matches_a_dense_solve(n_nodes):
         assert torch.all(bprev[:, 0] == 0) and torch.all(tnext[:, -1] == 0)
 
 
+@pytest.mark.parametrize("P", [32, 64, 128])
+def test_banded_interface_solve_matches_a_dense_solve_at_main_width(P):
+    """N=1024 at one warp's 32 chunks, and at 64 and 128, whose scans run
+    per 32 chunks and then carry across the warps."""
+    _, prep = _prep(1024, seed=P, P=P)
+    rng = np.random.default_rng(P)
+    for t in range(2):
+        tips = spike.interface_tips(prep.fields[t], P)
+        y_top, y_bot = (torch.from_numpy(rng.standard_normal((8, P))) for _ in range(2))
+        u = torch.linalg.solve(_dense_interface(*tips), torch.cat([y_top, y_bot], dim=1))
+        bprev, tnext = spike.interface_solve(prep.iface[t], y_top, y_bot)
+        assert float((bprev[:, 1:] - u[:, P:-1]).abs().max()) <= 1e-12
+        assert float((tnext[:, :-1] - u[:, 1:P]).abs().max()) <= 1e-12
+        assert torch.all(bprev[:, 0] == 0) and torch.all(tnext[:, -1] == 0)
+
+
 def _direct_mask(tb, n_nodes, prep):
     """The per-row knock-out mask (B, m, P) built node by node."""
     i = torch.arange(n_nodes, dtype=torch.float64)
@@ -153,14 +171,18 @@ def test_knock_out_indices_on_the_benchmark_barrier_set():
     assert bool(want.any())  # H=420 lies inside the grid
 
 
-def _pivots(tb, n_nodes, set_defs, american):
-    """(det, largest |factor| of the two recurrences) per solver set."""
-    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, spike.spike_p(n_nodes), set_defs, american=american)
+def _pivots(tb, n_nodes, set_defs, american, P=32):
+    """(least det, largest det, largest |factor| of the two recurrences,
+    largest tip row sum) per solver set."""
+    prep = spike.prepare_spike(tb, tb.sigma, n_nodes, P, set_defs, american=american)
     out = []
     for t in range(len(set_defs)):
-        iface, det = spike.interface_factors(*spike.interface_tips(prep.fields[t], prep.P))
+        p, q, r, s = spike.interface_tips(prep.fields[t], prep.P)
+        iface, det = spike.interface_factors(p, q, r, s)
         rows = [spike.IFACE_ROWS.index(k) for k in ("hb_h", "zt_z")]
-        out.append((float(det.min()), float(det.max()), float(iface[:, rows].abs().max())))
+        row_sum = torch.maximum(p.abs() + q.abs(), r.abs() + s.abs())
+        out.append((float(det.min()), float(det.max()), float(iface[:, rows].abs().max()),
+                    float(row_sum.max())))
     return out
 
 
@@ -175,15 +197,35 @@ def test_block_pivots_on_the_chip_smoke_trade_sets():
     tb = build_trade_batch(device="cpu", **chip_smoke.bench_trades(64)[0])
     mu = (tb.b - tb.q) - 0.5 * tb.sigma**2
     assert bool((mu.abs() * tb.dx <= tb.sigma**2).all())
-    for lo, hi, factor in _pivots(tb, chip_smoke.N_NODES, spike.default_segments(tb.n_steps)[1], False):
+    for lo, hi, factor, _ in _pivots(tb, chip_smoke.N_NODES, spike.default_segments(tb.n_steps)[1], False):
         assert 0.7 <= lo and hi <= 1.0 and factor <= 1e-9
     for dividends in (False, True):
         ta = build_american_batch(device="cpu", **chip_smoke.american_trades(64, dividends)[0])
         mu = (ta.b - ta.q) - 0.5 * ta.sigma**2
         assert bool((mu.abs() * ta.dx <= ta.sigma**2).all())
         set_defs = _spike_schedule_impl(ta, chip_smoke.N_NODES)[1]
-        for lo, hi, factor in _pivots(ta, chip_smoke.N_NODES, set_defs, True):
+        for lo, hi, factor, _ in _pivots(ta, chip_smoke.N_NODES, set_defs, True):
             assert 0.2 <= lo and hi <= 1.0 and factor <= 0.05
+
+
+@pytest.mark.parametrize("P,row_sum_max", [(32, 0.88), (64, 0.90), (128, 0.94)])
+def test_guard_passes_on_the_rung_trade_set_at_several_warps(P, row_sum_max):
+    """The float64 rung's 256 trades (chip_smoke.american_trades) and the
+    barrier set at one, two and four warps per trade: the interface guard
+    passes (row sums < 1, block pivots >= 1e-3), with margins measured at
+    float64: determinants >= 0.24 and recurrence factors <= 0.33 on the
+    American set, >= 0.7 and <= 6e-3 on the barrier set. The shorter the
+    chunk, the more the tips couple the system: the American set's largest
+    tip row sum is below 0.88, 0.90 and 0.94 at P = 32, 64 and 128."""
+    ta = build_american_batch(device="cpu", **chip_smoke.american_trades(chip_smoke.B_AM64)[0])
+    assert spike.spike_p(chip_smoke.N_NODES, ta.batch_size) == 64
+    set_defs = _spike_schedule_impl(ta, chip_smoke.N_NODES)[1]
+    for lo, hi, factor, row_sum in _pivots(ta, chip_smoke.N_NODES, set_defs, True, P=P):
+        assert 0.24 <= lo and hi <= 1.0 and factor <= 0.33 and row_sum <= row_sum_max
+    tb = build_trade_batch(device="cpu", **chip_smoke.bench_trades(chip_smoke.B_CHECK)[0])
+    set_defs = spike.default_segments(tb.n_steps)[1]
+    for lo, hi, factor, _ in _pivots(tb, chip_smoke.N_NODES, set_defs, False, P=P):
+        assert 0.7 <= lo and hi <= 1.0 and factor <= 6e-3
 
 
 def test_plain_march_uses_the_compressed_prep():
@@ -263,8 +305,8 @@ def test_interface_guard_holds_the_block_pivot_floor(tip, refused):
     q, r = torch.zeros_like(p), torch.zeros_like(p)
     _, det = spike.interface_factors(p, q, r, s)
     assert float(det[0, 0]) == pytest.approx(1.0 - tip * tip)
+    refusal = spike.interface_refusal(p, q, r, s, det)
     if refused:
-        with pytest.raises(ValueError, match="least block pivot determinant"):
-            spike.require_stable_interface(p, q, r, s, det)
+        assert "least block pivot determinant" in refusal
     else:
-        spike.require_stable_interface(p, q, r, s, det)
+        assert refusal is None
