@@ -37,7 +37,7 @@ from .grid import (
     segmented_schedule,
     uniform_schedule,
 )
-from .spike import cn_barrier_solve_spike, spike_p
+from .spike import assemble, cn_barrier_solve_spike, march_segments, prepare_spike, spike_p
 from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -490,9 +490,57 @@ def _spike_solve(batch: BarrierTradeBatch, n_nodes: int, spike_segments, america
     )
 
 
+def _spike_values(batch: BarrierTradeBatch, n_nodes: int, spike_segments, american: bool,
+                  sigmas, preps=None) -> List[torch.Tensor]:
+    """V (B, N) of the SPIKE solve at each of ``sigmas``. ``preps`` are the
+    auto route's, one per sigma, made before its verdict
+    (:func:`_guarded_spike_preps`, with ``spike_segments`` given); without
+    them each solve makes its own prep, which raises where the interface
+    guard refuses it."""
+    if preps is None:
+        solve = _spike_solve(batch, n_nodes, spike_segments, american)
+        return [solve(sig) for sig in sigmas]
+    segments, _, div_steps, reset_steps = spike_segments
+    if not american:
+        div_steps, reset_steps = (), ()
+    return [assemble(prep, *march_segments(batch, prep, segments, div_steps, reset_steps))
+            for prep in preps]
+
+
+def _guarded_spike_preps(batch: BarrierTradeBatch, n_nodes: int, spike_segments,
+                         american: bool, sigmas):
+    """The SPIKE prep at each of ``sigmas`` (``spike.prepare_spike`` at the
+    rule's P, not strict), or None as soon as the interface guard refuses
+    one: then the call's solves all take another route, so that the price
+    and its vega come from one discretisation."""
+    preps = []
+    for sig in sigmas:
+        prep = prepare_spike(batch, sig, n_nodes, None, spike_segments[1], american, strict=False)
+        if prep is None:
+            return None
+        preps.append(prep)
+    return preps
+
+
+def _vol_points(batch: BarrierTradeBatch, dv_sigma, with_greeks: bool):
+    """(the vega bump, the sigmas a call solves at): the batch's, and with
+    greeks the bumped copy."""
+    dv_sigma = _resolve_dv_sigma(dv_sigma, batch.sigma)
+    return dv_sigma, [batch.sigma] + ([batch.sigma + dv_sigma] if with_greeks else [])
+
+
 def _outputs(batch: BarrierTradeBatch, n_nodes: int, solve, dv_sigma, with_greeks: bool,
              with_theta: bool) -> Dict[str, torch.Tensor]:
-    """Price and bump greeks from the solve closure ``sigma -> V (B, N)``.
+    """Price and bump greeks from the solve closure ``sigma -> V (B, N)``
+    (see :func:`_outputs_of`)."""
+    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
+    return _outputs_of(batch, n_nodes, [solve(sig) for sig in sigmas], dv_sigma, with_theta)
+
+
+def _outputs_of(batch: BarrierTradeBatch, n_nodes: int, values, dv_sigma: float,
+                with_theta: bool) -> Dict[str, torch.Tensor]:
+    """Price and bump greeks from ``values``, V (B, N) at the sigmas of
+    :func:`_vol_points`.
 
     Delta/gamma come from the non-uniform central stencil at spot; theta
     (``with_theta``) from the BS PDE identity
@@ -508,18 +556,17 @@ def _outputs(batch: BarrierTradeBatch, n_nodes: int, solve, dv_sigma, with_greek
     difference to ~1e-2 of gamma and theta. At float64 this is the JAX
     package's arithmetic unchanged: the nodes are the solver's own.
     """
-    dv_sigma = _resolve_dv_sigma(dv_sigma, batch.sigma)
     dtype = batch.sigma.dtype
     f64 = lambda x: x.to(torch.float64)
     i = torch.arange(n_nodes, dtype=torch.float64, device=batch.x_min.device)
     s = torch.exp(f64(batch.x_min)[:, None] + i[None, :] * f64(batch.dx)[:, None])
     spot = f64(batch.spot)
 
-    v = f64(solve(batch.sigma))
+    v = f64(values[0])
     price = _interp(f64(batch.s_eff), s, v)
     out = {"price": price}
-    if with_greeks:
-        v_up = f64(solve(batch.sigma + dv_sigma))
+    if len(values) > 1:
+        v_up = f64(values[1])
         out["vega"] = (_interp(f64(batch.s_eff), s, v_up) - price) / (dv_sigma * 100.0)
         idx = torch.argmin(torch.abs(s - spot[:, None]), dim=1).clamp(1, n_nodes - 2)
         delta, gamma = nonuniform_central(s, v, idx)
@@ -542,23 +589,26 @@ def price_batch_kernel(
     greeks_mode: str = "bump",
     solver: str = "scan",
     spike_segments=None,
+    spike_preps=None,
 ) -> Dict[str, torch.Tensor]:
     """Barrier batch on one device -> dict of (B,) tensors on that device:
-    price, and with greeks vega, delta, gamma and theta (see :func:`_outputs`).
+    price, and with greeks vega, delta, gamma and theta (see :func:`_outputs_of`).
 
     ``solver="spike"`` runs the SPIKE march (the CUDA kernel on a card);
     ``spike_segments`` is the ``(segments, set_defs, ...)`` tuple from
-    :func:`_spike_schedule_impl`, None meaning the uniform-dt default.
+    :func:`_spike_schedule_impl`, None meaning the uniform-dt default;
+    ``spike_preps`` the auto route's preps (:func:`_spike_values`).
     ``greeks_mode="ad"`` is not ported yet and raises NotImplementedError.
     """
     _check_greeks_mode(with_greeks, greeks_mode)
+    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
     if solver == "spike":
-        solve = _spike_solve(batch, n_nodes, spike_segments, american=False)
+        values = _spike_values(batch, n_nodes, spike_segments, False, sigmas, spike_preps)
     elif solver == "scan":
-        solve = lambda sig: _solve_scan(batch, sig, n_nodes)[0]
+        values = [_solve_scan(batch, sig, n_nodes)[0] for sig in sigmas]
     else:
         raise ValueError(f"unknown solver {solver!r}; expected 'scan' or 'spike'")
-    return _outputs(batch, n_nodes, solve, dv_sigma, with_greeks, with_theta=True)
+    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True)
 
 
 def american_batch_kernel(
@@ -570,6 +620,7 @@ def american_batch_kernel(
     solver: str = "scan",
     spike_segments=None,
     with_dividends: bool = True,
+    spike_preps=None,
 ) -> Dict[str, torch.Tensor]:
     """American batch on one device -> dict of (B,) tensors: price, and
     with greeks vega, delta and gamma (no theta, as in the JAX package).
@@ -580,13 +631,14 @@ def american_batch_kernel(
     then applies the spline jump inside its step loop.
     """
     _check_greeks_mode(with_greeks, greeks_mode)
+    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
     if solver == "spike":
-        solve = _spike_solve(batch, n_nodes, spike_segments, american=True)
+        values = _spike_values(batch, n_nodes, spike_segments, True, sigmas, spike_preps)
     elif solver == "scan":
-        solve = lambda sig: _solve_scan_american(batch, sig, n_nodes, with_dividends)[0]
+        values = [_solve_scan_american(batch, sig, n_nodes, with_dividends)[0] for sig in sigmas]
     else:
         raise ValueError(f"unknown solver {solver!r}; expected 'scan' or 'spike'")
-    return _outputs(batch, n_nodes, solve, dv_sigma, with_greeks, with_theta=False)
+    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=False)
 
 
 def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
@@ -680,13 +732,26 @@ def _run_batch_driver(
     per doubling pass). The SPIKE march keeps each trade's grid in shared
     memory and streams its solver tensors, so the spike route runs the
     whole batch as one launch per segment.
+
+    ``solver="auto"`` (from :func:`_route`: a SPIKE-eligible batch on CUDA)
+    leaves the route to the interface guard: the preps of every sigma of
+    the call are made first, not strict, and :func:`auto_solver` reads
+    their verdict. The spike route then marches those preps; the scan
+    prices the whole call where the guard refused one.
     """
+    _check_greeks_mode(with_greeks, greeks_mode)
+    preps = None
+    if solver == "auto":
+        sigmas = _vol_points(batch, dv_sigma, with_greeks)[1]
+        preps = _guarded_spike_preps(batch, n_nodes, spike_segments,
+                                     kernel is american_batch_kernel, sigmas)
+        solver = auto_solver(batch.x_min.device.type, spike_segments, preps is not None)
     B = batch.batch_size
     chunk = None if solver == "spike" else max_chunk
     run = lambda piece: kernel(
         piece, n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
         greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
-        **kernel_kw,
+        spike_preps=preps, **kernel_kw,
     )
     if chunk is None or B <= chunk:
         return run(batch)
@@ -694,12 +759,26 @@ def _run_batch_driver(
     return {k: torch.cat([p[k] for p in pieces]) for k in pieces[0]}
 
 
+def auto_solver(device_type: str, spike_segments, guard_passed: bool) -> str:
+    """The route of ``solver="auto"``: ``"spike"`` for a SPIKE-eligible
+    batch (``spike_segments`` from :func:`_spike_schedule_impl` not None) on
+    CUDA whose SPIKE preps the interface guard passed at every sigma of the
+    call (``spike.interface_refusal``, read from the float64 prep before any
+    launch), else ``"scan"``. Like the JAX package's eligibility rule, a
+    choice of route: an explicit ``solver="spike"`` still raises where the
+    guard refuses."""
+    spike = device_type == "cuda" and spike_segments is not None and guard_passed
+    return "spike" if spike else "scan"
+
+
 def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str, device):
     """The batch on its device and dtype, and the route:
     ``(batch, max_chunk, solver, spike_segments)``.
 
-    ``"auto"`` picks ``"spike"`` for a SPIKE-eligible batch on CUDA and
-    ``"scan"`` otherwise; ``"spike"`` on an ineligible batch raises.
+    ``"auto"`` stays ``"auto"`` for a SPIKE-eligible batch on CUDA, whose
+    route the interface guard decides in :func:`_run_batch_driver`, and is
+    ``"scan"`` otherwise (:func:`auto_solver`); ``"spike"`` on an
+    ineligible batch raises.
     ``dtype`` casts the batch's floating fields (float64 halves
     ``max_chunk``, the same working-set budget).
     """
@@ -712,8 +791,8 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
     if solver not in ("auto", "scan", "spike"):
         raise ValueError(f"unknown solver {solver!r}; expected 'auto', 'scan' or 'spike'")
     sched = _spike_schedule_impl(batch, n_nodes) if solver != "scan" else None
-    if solver == "auto":
-        solver = "spike" if dev.type == "cuda" and sched is not None else "scan"
+    if solver == "auto" and auto_solver(dev.type, sched, guard_passed=True) == "scan":
+        solver = "scan"
     if solver == "spike" and sched is None:
         raise ValueError(
             "batch is not spike-eligible (needs a piecewise-constant "
@@ -740,7 +819,8 @@ def price_barrier_batch(
 
     ``solver``: ``"spike"`` the SPIKE march (the hand-written CUDA kernel
     on a card, its plain version on the CPU); ``"scan"`` the CN step loop;
-    ``"auto"`` (default) picks ``"spike"`` for an eligible batch on CUDA and
+    ``"auto"`` (default) picks ``"spike"`` for an eligible batch on CUDA whose
+    SPIKE prep the interface guard passes (:func:`auto_solver`) and
     ``"scan"`` otherwise. Unlike the JAX package, ``"auto"`` never routes to
     the spectral propagator (a later slice) and takes the spike route at
     float64 too: the H100 runs the kernel natively in double precision.
@@ -772,7 +852,8 @@ def price_american_batch(
     ``solver="auto"`` (default) takes the American SPIKE march — the
     hand-written CUDA kernel with the Ikonen–Toivanen projection fused into
     the step — for a SPIKE-eligible batch on CUDA, at float32 and at
-    float64 alike, and the CN scan otherwise. Dividend batches ride the
+    float64 alike, unless the interface guard refuses its SPIKE prep
+    (:func:`auto_solver`), and the CN scan otherwise. Dividend batches ride the
     march as extra segments, with the spline jump applied between launches.
     Mixed call/put dividend batches are not eligible (calls restart
     Rannacher after each dividend, so the theta pattern differs per trade)
@@ -783,8 +864,8 @@ def price_american_batch(
     """
     batch, max_chunk, solver, sched = _route(batch, n_nodes, max_chunk, dtype, solver, device)
     # the scan applies the spline jump only when asked (the spike route
-    # places its jumps from the segmentation)
-    with_dividends = solver == "scan" and bool((batch.div_amount != 0).any())
+    # places its jumps from the segmentation and ignores the flag)
+    with_dividends = bool((batch.div_amount != 0).any())
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
         solver, sched, kernel=american_batch_kernel, with_dividends=with_dividends,

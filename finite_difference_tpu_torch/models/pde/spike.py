@@ -395,8 +395,9 @@ def _build_solver_sets(theta, dt, r, a_coef, b_coef, c_coef, has_l, has_u, real,
 
 
 def prepare_spike(
-    batch, sigma, n_nodes: int, P: Optional[int], set_defs, american: bool = False
-) -> SpikePrep:
+    batch, sigma, n_nodes: int, P: Optional[int], set_defs, american: bool = False,
+    strict: bool = True,
+) -> Optional[SpikePrep]:
     """Host prep of one SPIKE solve at ``P`` chunks per trade.
 
     ``set_defs`` is ``((theta, k_col), ...)``: one solver set per entry,
@@ -407,17 +408,20 @@ def prepare_spike(
     choice, and the one-warp P where the interface guard
     (:func:`interface_refusal`) refuses a P of several warps, since shorter
     chunks couple the interface system more. Where the guard refuses an
-    explicit P, or the one-warp P, the prep raises ValueError.
+    explicit P, or the one-warp P, the prep raises ValueError, or returns
+    None when not ``strict`` (the verdict of ``solver="auto"``'s route).
     """
     if P is not None:
-        return _prepare(batch, sigma, n_nodes, P, set_defs, american, strict=True)
+        return _prepare(batch, sigma, n_nodes, P, set_defs, american, strict)
     choices = spike_p_choices(n_nodes, batch.x_min.shape[0])
     if not choices:
         raise ValueError(f"grid too small for SPIKE partitioning: N={n_nodes}")
     for P in choices:
-        prep = _prepare(batch, sigma, n_nodes, P, set_defs, american, strict=P == choices[-1])
+        prep = _prepare(batch, sigma, n_nodes, P, set_defs, american,
+                        strict=strict and P == choices[-1])
         if prep is not None:
             return prep
+    return None
 
 
 def _prepare(batch, sigma, n_nodes, P, set_defs, american, strict) -> Optional[SpikePrep]:

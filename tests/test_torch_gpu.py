@@ -155,6 +155,34 @@ def test_auto_route_takes_one_warp_where_the_guard_refuses_the_wide_p(cuda):
         np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
 
 
+@pytest.mark.parametrize("american", [False, True])
+def test_auto_route_takes_the_scan_where_the_guard_refuses_every_p(cuda, american):
+    """The drift-dominated batch of tests/test_torch_spike_prep.py (sigma 1%
+    against a carry of 50% on four steps), whose interface system the guard
+    refuses at every P: solver="auto" prices it with greeks on the scan,
+    with no SPIKE launch, within 1e-9 of the scan on the CPU."""
+    B = 4
+    kw = dict(spots=[100.0] * B, strikes=[100.0] * B, sigmas=[0.01] * B, t_expiry=[1.0] * B,
+              r=[0.05] * B, b=[0.5] * B, is_call=[True] * B, n_time_steps=4,
+              num_space_nodes=127)
+    if american:
+        tb, price = build_american_batch(device=cuda, **kw), price_american_batch
+    else:
+        tb = build_trade_batch(device=cuda, upper=[130.0] * B, monitor_times=[[0.5, 1.0]] * B, **kw)
+        price = price_barrier_batch
+    assert _spike_schedule_impl(tb, 128) is not None
+    kernels.reset_launch_counts()
+    got = price(tb, 128)
+    torch.cuda.synchronize()
+    assert not any(n for k, n in kernels.launch_counts.items() if k.startswith("spike_march"))
+    ref = price(tb.to("cpu"), 128, solver="scan", device="cpu")
+    assert set(got) == set(ref) and "vega" in got
+    for k in got:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9)
+    with pytest.raises(ValueError, match="without pivoting is unsafe"):
+        price(tb, 128, solver="spike")
+
+
 def test_wrapper_refuses_the_old_prep_layout(cuda):
     """The dense-inverse layout (fields (5, B, n_pad), a (B, 2P, 2P)
     inverse in place of the factors) no longer launches."""

@@ -8,12 +8,16 @@ vectors (<= 1e-14), a dense solve of the 2P x 2P interface system
 (<= 1e-13), and the per-row mask (bit for bit). The block pivots of the
 elimination, which runs without pivoting, are checked on the barrier and
 American trade sets that chip_smoke.py drives, at a reduced batch, and the
-prep refuses a batch on which that elimination would be unsafe.
+prep refuses a batch on which that elimination would be unsafe. Where it
+refuses, ``solver="auto"`` takes the scan for the whole call, from the
+prep's verdict and without a second prep; an explicit ``solver="spike"``
+raises.
 """
 import numpy as np
 import pytest
 import torch
 
+from finite_difference_tpu_torch.models.pde import batch as port_batch
 from finite_difference_tpu_torch.models.pde import spike
 from finite_difference_tpu_torch.models.pde.batch import (
     _spike_schedule_impl,
@@ -310,3 +314,95 @@ def test_interface_guard_holds_the_block_pivot_floor(tip, refused):
         assert "least block pivot determinant" in refusal
     else:
         assert refusal is None
+
+
+# solver="auto" on a batch that the guard refuses: a choice of route ---------
+
+@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
+@pytest.mark.parametrize("eligible", [True, False])
+@pytest.mark.parametrize("guard_passed", [True, False])
+def test_auto_route_reads_device_schedule_and_guard(device_type, eligible, guard_passed):
+    sched = ((0, 4, 0),) if eligible else None
+    want = "spike" if device_type == "cuda" and eligible and guard_passed else "scan"
+    assert port_batch.auto_solver(device_type, sched, guard_passed) == want
+
+
+def _drift_dominated_batch(american: bool):
+    kw = _drift_dominated_kwargs()
+    if american:
+        kw = {k: v for k, v in kw.items() if k not in ("upper", "monitor_times")}
+        return build_american_batch(device="cpu", **kw)
+    return build_trade_batch(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_guard_verdict_without_raising(american):
+    """Not strict, the prep returns None where the guard refuses every P of
+    the rule, and at an explicit P; strict, it raises as before."""
+    tb = _drift_dominated_batch(american)
+    set_defs = _spike_schedule_impl(tb, 128)[1]
+    for P in (None, 32, 16):
+        assert spike.prepare_spike(tb, tb.sigma, 128, P, set_defs, american, strict=False) is None
+    with pytest.raises(ValueError, match="without pivoting is unsafe"):
+        spike.prepare_spike(tb, tb.sigma, 128, None, set_defs, american)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_explicit_spike_still_raises_where_the_guard_refuses(american):
+    tb = _drift_dominated_batch(american)
+    price = port_batch.price_american_batch if american else port_batch.price_barrier_batch
+    with pytest.raises(ValueError, match="without pivoting is unsafe"):
+        price(tb, 128, solver="spike", device="cpu")
+
+
+def _auto_as_on_a_card(monkeypatch):
+    """The driver's auto route with the CPU read as CUDA (the march then
+    runs its plain version), and a count of the SPIKE preps it makes."""
+    real = port_batch.auto_solver
+    monkeypatch.setattr(port_batch, "auto_solver",
+                        lambda dev, sched, passed: real("cuda", sched, passed))
+    preps = []
+    for module in (port_batch, spike):
+        fn = module.prepare_spike
+        monkeypatch.setattr(module, "prepare_spike",
+                            lambda *a, _fn=fn, **k: preps.append(a[3]) or _fn(*a, **k))
+    return preps
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_auto_route_prices_a_refused_batch_on_the_scan(monkeypatch, american):
+    """With greeks both sigmas take the scan once the first prep is refused."""
+    tb = _drift_dominated_batch(american)
+    sched = _spike_schedule_impl(tb, 128)
+    kernel = port_batch.american_batch_kernel if american else port_batch.price_batch_kernel
+    kw = dict(kernel=kernel, with_dividends=False) if american else {}
+    preps = _auto_as_on_a_card(monkeypatch)
+    got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched, **kw)
+    assert len(preps) == 1
+    price = port_batch.price_american_batch if american else port_batch.price_barrier_batch
+    ref = price(tb, 128, solver="scan", device="cpu")
+    assert set(got) == set(ref)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_auto_route_preps_each_sigma_once_where_the_guard_passes(monkeypatch, american):
+    """A guard-passing batch: one prep per sigma (the price and the vega
+    bump), marched as made, and the explicit spike route's outputs."""
+    if american:
+        barrier_keys = ("monitor_times", "lower", "upper", "rebate", "rebate_at_hit")
+        kw = {k: v for k, v in _kwargs(B=4).items() if k not in barrier_keys}
+        tb = build_american_batch(device="cpu", **kw)
+    else:
+        tb = build_trade_batch(device="cpu", **_kwargs(B=4))
+    sched = _spike_schedule_impl(tb, 128)
+    price = port_batch.price_american_batch if american else port_batch.price_barrier_batch
+    ref = price(tb, 128, solver="spike", device="cpu")
+    kernel = port_batch.american_batch_kernel if american else port_batch.price_batch_kernel
+    kw = dict(kernel=kernel, with_dividends=False) if american else {}
+    preps = _auto_as_on_a_card(monkeypatch)
+    got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched, **kw)
+    assert preps == [None, None]  # at the rule's P, one per sigma
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0.0, atol=0.0)
