@@ -22,7 +22,8 @@ phase:
   trades at N=1026, each held against the f64 routes.
 
 The SPIKE march's timing lines also give its design bytes, its trades
-resident per SM and waves (the occupancy API); so does the CR march's. The
+resident per SM and waves (the occupancy API); so do the scan march's
+(K3) and the CR march's. The
 SPIKE march is also held against its plain version and timed at P = 32, 64
 and 128 chunks per trade (one warp per trade, two and four) on the float64
 rung's batch.
@@ -247,12 +248,13 @@ def fused_bound(prep, kind: str) -> dict:
     written once (the solver data, the mask, the schedule, the payoff in
     and V out) over the memory rate; the larger of the two. ``extra_flops``
     is the design's own arithmetic in place of the solve's 5 per node:
-    for the scans (kernels.hs_block's R rows on T threads) per step and
-    scan, each thread composes its rows (3R), runs 5 shuffle stages (3
-    each) and applies the entry value to its rows (2 + 2R), and warp 0
-    scans the warp maps (5 stages of 3 per lane); for cyclic reduction 4
-    flops per row eliminated and 5 per row substituted (one a division),
-    n - 1 rows each, and the 1x1 pivot.
+    for the scans (kernels.hs_block's design, R rows on T threads) per
+    step and scan, each thread composes its rows (3R), runs 5 shuffle
+    stages (3 each) and applies the entry value to its rows (2R; the block
+    design 2 more to form it), and in the block design warp 0 scans the
+    warp maps (5 stages of 3 per lane); for cyclic reduction 4 flops per
+    row eliminated and 5 per row substituted (one a division), n - 1 rows
+    each, and the 1x1 pivot.
     """
     from finite_difference_tpu_torch import kernels
 
@@ -264,8 +266,11 @@ def fused_bound(prep, kind: str) -> dict:
                                     prep.mon, prep.v0)) + B * N
     nbytes = words * item
     if kind == "hs":
-        rows, threads = kernels.hs_block(N)
-        extra = B * steps * 2 * (threads * (5 * rows + 17) + 32 * 15)
+        design, rows, threads = kernels.hs_block(N)
+        if design == "warp":
+            extra = B * steps * 2 * 32 * (5 * rows + 15)
+        else:
+            extra = B * steps * 2 * (threads * (5 * rows + 17) + 32 * 15)
     else:
         n = N - 2
         extra = B * steps * (9 * (n - 1) + 1)
@@ -273,6 +278,17 @@ def fused_bound(prep, kind: str) -> dict:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                 flops=flops, bytes=nbytes, extra_flops=extra)
+
+
+def hs_design_bytes(prep) -> int:
+    """What the scan kernel requests from global memory per march, by the
+    design's own count: per trade its constants (9 values) and both theta
+    sets' coefficients (10), w, af and ab of both sets (6N, each loaded
+    once into shared memory or registers), the knock-out mask (N), tau and
+    the monitor flag of each step, and the value row in and out (2N)."""
+    B, N = prep.v0.shape
+    words = B * (9 + 10 + 6 * N + N + 2 * prep.n_steps + 2 * N)
+    return words * prep.v0.element_size()
 
 
 def cr_design_bytes(prep) -> int:
@@ -652,8 +668,10 @@ def fused_phases(dev, card: dict, limits: dict):
         check(math.isfinite(err) and err <= limits[torch.float32] * scale,
               f"{kind} kernel vs plain main path: {err / scale:.3e} > {limits[torch.float32]}")
         b = fused_bound(prep, kind)
-        design = {}
-        if kind == "cr":
+        if kind == "hs":
+            design = dict(design=kernels.hs_block(n_nodes)[0], design_bytes=hs_design_bytes(prep),
+                          **residency(prep, kernels.hs_resident_trades))
+        else:
             design = dict(design_bytes=cr_design_bytes(prep),
                           **residency(prep, kernels.cr_resident_trades))
         entry.update(max_abs_err=err, max_abs_err_over_max_abs_v=err / scale, ms=ms,

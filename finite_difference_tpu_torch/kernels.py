@@ -8,7 +8,9 @@ Each source under ``csrc/`` exposes a plain C interface:
   P <= 32 and P/32 warps for P = 64 and 128, and its occupancy query
   (:func:`spike_resident_trades`);
 - ``hs_march.cu``, the fused march with Hillis–Steele scans (K3,
-  ``hs_march_{f32,f64}``);
+  ``hs_march_{f32,f64}``, one warp per trade up to 1024 nodes, one block
+  per trade above: :func:`hs_block`), and its occupancy query
+  (:func:`hs_resident_trades`);
 - ``cr_march.cu``, the fused march with cyclic reduction (K4,
   ``cr_march_{f32,f64}``, one warp per trade), and its occupancy query
   (:func:`cr_resident_trades`).
@@ -67,6 +69,7 @@ _FUNCTIONS = {
 # C functions that launch nothing (not counted)
 _QUERIES = {
     "spike_march": {"spike_march_occupancy": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]},
+    "hs_march": {"hs_march_occupancy": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]},
     "cr_march": {"cr_march_occupancy": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]},
 }
 
@@ -297,25 +300,57 @@ def _fused_launch(kind: str, prep, solver_shape: tuple, shape_args: tuple) -> to
     return v_out
 
 
+HS_WARP_MAX_NODES = 1024
+HS_TRADES_PER_BLOCK = 4
+
+
 def hs_block(n_nodes: int):
-    """(rows per thread, threads per block) of the scan march, as
-    ``csrc/hs_march.cu`` chooses them: the fewest rows (1, 2 or 4) that keep
-    a block at <= 256 threads, else 4 rows; at most 1024 threads."""
+    """(design, rows per thread, threads per block) of the scan march, as
+    ``csrc/hs_march.cu``'s launch rule chooses them from N alone:
+
+    - ``"warp"`` for N <= :data:`HS_WARP_MAX_NODES`: one warp per trade,
+      :data:`HS_TRADES_PER_BLOCK` trades per block, each lane owning R rows,
+      the least power of two with 32 R >= N (1 ... 32);
+    - ``"block"`` above: one block per trade, the fewest rows (1, 2 or 4)
+      that keep a block at <= 256 threads, else 4 rows; at most 1024
+      threads, so N <= 4096.
+    """
+    if n_nodes <= HS_WARP_MAX_NODES:
+        rows = 1
+        while 32 * rows < n_nodes:
+            rows *= 2
+        return "warp", rows, 32 * HS_TRADES_PER_BLOCK
     per_rows = lambda rows: -(-n_nodes // rows)  # threads that own a row
     rows = 1
     while rows < 4 and per_rows(rows) > 256:
         rows *= 2
-    return rows, (per_rows(rows) + 31) // 32 * 32
+    return "block", rows, (per_rows(rows) + 31) // 32 * 32
 
 
 def hs_march_cuda(prep) -> torch.Tensor:
     """Launch the fused march with Hillis–Steele scans (``csrc/hs_march.cu``)
     over all steps of ``prep`` (``models.pde.fused.prepare_fused``): one
-    block per trade. Returns V (B, N), a new tensor; 3 <= N <= 4096."""
+    warp per trade up to 1024 nodes, one block per trade above
+    (:func:`hs_block`). Returns V (B, N), a new tensor; 3 <= N <= 4096."""
     B, N = prep.v0.shape
-    if N < 3 or hs_block(N)[1] > 1024:
+    if N < 3 or hs_block(N)[2] > 1024:
         raise ValueError(f"hs_march_cuda takes 3 <= N <= 4096 nodes, got {N}")
     return _fused_launch("hs_march", prep, (2, 3, B, N), ())
+
+
+def hs_resident_trades(prep) -> int:
+    """Trades of ``prep``'s scan march resident per SM on the current card,
+    in the design that :func:`hs_block` names, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers, shared
+    memory and threads of the kernel as built)."""
+    _check_device("hs_march", prep.v0)
+    lib = _lib("hs_march")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(prep.v0.device):
+        rc = lib.hs_march_occupancy(int(prep.v0.dtype == torch.float64), prep.v0.shape[1],
+                                    ctypes.byref(out))
+    _raise_on("hs_march", "hs_march_occupancy", rc)
+    return out.value
 
 
 CR_TRADES_PER_BLOCK = 4

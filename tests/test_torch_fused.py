@@ -197,6 +197,15 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA tensors"):
             kernels.hs_march_cuda(prep)
 
+    @pytest.mark.parametrize("n_nodes,want", [
+        (3, ("warp", 1, 128)), (33, ("warp", 2, 128)), (1024, ("warp", 32, 128)),
+        (1025, ("block", 4, 288)), (4096, ("block", 4, 1024)),
+    ])
+    def test_launch_rule_picks_the_design_by_nodes(self, n_nodes, want):
+        """One warp per trade (4 per block of 128 threads) up to 1024 nodes,
+        R the least power of two with 32 R >= N; one block per trade above."""
+        assert kernels.hs_block(n_nodes) == want
+
     def test_cuda_wrapper_refuses_too_many_nodes(self):
         tb = port_build(device="cpu", **mixed_kwargs(B=1, n_steps=4, num_space_nodes=4096))
         prep = fused.prepare_fused(tb, tb.sigma, 4097)

@@ -274,15 +274,40 @@ def _march_vs_plain(prep, kernel, plain, tag_name, dtype, limit):
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
-# 1 row per thread up to 256 nodes, 4 at 1024 and 2048 (256 and 512 threads);
-# 127 and 129 leave phantom rows in the last thread and warp
-@pytest.mark.parametrize("n_nodes", [127, 128, 129, 1024, 2048])
+# one warp per trade up to 1024 nodes: R = 2, 4, 4, 4, 8, 32, 32 rows per
+# lane at 33 ... 1024 (33, 65, 127, 129 and 1000 leave phantom rows in the
+# last lanes); one block per trade at 1025 (the first such grid, 4 rows on
+# 288 threads) and 2048 (512 threads)
+@pytest.mark.parametrize("n_nodes", [33, 65, 127, 128, 129, 1000, 1024, 1025, 2048])
 def test_hs_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
     tb = build_trade_batch(
         dtype=dtype, device=cuda, **_kwargs(seed=n_nodes, B=5, num_space_nodes=n_nodes - 1)
     )
     prep = fused.prepare_fused(tb, tb.sigma, n_nodes)
     _march_vs_plain(prep, kernels.hs_march_cuda, fused.hs_march_reference, "hs_march", dtype, limit)
+
+
+@pytest.mark.parametrize("dtype,elem", [(torch.float32, 4), (torch.float64, 8)])
+@pytest.mark.parametrize("n_nodes", [128, 1024, 2048])
+def test_hs_resident_trades_query(cuda, dtype, elem, n_nodes):
+    """The occupancy API against the launch mirror: up to 1024 nodes whole
+    blocks of kernels.HS_TRADES_PER_BLOCK trades within the SM's shared
+    memory (3 * 32 * (R | 1) values per trade), at least 16 per SM at
+    N=1024 in f32 and 8 in f64; one trade per block above."""
+    tb = build_trade_batch(dtype=dtype, device=cuda, **_kwargs(B=4, num_space_nodes=n_nodes - 1))
+    prep = fused.prepare_fused(tb, tb.sigma, n_nodes)
+    kernels.reset_launch_counts()
+    resident = kernels.hs_resident_trades(prep)
+    design, rows, threads = kernels.hs_block(n_nodes)
+    if design == "warp":
+        per_block = kernels.HS_TRADES_PER_BLOCK
+        assert resident % per_block == 0
+        assert resident * 3 * 32 * (rows | 1) * elem <= 228 * 1024
+        if n_nodes == 1024:
+            assert resident >= (16 if dtype == torch.float32 else 8)
+    else:
+        assert resident >= 1 and resident * threads <= 2048
+    assert not any(kernels.launch_counts.values())
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
