@@ -54,8 +54,10 @@
 // composition and the application (5 flops against 3 and 2), and per lane
 // 5 shuffle stages of 3 flops per scan, overhead of the design. The block
 // design took 6.8 ms per march at that size on one NVIDIA H100 80GB HBM3
-// (700 W), 21x the bound, its barriers holding every step (PERF.md); the
-// warp design issues about 600 warp instructions per trade and step.
+// (700 W), 21x the bound, its barriers holding every step. The warp design
+// issues about 600 warp instructions per trade and step, so instruction
+// issue, not latency, should set its pace with 4 warps per scheduler;
+// PERF.md has its time.
 //
 // Precise math only: expf/exp, no --use_fast_math. nvcc contracts a*b+c into
 // FMA by default, and the scan composes in another order than the plain
@@ -463,13 +465,6 @@ void launch_rows(int threads, size_t smem, cudaStream_t stream, const void* trad
       (const T*)mon, (const T*)v_in, (T*)v_out, B, N, n_steps, n_rann);
 }
 
-// rows per thread and threads per block of the block design
-inline void block_config(int N, int* rows, int* threads) {
-  *rows = 1;
-  while (*rows < kMaxRows && (N + *rows - 1) / *rows > kTargetThreads) *rows *= 2;
-  *threads = ((N + *rows - 1) / *rows + 31) / 32 * 32;
-}
-
 template <typename T>
 int launch(const void* trade, const void* coef, const void* fields, const void* omask,
            const void* tau, const void* mon, const void* v_in, void* v_out, int B, int N,
@@ -493,8 +488,9 @@ int launch(const void* trade, const void* coef, const void* fields, const void* 
 #undef HS_WARP_LAUNCH
     return (int)cudaErrorInvalidValue;
   }
-  int rows, threads;
-  block_config(N, &rows, &threads);
+  int rows = 1;
+  while (rows < kMaxRows && (N + rows - 1) / rows > kTargetThreads) rows *= 2;
+  const int threads = ((N + rows - 1) / rows + 31) / 32 * 32;
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)threads * rows + 2 * kAgg) * sizeof(T);
   switch (rows) {
@@ -514,43 +510,20 @@ int launch(const void* trade, const void* coef, const void* fields, const void* 
   return (int)cudaGetLastError();
 }
 
-// trades resident per SM for a launch at N nodes, by the design the launch
-// rule picks (cudaOccupancyMaxActiveBlocksPerMultiprocessor times trades
-// per block)
+// trades resident per SM of the warp design at N <= 1024 nodes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor times trades per block)
 template <typename T>
 int occupancy(int N, int* trades_per_sm) {
-  if (N < 3) return (int)cudaErrorInvalidValue;
-  if (N <= kWarpMaxNodes) {
-    switch (warp_rows(N)) {
-      case 1: return warp_occupancy<T, 1>(trades_per_sm);
-      case 2: return warp_occupancy<T, 2>(trades_per_sm);
-      case 4: return warp_occupancy<T, 4>(trades_per_sm);
-      case 8: return warp_occupancy<T, 8>(trades_per_sm);
-      case 16: return warp_occupancy<T, 16>(trades_per_sm);
-      case 32: return warp_occupancy<T, 32>(trades_per_sm);
-    }
-    return (int)cudaErrorInvalidValue;
+  if (N < 3 || N > kWarpMaxNodes) return (int)cudaErrorInvalidValue;
+  switch (warp_rows(N)) {
+    case 1: return warp_occupancy<T, 1>(trades_per_sm);
+    case 2: return warp_occupancy<T, 2>(trades_per_sm);
+    case 4: return warp_occupancy<T, 4>(trades_per_sm);
+    case 8: return warp_occupancy<T, 8>(trades_per_sm);
+    case 16: return warp_occupancy<T, 16>(trades_per_sm);
+    case 32: return warp_occupancy<T, 32>(trades_per_sm);
   }
-  int rows, threads;
-  block_config(N, &rows, &threads);
-  if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)threads * rows + 2 * kAgg) * sizeof(T);
-  int blocks = 0;
-  cudaError_t e;
-  switch (rows) {
-    case 1:
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hs_march_kernel<T, 1>, threads, smem);
-      break;
-    case 2:
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hs_march_kernel<T, 2>, threads, smem);
-      break;
-    default:
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, hs_march_kernel<T, 4>, threads, smem);
-      break;
-  }
-  if (e != cudaSuccess) return (int)e;
-  *trades_per_sm = blocks;
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

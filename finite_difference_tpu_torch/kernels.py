@@ -339,11 +339,13 @@ def hs_march_cuda(prep) -> torch.Tensor:
 
 
 def hs_resident_trades(prep) -> int:
-    """Trades of ``prep``'s scan march resident per SM on the current card,
-    in the design that :func:`hs_block` names, from
+    """Trades of ``prep``'s scan march resident per SM on the current card
+    in the one-warp design (N <= 1024), from
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (registers, shared
     memory and threads of the kernel as built)."""
     _check_device("hs_march", prep.v0)
+    if hs_block(prep.v0.shape[1])[0] != "warp":
+        raise ValueError(f"hs_resident_trades: the one-warp design takes N <= {HS_WARP_MAX_NODES}")
     lib = _lib("hs_march")
     out = ctypes.c_int(0)
     with torch.cuda.device(prep.v0.device):

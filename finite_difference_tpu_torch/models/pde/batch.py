@@ -739,7 +739,6 @@ def _run_batch_driver(
     their verdict. The spike route then marches those preps; the scan
     prices the whole call where the guard refused one.
     """
-    _check_greeks_mode(with_greeks, greeks_mode)
     preps = None
     if solver == "auto":
         sigmas = _vol_points(batch, dv_sigma, with_greeks)[1]

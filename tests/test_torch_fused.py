@@ -218,3 +218,29 @@ class TestDispatch:
         prep.v0 = prep.v0.to("meta")
         with pytest.raises(ValueError, match="unsupported device"):
             fused.hs_march(prep)
+
+
+@pytest.mark.parametrize("n_nodes,extra_per_lane", [(1024, 5 * 32 + 15), (128, 5 * 4 + 15)])
+def test_chip_smoke_counts_the_warp_design(n_nodes, extra_per_lane):
+    """What chip_smoke.py reports for K3 from the main path's shapes (B=4096,
+    512 steps, f32): each input once and V out once, 9 + 10 + 6N + N +
+    2 steps + 2N words per trade (about 0.168 GB at N=1024), and per step
+    and scan 32 lanes composing, scanning and applying their R rows."""
+    import types
+
+    import chip_smoke
+
+    prep = types.SimpleNamespace(
+        v0=torch.empty(4096, n_nodes, device="meta"), n_steps=512,
+        trade=torch.empty(4096, 9, device="meta"), coef=torch.empty(2, 4096, 5, device="meta"),
+        solver=torch.empty(2, 3, 4096, n_nodes, device="meta"),
+        omask=torch.empty(4096, n_nodes, device="meta"), tau=torch.empty(4096, 512, device="meta"),
+        mon=torch.empty(4096, 512, device="meta"),
+    )
+    words = 4096 * (9 + 10 + 6 * n_nodes + n_nodes + 2 * 512 + 2 * n_nodes)
+    assert chip_smoke.hs_design_bytes(prep) == 4 * words
+    if n_nodes == 1024:
+        assert 4 * words == pytest.approx(0.168e9, rel=1e-2)
+    bound = chip_smoke.fused_bound(prep, "hs")
+    assert bound["bytes"] == 4 * words  # the bound's bytes: the same inputs, once each
+    assert bound["extra_flops"] == 4096 * 512 * 2 * 32 * extra_per_lane

@@ -288,26 +288,25 @@ def test_hs_kernel_matches_plain_version(cuda, dtype, limit, n_nodes):
 
 
 @pytest.mark.parametrize("dtype,elem", [(torch.float32, 4), (torch.float64, 8)])
-@pytest.mark.parametrize("n_nodes", [128, 1024, 2048])
+@pytest.mark.parametrize("n_nodes", [128, 1024])
 def test_hs_resident_trades_query(cuda, dtype, elem, n_nodes):
-    """The occupancy API against the launch mirror: up to 1024 nodes whole
-    blocks of kernels.HS_TRADES_PER_BLOCK trades within the SM's shared
-    memory (3 * 32 * (R | 1) values per trade), at least 16 per SM at
-    N=1024 in f32 and 8 in f64; one trade per block above."""
+    """The occupancy API against the launch mirror: whole blocks of
+    kernels.HS_TRADES_PER_BLOCK trades within the SM's shared memory
+    (3 * 32 * (R | 1) values per trade), at least 16 per SM at N=1024 in
+    f32 and 8 in f64. The block design above 1024 nodes has no query."""
     tb = build_trade_batch(dtype=dtype, device=cuda, **_kwargs(B=4, num_space_nodes=n_nodes - 1))
     prep = fused.prepare_fused(tb, tb.sigma, n_nodes)
     kernels.reset_launch_counts()
     resident = kernels.hs_resident_trades(prep)
-    design, rows, threads = kernels.hs_block(n_nodes)
-    if design == "warp":
-        per_block = kernels.HS_TRADES_PER_BLOCK
-        assert resident % per_block == 0
-        assert resident * 3 * 32 * (rows | 1) * elem <= 228 * 1024
-        if n_nodes == 1024:
-            assert resident >= (16 if dtype == torch.float32 else 8)
-    else:
-        assert resident >= 1 and resident * threads <= 2048
+    design, rows, _ = kernels.hs_block(n_nodes)
+    assert design == "warp" and resident % kernels.HS_TRADES_PER_BLOCK == 0
+    assert resident * 3 * 32 * (rows | 1) * elem <= 228 * 1024
+    if n_nodes == 1024:
+        assert resident >= (16 if dtype == torch.float32 else 8)
     assert not any(kernels.launch_counts.values())
+    wide = fused.prepare_fused(tb, tb.sigma, 1025)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        kernels.hs_resident_trades(wide)
 
 
 @pytest.mark.parametrize("dtype,limit", [(torch.float64, 1e-11), (torch.float32, 2e-4)])
