@@ -23,7 +23,9 @@ phase:
 
 The SPIKE march's timing lines also give its design bytes, its trades
 resident per SM and waves (the occupancy API); so do the scan march's
-(K3) and the CR march's. The
+(K3) and the CR march's. K3 is held against its plain version in both
+its launch designs: one warp per trade up to 1024 nodes, one block per
+trade at 2048. The
 SPIKE march is also held against its plain version and timed at P = 32, 64
 and 128 chunks per trade (one warp per trade, two and four) on the float64
 rung's batch.
@@ -57,6 +59,7 @@ B_MAIN = 4096
 B_CHECK = 256  # the prefix held against the float64 route and the plain version
 SPIKE_P_CHECKED = (32, 64, 128)  # the SPIKE march's P held against the plain version at B_CHECK
 N_CR = 1026  # the cyclic-reduction march needs N - 2 a power of two
+N_HS_BLOCK = 2048  # a grid on the scan march's block design (N > 1024)
 P_RULE_B = (256, 512, 1024, 2048, 4096)  # batches at which the SPIKE march is timed at each P
 RULE_REPS = 7  # host-clock repetitions of each solve there
 CR_TRADES_PER_SM = (4, 8, 16, 24)  # the CR march's occupancy sweep at N_CR
@@ -559,9 +562,10 @@ def fused_phases(dev, card: dict, limits: dict):
         scale = float(v_r.abs().max())
         err = float((v_k - v_r).abs().max())
         limit = limits[tb.sigma.dtype]
+        design = {"design": kernels.hs_block(n_nodes)[0]} if kind == "hs" else {}
         emit(f"{kind}_kernel_vs_plain", size=label, dtype=str(tb.sigma.dtype), B=tb.batch_size,
              N=n_nodes, steps=tb.n_steps, max_abs_err=err, max_abs_v=scale, ratio=err / scale,
-             limit=limit, plain_ms_per_march=plain_ms, **card)
+             limit=limit, plain_ms_per_march=plain_ms, **design, **card)
         check(math.isfinite(err) and err <= limit * scale,
               f"{kind} kernel vs plain {label} {tb.sigma.dtype}: {err / scale:.3e} > {limit}")
 
@@ -572,6 +576,11 @@ def fused_phases(dev, card: dict, limits: dict):
             vs_plain(kind, "small", tb, n_small)
             tb = build_trade_batch(dtype=dtype, device=dev, **bench_trades(B_CHECK, n_main)[0])
             vs_plain(kind, "main_width", tb, n_main)
+    # K3's block design, which runs grids wider than its warp design takes
+    for dtype in limits:
+        tb = build_trade_batch(dtype=dtype, device=dev, **bench_trades(B_CHECK, N_HS_BLOCK)[0])
+        check(kernels.hs_block(N_HS_BLOCK)[0] == "block", "N_HS_BLOCK is not on the block design")
+        vs_plain("hs", "block_design", tb, N_HS_BLOCK)
 
     def rel_errors(out, ref, per_trade_price: bool):
         errs = {}

@@ -37,7 +37,7 @@ from .grid import (
     segmented_schedule,
     uniform_schedule,
 )
-from .spike import assemble, cn_barrier_solve_spike, march_segments, prepare_spike, spike_p
+from .spike import cn_barrier_solve_spike, prepare_spike, spike_p
 from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -474,37 +474,28 @@ def _check_greeks_mode(with_greeks: bool, greeks_mode: str) -> None:
         raise ValueError(f"unknown greeks_mode {greeks_mode!r}")
 
 
-def _spike_solve(batch: BarrierTradeBatch, n_nodes: int, spike_segments, american: bool):
-    """The SPIKE solve closure ``sigma -> V``. ``spike_segments`` is the
-    tuple from :func:`_spike_schedule_impl`, None meaning the uniform-dt
-    default; the barrier march ignores its dividend and reset columns, as
-    the barrier scan does."""
+def _spike_values(batch: BarrierTradeBatch, n_nodes: int, spike_segments, american: bool,
+                  sigmas, preps=None) -> List[torch.Tensor]:
+    """V (B, N) of the SPIKE solve (``spike.cn_barrier_solve_spike``) at
+    each of ``sigmas``. ``spike_segments`` is the tuple from
+    :func:`_spike_schedule_impl`, None meaning the uniform-dt default; the
+    barrier march ignores its dividend and reset columns, as the barrier
+    scan does. ``preps`` are the auto route's, one per sigma
+    (:func:`_guarded_spike_preps`); without them each solve makes its own
+    prep, which raises where the interface guard refuses it."""
     seg, sd, div_steps, reset_steps = (
         spike_segments if spike_segments is not None else (None, None, (), ())
     )
     if not american:
         div_steps, reset_steps = (), ()
-    return lambda sig: cn_barrier_solve_spike(
-        batch, sig, n_nodes=n_nodes, n_steps=batch.n_steps, segments=seg,
-        set_defs=sd, american=american, div_steps=div_steps, reset_steps=reset_steps,
-    )
-
-
-def _spike_values(batch: BarrierTradeBatch, n_nodes: int, spike_segments, american: bool,
-                  sigmas, preps=None) -> List[torch.Tensor]:
-    """V (B, N) of the SPIKE solve at each of ``sigmas``. ``preps`` are the
-    auto route's, one per sigma, made before its verdict
-    (:func:`_guarded_spike_preps`, with ``spike_segments`` given); without
-    them each solve makes its own prep, which raises where the interface
-    guard refuses it."""
-    if preps is None:
-        solve = _spike_solve(batch, n_nodes, spike_segments, american)
-        return [solve(sig) for sig in sigmas]
-    segments, _, div_steps, reset_steps = spike_segments
-    if not american:
-        div_steps, reset_steps = (), ()
-    return [assemble(prep, *march_segments(batch, prep, segments, div_steps, reset_steps))
-            for prep in preps]
+    preps = preps if preps is not None else [None] * len(sigmas)
+    return [
+        cn_barrier_solve_spike(
+            batch, sig, n_nodes=n_nodes, n_steps=batch.n_steps, segments=seg, set_defs=sd,
+            american=american, div_steps=div_steps, reset_steps=reset_steps, prep=prep,
+        )
+        for sig, prep in zip(sigmas, preps)
+    ]
 
 
 def _guarded_spike_preps(batch: BarrierTradeBatch, n_nodes: int, spike_segments,
@@ -527,14 +518,6 @@ def _vol_points(batch: BarrierTradeBatch, dv_sigma, with_greeks: bool):
     greeks the bumped copy."""
     dv_sigma = _resolve_dv_sigma(dv_sigma, batch.sigma)
     return dv_sigma, [batch.sigma] + ([batch.sigma + dv_sigma] if with_greeks else [])
-
-
-def _outputs(batch: BarrierTradeBatch, n_nodes: int, solve, dv_sigma, with_greeks: bool,
-             with_theta: bool) -> Dict[str, torch.Tensor]:
-    """Price and bump greeks from the solve closure ``sigma -> V (B, N)``
-    (see :func:`_outputs_of`)."""
-    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
-    return _outputs_of(batch, n_nodes, [solve(sig) for sig in sigmas], dv_sigma, with_theta)
 
 
 def _outputs_of(batch: BarrierTradeBatch, n_nodes: int, values, dv_sigma: float,
@@ -722,11 +705,12 @@ def _run_batch_driver(
     greeks_mode: str = "bump",
     solver: str = "scan",
     spike_segments=None,
-    kernel=price_batch_kernel,
+    american: bool = False,
     **kernel_kw,
 ) -> Dict[str, torch.Tensor]:
-    """Single-device driver: ``kernel`` over the batch in chunks of
-    ``max_chunk`` trades; ``kernel_kw`` goes to every call.
+    """Single-device driver: :func:`american_batch_kernel` (``american``) or
+    :func:`price_batch_kernel` over the batch in chunks of ``max_chunk``
+    trades; ``kernel_kw`` goes to every call.
 
     Chunking bounds the scan's per-step working set (its (B, N) temporaries
     per doubling pass). The SPIKE march keeps each trade's grid in shared
@@ -739,11 +723,11 @@ def _run_batch_driver(
     their verdict. The spike route then marches those preps; the scan
     prices the whole call where the guard refused one.
     """
+    kernel = american_batch_kernel if american else price_batch_kernel
     preps = None
     if solver == "auto":
         sigmas = _vol_points(batch, dv_sigma, with_greeks)[1]
-        preps = _guarded_spike_preps(batch, n_nodes, spike_segments,
-                                     kernel is american_batch_kernel, sigmas)
+        preps = _guarded_spike_preps(batch, n_nodes, spike_segments, american, sigmas)
         solver = auto_solver(batch.x_min.device.type, spike_segments, preps is not None)
     B = batch.batch_size
     chunk = None if solver == "spike" else max_chunk
@@ -867,7 +851,7 @@ def price_american_batch(
     with_dividends = bool((batch.div_amount != 0).any())
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched, kernel=american_batch_kernel, with_dividends=with_dividends,
+        solver, sched, american=True, with_dividends=with_dividends,
     )
 
 

@@ -32,7 +32,7 @@ Deliberate differences from the JAX package:
 - the prep runs at float64 and is rounded once to the march's dtype, as
   ``spike.prepare_spike`` is; at float32 that differs from JAX's float32 prep;
 - the solves return the values V (B, N) only: the node positions are
-  recomputed at float64 by ``batch._outputs``.
+  recomputed at float64 by ``batch._outputs_of``.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ import torch
 from ... import kernels
 from ...device import DEFAULT_DEVICE, resolve_device
 from ...ops.tridiag import _affine_scan
-from .batch import _outputs
+from .batch import _outputs_of, _vol_points
 from .spike import require_default_schedule
 from .stepper import _payoff
 
@@ -261,9 +261,10 @@ def price_barrier_batch_fused(
 ) -> Dict[str, torch.Tensor]:
     """Price a barrier batch through the fused march on ``device``: dict of
     (B,) tensors, price and with greeks vega, delta, gamma and theta,
-    post-processed at float64 as the other routes (``batch._outputs``).
+    post-processed at float64 as the other routes (``batch._outputs_of``).
     ``dv_sigma=None`` takes the dtype-aware bump. Not a ``solver=`` value of
     ``price_barrier_batch``: the JAX package has no such route either."""
     batch = batch.to(resolve_device(device))
-    solve = lambda sig: cn_barrier_solve_fused(batch, sig, n_nodes, batch.n_steps)
-    return _outputs(batch, n_nodes, solve, dv_sigma, with_greeks, with_theta=True)
+    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
+    values = [cn_barrier_solve_fused(batch, sig, n_nodes, batch.n_steps) for sig in sigmas]
+    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True)

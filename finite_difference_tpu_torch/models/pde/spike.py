@@ -756,6 +756,7 @@ def cn_barrier_solve_spike(
     american: bool = False,
     div_steps: Sequence[int] = (),
     reset_steps: Sequence[int] = (),
+    prep: Optional[SpikePrep] = None,
 ):
     """SPIKE-partitioned CN solve of a barrier or American batch: the values V (B, N).
 
@@ -773,7 +774,10 @@ def cn_barrier_solve_spike(
     ``reset_steps`` (American only, from ``batch._spike_schedule_impl``)
     place the dividend jumps and lambda resets between launches (see
     :func:`march_segments`). ``p_chunks=None`` takes the rule's P (see
-    :func:`prepare_spike`). The
+    :func:`prepare_spike`). ``prep``, where given, is that prep made
+    beforehand for this ``batch``, ``sigma`` and ``set_defs`` (as
+    ``solver="auto"``'s route does, to read the interface guard's verdict
+    from it) and is marched as given, ``p_chunks`` unread. The
     march runs on the device of ``batch``: the CUDA kernel on a card, its
     plain version on the CPU.
     """
@@ -791,6 +795,7 @@ def cn_barrier_solve_spike(
     if not american and (div_steps or reset_steps):
         raise ValueError("div_steps and reset_steps apply to American batches only")
 
-    prep = prepare_spike(batch, sigma, n_nodes, p_chunks, set_defs, american=american)
+    if prep is None:
+        prep = prepare_spike(batch, sigma, n_nodes, p_chunks, set_defs, american=american)
     v, edges = march_segments(batch, prep, segments, div_steps, reset_steps)
     return assemble(prep, v, edges)

@@ -225,11 +225,15 @@ def _port_outputs_at_p(tb, n_nodes, P, american):
     segments, set_defs, div_steps, reset_steps = _spike_schedule_impl(tb, n_nodes)
     if not american:
         div_steps, reset_steps = (), ()
-    solve = lambda sig: spike.cn_barrier_solve_spike(
-        tb, sig, n_nodes, tb.n_steps, p_chunks=P, segments=segments, set_defs=set_defs,
-        american=american, div_steps=div_steps, reset_steps=reset_steps,
-    )
-    return port_batch._outputs(tb, n_nodes, solve, None, True, with_theta=not american)
+    dv_sigma, sigmas = port_batch._vol_points(tb, None, True)
+    values = [
+        spike.cn_barrier_solve_spike(
+            tb, sig, n_nodes, tb.n_steps, p_chunks=P, segments=segments, set_defs=set_defs,
+            american=american, div_steps=div_steps, reset_steps=reset_steps,
+        )
+        for sig in sigmas
+    ]
+    return port_batch._outputs_of(tb, n_nodes, values, dv_sigma, with_theta=not american)
 
 
 class TestSeveralWarpsPerTrade:

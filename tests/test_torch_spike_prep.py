@@ -374,8 +374,7 @@ def test_auto_route_prices_a_refused_batch_on_the_scan(monkeypatch, american):
     """With greeks both sigmas take the scan once the first prep is refused."""
     tb = _drift_dominated_batch(american)
     sched = _spike_schedule_impl(tb, 128)
-    kernel = port_batch.american_batch_kernel if american else port_batch.price_batch_kernel
-    kw = dict(kernel=kernel, with_dividends=False) if american else {}
+    kw = dict(american=True, with_dividends=False) if american else {}
     preps = _auto_as_on_a_card(monkeypatch)
     got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched, **kw)
     assert len(preps) == 1
@@ -399,8 +398,7 @@ def test_auto_route_preps_each_sigma_once_where_the_guard_passes(monkeypatch, am
     sched = _spike_schedule_impl(tb, 128)
     price = port_batch.price_american_batch if american else port_batch.price_barrier_batch
     ref = price(tb, 128, solver="spike", device="cpu")
-    kernel = port_batch.american_batch_kernel if american else port_batch.price_batch_kernel
-    kw = dict(kernel=kernel, with_dividends=False) if american else {}
+    kw = dict(american=True, with_dividends=False) if american else {}
     preps = _auto_as_on_a_card(monkeypatch)
     got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched, **kw)
     assert preps == [None, None]  # at the rule's P, one per sigma
