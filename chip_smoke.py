@@ -19,7 +19,14 @@ phase:
 - the fused path, ``price_barrier_batch_fused`` (the march with
   Hillis–Steele scans) on the barrier trade set at B=4096 x 1024 x 512 f32,
   and the cyclic-reduction path, ``cn_barrier_solve_cr``, on the same
-  trades at N=1026, each held against the f64 routes.
+  trades at N=1026, each held against the f64 routes;
+- the spectral propagator (``solver="spectral"``) on the barrier set at
+  f64 and f32, its f32 rungs, ``greeks_mode="ad"``,
+  ``solve_value_surfaces``, and the route sweep that ``solver="auto"``'s
+  rule on the card (``batch.auto_solver``) rests on.
+
+The barrier path's phases ask for ``solver="spike"`` by name, so that
+the SPIKE march runs there whatever the auto rule picks.
 
 The SPIKE march's timing lines also give its design bytes, its trades
 resident per SM and waves (the occupancy API); so do the scan march's
@@ -30,14 +37,16 @@ SPIKE march is also held against its plain version and timed at P = 32, 64
 and 128 chunks per trade (one warp per trade, two and four) on the float64
 rung's batch.
 
-The last three lines are the kernels' summary (JSON), the card's name and
-power limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
+Each phase group's wall time is in the ``phase_wall_s`` line. The last
+three lines are the kernels' summary (JSON), the card's name and power
+limit as ``nvidia-smi`` reports them, and ``{"ok": true, "device":
 {...}}``.
 
 It exits non-zero, printing no result, when ``torch.cuda.is_available()``
 is false or when the port is not beside it; any failed check raises.
 It imports no JAX and nothing of the JAX package.
 """
+import dataclasses
 import json
 import math
 import os
@@ -64,6 +73,9 @@ P_RULE_B = (256, 512, 1024, 2048, 4096)  # batches at which the SPIKE march is t
 RULE_REPS = 7  # host-clock repetitions of each solve there
 CR_TRADES_PER_SM = (4, 8, 16, 24)  # the CR march's occupancy sweep at N_CR
 CR_SWEEP_N = (130, 258, 514, 1026, 2050)  # its grid sweep at 4 trades per SM
+ROUTE_SWEEP_B = (256, 1024, 4096)  # batches at which auto's routes are timed
+ROUTE_REPS = 9  # host-clock calls of spike and spectral there, interleaved, after a warm-up
+ROUTE_RECORD_REPS = 3  # host-clock calls of the fused march and the scan (for the record)
 
 # the American trade set (bench.py make_american_batch): 1-year puts,
 # spots U(80, 120), sigma U(0.15, 0.40), seed 7, K=100, r=0.06, b=0.02;
@@ -77,6 +89,9 @@ B_AM64 = 256  # the float64 rung's batch
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
+# the matmul peak of either dtype: float32 outside the tensor cores, float64
+# on them (the data sheet's FP64 Tensor Core rate)
+PEAK_MATMUL_FLOPS = 67e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -320,7 +335,8 @@ def host_ms(fn):
 
 def profile_call(fn, call_ms: float):
     """Device time of one call by kernel, and the busy share of the
-    unprofiled call time (the profiler's own overhead inflates wall time)."""
+    unprofiled call time (the profiler's own overhead inflates wall time);
+    the matmul kernels' time and count (cuBLAS kernel names)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -332,8 +348,11 @@ def profile_call(fn, call_ms: float):
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
     check(device_ms > 0, "the profiler saw no device time")
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    mm = [e for e in rows if any(t in e.key.lower() for t in ("gemm", "xmma", "cutlass"))]
     return dict(call_ms=call_ms, device_ms=device_ms, busy_share=device_ms / call_ms,
                 device_kernels=sum(e.count for e in rows),
+                matmul_ms=sum(e.self_device_time_total for e in mm) / 1e3,
+                matmul_kernels=sum(e.count for e in mm if "reduce" not in e.key.lower()),
                 top=[{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3, "count": e.count}
                      for e in top])
 
@@ -526,6 +545,8 @@ def american_phases(dev, card: dict, limits: dict):
          B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P, **card)
     emit("american_profile", **profile_call(
         lambda: price_american_batch(tb, N_NODES, with_greeks=False), call_ms), **card)
+    emit("american_greeks_profile", **profile_call(
+        lambda: price_american_batch(tb, N_NODES, with_greeks=True), B_MAIN / gps_greeks * 1e3), **card)
     k1a.update(name="spike_march_american_f32",
                replaces="finite_difference_tpu/models/pde/pallas_kernel.py:677")
     k2.update(name="spike_march_american_f64",
@@ -582,17 +603,6 @@ def fused_phases(dev, card: dict, limits: dict):
         check(kernels.hs_block(N_HS_BLOCK)[0] == "block", "N_HS_BLOCK is not on the block design")
         vs_plain("hs", "block_design", tb, N_HS_BLOCK)
 
-    def rel_errors(out, ref, per_trade_price: bool):
-        errs = {}
-        for key, val in ref.items():
-            r = val.double().cpu().numpy()
-            g = out[key][: r.shape[0]].double().cpu().numpy()
-            if key == "price" and per_trade_price:
-                errs[key] = float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-8)))
-            else:
-                errs[key] = float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
-        return errs
-
     # 10. the fused path (K3) -------------------------------------------------
     kw, spots, sigmas = bench_trades(B_MAIN)
     tb = build_trade_batch(dtype=torch.float32, device=dev, **kw)
@@ -608,7 +618,7 @@ def fused_phases(dev, card: dict, limits: dict):
     price = out_p["price"].double().cpu().numpy()
     bs_err = float(np.max(np.abs(price - bs) / np.maximum(bs, 1e-8)))
     tb64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_CHECK)[0])
-    spike64 = price_barrier_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
+    spike64 = price_barrier_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2, solver="spike")
     f32_vs_f64 = rel_errors(out_g, spike64, per_trade_price=True)
     fused64 = fused.price_barrier_batch_fused(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
     f64_vs_spike = rel_errors(fused64, spike64, per_trade_price=False)
@@ -783,6 +793,283 @@ def rule_phases(dev, card: dict) -> None:
          grid=grid, **card)
 
 
+def spectral_cost(tb, n_nodes: int, matmuls: int) -> dict:
+    """The matmul flops of one spectral call and the call's bound on the
+    card: ``matmuls`` products of (B, M) by (M, M) (counted by the
+    profiler) at 2 B M^2 flops each, over the peak rate of the dtype's
+    matmul (float32 outside the tensor cores, float64 on them: both 67
+    TFLOP/s), against each input of the batch read once and V written once
+    over the memory rate; the larger of the two."""
+    B, M = tb.batch_size, n_nodes - 2
+    item = tb.sigma.element_size()
+    flops = matmuls * 2 * B * M * M
+    fields = [getattr(tb, f.name) for f in dataclasses.fields(tb)]
+    nbytes = sum(x.numel() * x.element_size() for x in fields if x is not None) + B * n_nodes * item
+    t_ops = flops / PEAK_MATMUL_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(matmul_flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_errors(out, ref, per_trade_price: bool):
+    """Each output's error against ``ref`` (on ``ref``'s first trades):
+    price per trade or of max|price|, the others of their max|value|."""
+    errs = {}
+    for key, val in ref.items():
+        r = val.double().cpu().numpy()
+        g = out[key][: r.shape[0]].double().cpu().numpy()
+        if key == "price" and per_trade_price:
+            errs[key] = float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-8)))
+        else:
+            errs[key] = float(np.max(np.abs(g - r)) / np.max(np.abs(r)))
+    return errs
+
+
+def spectral_phases(dev, card: dict) -> None:
+    """The spectral propagator, greeks_mode="ad", solve_value_surfaces and
+    the card's auto rule (batch.auto_solver), each checked or timed.
+
+    - spectral: the barrier set at full width (B=4096, N=1024, 512 steps,
+      24 monitors), f64 and f32, price only and with greeks: grids/s, call
+      ms, the matmul ms, device kernels and busy share (profiler), the
+      matmul flops and the bound. Held: f64 against the f64 scan on the
+      first 256 trades (1e-9 of max|value|, all five outputs) and its
+      far-barrier price against Black–Scholes (1e-3). The same two limits
+      at f32 (Black–Scholes, and main_path's f32 limits against the f64
+      route) gate auto: where f32 misses them, auto_solver must not route a
+      float32 batch to spectral on any of its inputs (checked), and the
+      sweep leaves f32 spectral out of the measured rule. The first f64
+      call's ms (warm-up and graph capture) and the card memory it leaves
+      reserved (the CUDA graph's pool). spectral_x64dst and spectral_mixed
+      at f32, B=256, against f64 (1e-3 per trade: the JAX package's
+      TestX64DstRescue floors); an f32 call under TF32 raises (or equals).
+    - ad: greeks_mode="ad" at f64, B=256, on the barrier scan, the American
+      scan and the spectral route: the outputs other than vega within 1e-12
+      of the bump call; the barrier routes' vega within 1e-6 of max|vega|
+      of a central difference of the same route at dv=1e-4. The American
+      price is only piecewise smooth in sigma (a node's early-exercise
+      test switches as sigma moves, and the jvp takes the derivative of
+      the piece it is on, as the JAX package's does), so a difference
+      across +-1e-4 straddles kinks: its vega is held to the same jvp on
+      the CPU (the first 16 trades, 1e-10 of max|vega|; the CPU jvp is
+      held to the JAX package's in tests/test_torch_greeks_ad.py), and the
+      central difference is recorded and held at 1e-3.
+    - surfaces: solve_value_surfaces at B=256 (barrier auto, barrier scan,
+      American): its V at the spot is that route's price within 1e-12.
+    - route_sweep: the barrier set at B = 256, 1024, 4096, f32 and f64,
+      price only and with greeks: spike and spectral timed in turn
+      (ROUTE_REPS calls each, interleaved, after a warm-up: median, min,
+      max), the fused march and the scan at B=256 for the record; a cell
+      is resolved where the faster route's slowest call beats the other's
+      fastest; the measured pick beside auto_solver's, with the graphs the
+      spectral cache then holds and the card memory reserved.
+    """
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.pde import batch as pbatch
+    from finite_difference_tpu_torch.models.pde import fused, spectral
+
+    build = lambda B, dtype: pbatch.build_trade_batch(dtype=dtype, device=dev, **bench_trades(B)[0])
+    price = pbatch.price_barrier_batch
+
+    def timed_calls(fn, reps: int) -> float:
+        """Host-clock ms per call of ``fn`` after one warm-up call."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    # 15. the spectral route at full width -------------------------------------
+    t_phase = time.perf_counter()
+    kw, spots, sigmas = bench_trades(B_MAIN)
+    bs = black_scholes_call(spots, sigmas)
+    ref64, f32_ok = {}, False
+    for dtype in (torch.float64, torch.float32):
+        tb = build(B_MAIN, dtype)
+        label = str(dtype).split(".")[-1]
+        # the first call warms up, captures the CUDA graph and replays it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        out_p = price(tb, N_NODES, with_greeks=False, solver="spectral")
+        torch.cuda.synchronize()
+        first_call = dict(ms=(time.perf_counter() - t0) * 1e3,
+                          reserved_bytes=torch.cuda.memory_reserved() - reserved0,
+                          peak_reserved_bytes=torch.cuda.max_memory_reserved())
+        out_g = price(tb, N_NODES, with_greeks=True, solver="spectral", dv_sigma=1e-2)
+        for key, val in {**out_p, **out_g}.items():
+            check(val.shape == (B_MAIN,) and bool(torch.isfinite(val).all()),
+                  f"spectral {label} {key} not finite")
+        bs_err = float(np.max(np.abs(out_p["price"].double().cpu().numpy() - bs) / np.maximum(bs, 1e-8)))
+        if dtype == torch.float64:
+            check(bs_err <= 1e-3, f"spectral f64 far-barrier price vs Black–Scholes {bs_err:.3e} > 1e-3")
+            ref64 = {k: v[:B_CHECK] for k, v in out_g.items()}
+            tb_c = build(B_CHECK, dtype)
+            scan = price(tb_c, N_NODES, with_greeks=True, solver="scan", dv_sigma=1e-2)
+            accuracy = dict(vs_f64_scan_first_256=rel_errors(out_g, scan, per_trade_price=False),
+                            limit=1e-9)
+            for key, val in accuracy["vs_f64_scan_first_256"].items():
+                check(val <= 1e-9, f"spectral f64 vs the f64 scan {key}: {val:.3e} > 1e-9")
+        else:
+            # the f32 limits gate auto: a float32 batch may take the spectral
+            # route only if it meets them (Black–Scholes and main_path's)
+            limits_f32 = {"price": 1e-3, "delta": 1e-2, "gamma": 1e-2, "theta": 1e-2, "vega": 5e-2}
+            errs = rel_errors(out_g, ref64, per_trade_price=True)
+            f32_ok = bs_err <= 1e-3 and all(errs[k] <= lim for k, lim in limits_f32.items())
+            accuracy = dict(vs_f64_spectral_first_256=errs, limits=limits_f32, bs_limit=1e-3,
+                            passes_f32_limits=f32_ok)
+            f32_routes = {pbatch.auto_solver("cuda", seg, passed, spectral_ok=True, american=american,
+                                             float64=False, ad=ad)
+                          for seg in (((0, N_STEPS, 0),), None) for passed in (True, False)
+                          for american in (False, True) for ad in (False, True)}
+            check(f32_ok or "spectral" not in f32_routes,
+                  "auto routes float32 batches to the spectral route, which misses the f32 limits")
+        timing = {}
+        for greeks in (False, True):
+            call = lambda: price(tb, N_NODES, with_greeks=greeks, solver="spectral")
+            call_ms = timed_calls(call, 3)
+            prof = profile_call(call, call_ms)
+            timing["greeks" if greeks else "price_only"] = dict(
+                grids_per_s=B_MAIN / call_ms * 1e3, **prof,
+                **spectral_cost(tb, N_NODES, prof["matmul_kernels"]))
+        kernels.reset_launch_counts()
+        price(tb, N_NODES, with_greeks=False)
+        torch.cuda.synchronize()
+        auto_route = "spike" if any(kernels.launch_counts.values()) else "not spike"
+        emit("spectral", dtype=label, B=B_MAIN, N=N_NODES, steps=N_STEPS, monitors=24,
+             far_barrier_max_rel_err_vs_bs=bs_err, **accuracy, first_call=first_call, timing=timing,
+             auto_route_price_only=auto_route, **card)
+        del tb, out_p, out_g
+
+    # the precision rungs at f32, B=256, against the f64 scan, and TF32
+    tb32, tb64 = build(B_CHECK, torch.float32), build(B_CHECK, torch.float64)
+    oracle = price(tb64, N_NODES, with_greeks=False, solver="scan")["price"].cpu().numpy()
+    rungs = {}
+    for solver in ("spectral", "spectral_x64dst", "spectral_mixed"):
+        p = price(tb32, N_NODES, with_greeks=False, solver=solver)["price"].double().cpu().numpy()
+        rungs[solver] = float(np.max(np.abs(p - oracle) / oracle))
+    for solver in ("spectral_x64dst", "spectral_mixed"):
+        check(rungs[solver] < 1e-3, f"{solver} f32 vs the f64 scan {rungs[solver]:.3e} >= 1e-3")
+    plain = price(tb32, N_NODES, with_greeks=False, solver="spectral")["price"]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        under_tf32 = price(tb32, N_NODES, with_greeks=False, solver="spectral")["price"]
+        tf32 = "same output" if torch.equal(under_tf32, plain) else "differs"
+    except ValueError:
+        tf32 = "raised"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    emit("spectral_rungs", dtype="float32", B=B_CHECK, N=N_NODES, max_rel_err_vs_f64_scan=rungs,
+         limit=1e-3, tf32_call=tf32, wall_s=time.perf_counter() - t_phase, **card)
+    check(tf32 in ("same output", "raised"), "an f32 spectral call under TF32 changed its output")
+
+    # 16. greeks_mode="ad" -------------------------------------------------------
+    t_phase = time.perf_counter()
+    tam = pbatch.build_american_batch(dtype=torch.float64, device=dev, **american_trades(B_CHECK)[0])
+    ad_lines = {}
+    for label, batch, fn, solver in (("barrier_scan", tb64, price, "scan"),
+                                     ("american_scan", tam, pbatch.price_american_batch, "scan"),
+                                     ("barrier_spectral", tb64, price, "spectral")):
+        ad = fn(batch, N_NODES, greeks_mode="ad", solver=solver)
+        bump = fn(batch, N_NODES, solver=solver, dv_sigma=1e-4)
+        h = 1e-4
+        lo, hi = batch._map(lambda x: x), batch._map(lambda x: x)
+        lo.sigma, hi.sigma = batch.sigma - h, batch.sigma + h
+        central = (fn(hi, N_NODES, with_greeks=False, solver=solver)["price"]
+                   - fn(lo, N_NODES, with_greeks=False, solver=solver)["price"]) / (2 * h * 100.0)
+        scale = float(ad["vega"].abs().max())
+        vega_err = float((ad["vega"] - central).abs().max()) / scale
+        others = {k: float((ad[k] - bump[k]).abs().max() / bump[k].abs().max())
+                  for k in ad if k != "vega"}
+        line = dict(vega_vs_central=vega_err, others_vs_bump=others,
+                    bump_vega_vs_ad=float((bump["vega"] - ad["vega"]).abs().max()) / scale)
+        for k, v in others.items():
+            check(v <= 1e-12, f"ad {label}: {k} vs the bump call {v:.3e} > 1e-12")
+        if label.startswith("american"):
+            head = batch[:16].to("cpu")
+            on_cpu = fn(head, N_NODES, greeks_mode="ad", solver=solver, device="cpu")["vega"]
+            line["vega_vs_cpu_jvp_first_16"] = float((ad["vega"][:16].cpu() - on_cpu).abs().max()) / scale
+            check(line["vega_vs_cpu_jvp_first_16"] <= 1e-10,
+                  f"ad {label}: vega vs the CPU jvp {line['vega_vs_cpu_jvp_first_16']:.3e} > 1e-10")
+            check(vega_err <= 1e-3, f"ad {label}: vega vs central difference {vega_err:.3e} > 1e-3")
+        else:
+            check(vega_err <= 1e-6, f"ad {label}: vega vs central difference {vega_err:.3e} > 1e-6")
+        ad_lines[label] = line
+    emit("ad", dtype="float64", B=B_CHECK, N=N_NODES, steps=N_STEPS, dv=1e-4, routes=ad_lines,
+         limits={"vega_vs_central": 1e-6, "american_vega_vs_central": 1e-3,
+                 "american_vega_vs_cpu_jvp": 1e-10, "others_vs_bump": 1e-12},
+         wall_s=time.perf_counter() - t_phase, **card)
+
+    # 17. solve_value_surfaces ---------------------------------------------------
+    t_phase = time.perf_counter()
+    surf = {}
+    for label, batch, solver, american, fn in (
+        ("barrier_auto", tb64, "auto", False, price),
+        ("barrier_scan", tb64, "scan", False, price),
+        ("american", tam, "scan", True, pbatch.price_american_batch),
+    ):
+        v, s = pbatch.solve_value_surfaces(batch, N_NODES, solver=solver, american=american)
+        check(v.shape == s.shape == (B_CHECK, N_NODES) and v.is_cuda, f"surface {label} shape/device")
+        p_surf = pbatch._interp(batch.s_eff, s, v)
+        p_path = fn(batch, N_NODES, with_greeks=False, solver=solver)["price"]
+        surf[label] = float((p_surf - p_path).abs().max() / p_path.abs().max())
+        check(surf[label] <= 1e-12, f"surface {label} vs its price path {surf[label]:.3e} > 1e-12")
+    emit("surfaces", dtype="float64", B=B_CHECK, N=N_NODES, price_vs_price_path=surf, limit=1e-12,
+         wall_s=time.perf_counter() - t_phase, **card)
+    del tb32, tb64, tam
+
+    # 18. the route sweep behind auto_solver's rule on the card ----------------
+    t_phase = time.perf_counter()
+    cells = []
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        for B in ROUTE_SWEEP_B:
+            tb = build(B, dtype)
+            for greeks in (False, True):
+                calls = {route: (lambda r=route: price(tb, N_NODES, with_greeks=greeks, solver=r))
+                         for route in ("spike", "spectral")}
+                runs = {route: [] for route in calls}
+                for fn in calls.values():
+                    fn()
+                for rep in range(ROUTE_REPS):  # interleaved, the order turned every call
+                    for route in (("spike", "spectral") if rep % 2 == 0 else ("spectral", "spike")):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        calls[route]()
+                        torch.cuda.synchronize()
+                        runs[route].append((time.perf_counter() - t0) * 1e3)
+                ms = {route: dict(median=float(np.median(v)), min=min(v), max=max(v))
+                      for route, v in runs.items()}
+                record = {"fused": timed_calls(
+                    lambda: fused.price_barrier_batch_fused(tb, N_NODES, with_greeks=greeks),
+                    ROUTE_RECORD_REPS)}
+                if B == ROUTE_SWEEP_B[0]:
+                    record["scan"] = timed_calls(
+                        lambda: price(tb, N_NODES, with_greeks=greeks, solver="scan"), ROUTE_RECORD_REPS)
+                fast, slow = sorted(ms, key=lambda r: ms[r]["median"])
+                resolved = ms[fast]["max"] < ms[slow]["min"]
+                # the pick: the faster route among those that meet the dtype's limits
+                if not (f64 or f32_ok):
+                    pick = "spike"
+                else:
+                    pick = fast if resolved else "unresolved"
+                in_code = pbatch.auto_solver("cuda", ((0, N_STEPS, 0),), True, spectral_ok=True,
+                                             float64=f64)
+                cells.append(dict(float64=f64, B=B, greeks=greeks, ms=ms, record_ms=record,
+                                  faster=fast, resolved=resolved, measured=pick, in_code=in_code))
+            del tb
+    emit("route_sweep", N=N_NODES, steps=N_STEPS, reps=ROUTE_REPS, record_reps=ROUTE_RECORD_REPS,
+         cells=cells, agrees=all(c["measured"] in (c["in_code"], "unresolved") for c in cells),
+         unresolved=sum(c["measured"] == "unresolved" for c in cells),
+         graphs_cached=len(spectral._GRAPHS), graph_cache_size=spectral.GRAPH_CACHE_SIZE,
+         reserved_bytes=torch.cuda.memory_reserved(), wall_s=time.perf_counter() - t_phase, **card)
+
+
 def main() -> int:
     import torch
 
@@ -846,8 +1133,8 @@ def main() -> int:
     kw, spots, sigmas = bench_trades(B_MAIN)
     tb = build_trade_batch(dtype=torch.float32, device=dev, **kw)
     kernels.reset_launch_counts()
-    out_p = price_barrier_batch(tb, N_NODES, with_greeks=False)
-    out_g = price_barrier_batch(tb, N_NODES, with_greeks=True)
+    out_p = price_barrier_batch(tb, N_NODES, with_greeks=False, solver="spike")
+    out_g = price_barrier_batch(tb, N_NODES, with_greeks=True, solver="spike")
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
     check(launches["spike_march_f32"] > 0, "the main path launched no spike_march kernel")
@@ -858,7 +1145,7 @@ def main() -> int:
     bs_err = float(np.max(np.abs(price - bs) / np.maximum(bs, 1e-8)))
 
     tb64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_CHECK)[0])
-    out64 = price_barrier_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2)
+    out64 = price_barrier_batch(tb64, N_NODES, with_greeks=True, dv_sigma=1e-2, solver="spike")
     f32_vs_f64 = {}
     for key, val in out64.items():
         ref = val.cpu().numpy()
@@ -868,7 +1155,7 @@ def main() -> int:
         else:
             f32_vs_f64[key] = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
     limits_f64 = {"price": 1e-3, "delta": 1e-2, "gamma": 1e-2, "theta": 1e-2, "vega": 5e-2}
-    emit("main_path", B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float32", solver="auto",
+    emit("main_path", B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float32", solver="spike",
          launches=launches, far_barrier_max_rel_err_vs_bs=bs_err,
          f32_vs_f64_first_256=f32_vs_f64, limits=limits_f64, **card)
     check(bs_err <= 1e-3, f"far-barrier price vs Black–Scholes {bs_err:.3e} > 1e-3")
@@ -877,11 +1164,11 @@ def main() -> int:
 
     # 4. timing -------------------------------------------------------------
     def grids_per_s(with_greeks: bool, iters: int) -> float:
-        price_barrier_batch(tb, N_NODES, with_greeks=with_greeks)
+        price_barrier_batch(tb, N_NODES, with_greeks=with_greeks, solver="spike")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
-            price_barrier_batch(tb, N_NODES, with_greeks=with_greeks)
+            price_barrier_batch(tb, N_NODES, with_greeks=with_greeks, solver="spike")
         torch.cuda.synchronize()
         return B_MAIN * iters / (time.perf_counter() - t0)
 
@@ -923,24 +1210,38 @@ def main() -> int:
          cn_launch_steps=k1 - k0, plain_ms_per_march=plain_ms, **cost, **residency(prep),
          bound_ms=bound_ms, bound_by=bound_by, B=B_MAIN, N=N_NODES, steps=N_STEPS, P=prep.P,
          **card)
-    emit("profile", **profile_call(lambda: price_barrier_batch(tb, N_NODES, with_greeks=False),
-                                   call_ms), **card)
+    emit("profile", **profile_call(
+        lambda: price_barrier_batch(tb, N_NODES, with_greeks=False, solver="spike"), call_ms), **card)
     del tb, prep
     k1 = dict(name="spike_march_f32", launches=launches["spike_march_f32"],
               replaces="finite_difference_tpu/models/pde/pallas_kernel.py:589",
               max_abs_err=main_err, max_abs_err_over_max_abs_v=main_err / scale,
               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
+    wall = {"1-4 build, K1 and the barrier path": time.perf_counter() - t0}
+
     # 5-8. the American path ------------------------------------------------
+    t1 = time.perf_counter()
     k1a, k2 = american_phases(dev, card, limits)
     for k in (k1, k1a, k2):
         k["source"] = "finite_difference_tpu_torch/csrc/spike_march.cu"
+    wall["5-8 the American path"] = time.perf_counter() - t1
 
     # 9-12. the fused marches -------------------------------------------------
+    t1 = time.perf_counter()
     k3, k4 = fused_phases(dev, card, limits)
+    wall["9-12 the fused marches"] = time.perf_counter() - t1
 
     # 13-14. what the SPIKE P rule and the CR launch rest on ---------------------
+    t1 = time.perf_counter()
     rule_phases(dev, card)
+    wall["13-14 the P rule and the CR sweep"] = time.perf_counter() - t1
+
+    # 15-18. the spectral route, ad greeks, surfaces, auto's rule ---------------
+    t1 = time.perf_counter()
+    spectral_phases(dev, card)
+    wall["15-18 spectral, ad, surfaces, route sweep"] = time.perf_counter() - t1
+    emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------
     # library_ms is null for every kernel: no PyTorch call computes these

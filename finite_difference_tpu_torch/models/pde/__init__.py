@@ -3,8 +3,11 @@
 - :mod:`.grid` — host numpy grids and schedules;
 - :mod:`.batch` — the trade batch, ``build_trade_batch`` /
   ``price_barrier_batch`` and ``build_american_batch`` /
-  ``price_american_batch`` (the main paths);
+  ``price_american_batch`` (the main paths), ``solve_value_surfaces``;
 - :mod:`.stepper` — the batched CN step loop (``solver="scan"``);
+- :mod:`.spectral` — the sine-basis propagator (``solver="spectral"``,
+  ``"spectral_x64dst"``, ``"spectral_mixed"``): DST matmuls between monitor
+  dates;
 - :mod:`.spike` — the SPIKE march host prep, its plain reference and the
   dispatch to the CUDA kernel (``solver="spike"``);
 - :mod:`.fused` — the fused march with Hillis–Steele scans

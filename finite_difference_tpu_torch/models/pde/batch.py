@@ -8,19 +8,24 @@ price and bump greeks on the device.
     build_trade_batch -> price_barrier_batch -> _run_batch_driver
         -> price_batch_kernel -> spike.cn_barrier_solve_spike (CUDA kernel)
                               or stepper.cn_solve (solver="scan")
+                              or spectral.spectral_solve (solver="spectral")
     build_american_batch -> price_american_batch -> _run_batch_driver
         -> american_batch_kernel -> spike.cn_barrier_solve_spike(american=True)
                                  or stepper.cn_solve(american=True)
+    solve_value_surfaces -> the same routes, V (B, N) and the nodes
 
-Differences from the JAX package in this slice: single device only (no
-mesh, no packed transfers); ``solver`` is ``"scan"`` or ``"spike"`` (the
-spectral route comes later); ``greeks_mode="ad"`` raises
-``NotImplementedError``.
+``solver`` takes the JAX package's names: ``"auto"``, ``"scan"``,
+``"spike"``, ``"spike_df64"``, ``"spectral"``, ``"spectral_x64dst"`` and
+``"spectral_mixed"`` (:func:`auto_solver` is the rule of ``"auto"``);
+``greeks_mode`` ``"bump"`` or ``"ad"`` (vega from one ``torch.func.jvp``).
+Differences from the JAX package: single device only (no mesh, no packed
+transfers); the spectral names on an American batch raise (the JAX
+package silently runs the scan there).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields as dc_fields
+from dataclasses import dataclass, fields as dc_fields, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +41,15 @@ from .grid import (
     monitor_aligned_schedule,
     segmented_schedule,
     uniform_schedule,
+)
+from .spectral import (
+    channel_conditioning,
+    interval_plan,
+    require_full_float32,
+    run_graphed,
+    spectral_solve,
+    spectral_solve_mixed,
+    symmetrizer_exponent,
 )
 from .spike import cn_barrier_solve_spike, prepare_spike, spike_p
 from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
@@ -79,6 +93,14 @@ class BarrierTradeBatch:
     monitor: torch.Tensor
     div_amount: torch.Tensor
     reset_lambda: torch.Tensor
+    # the spectral propagator's interval layout (attached by the driver on
+    # the spectral route, from _spectral_layout; None otherwise)
+    sp_k_end: Optional[torch.Tensor] = None  # (B, n_intervals) integer
+    sp_apply: Optional[torch.Tensor] = None  # (B, n_intervals) bool
+    sp_rann: Optional[torch.Tensor] = None  # (B,) Rannacher step count
+    # per-interval dt of a monitor-aligned (piecewise-constant) schedule;
+    # None when dt is globally uniform (the hoisted branch)
+    sp_dt: Optional[torch.Tensor] = None  # (B, n_intervals)
 
     @property
     def batch_size(self) -> int:
@@ -89,7 +111,10 @@ class BarrierTradeBatch:
         return self.dt.shape[1]
 
     def _map(self, fn) -> "BarrierTradeBatch":
-        return BarrierTradeBatch(**{f.name: fn(getattr(self, f.name)) for f in dc_fields(self)})
+        return BarrierTradeBatch(**{
+            f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
+            for f in dc_fields(self)
+        })
 
     def to(self, device) -> "BarrierTradeBatch":
         return self._map(lambda x: x.to(device))
@@ -102,7 +127,8 @@ class BarrierTradeBatch:
         return self._map(lambda x: x[sl])
 
 
-FIELD_NAMES = tuple(f.name for f in dc_fields(BarrierTradeBatch))
+SP_FIELDS = ("sp_k_end", "sp_apply", "sp_rann", "sp_dt")
+FIELD_NAMES = tuple(f.name for f in dc_fields(BarrierTradeBatch) if f.name not in SP_FIELDS)
 
 
 def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> BarrierTradeBatch:
@@ -110,13 +136,15 @@ def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> Ba
 
     Carries state across from the JAX package: pass a JAX
     ``BarrierTradeBatch``'s fields (a barrier or an American batch) as
-    numpy arrays. Keys the port's batch does not have (the JAX batch's
-    spectral ``sp_*`` layout) are ignored.
+    numpy arrays, its spectral ``sp_*`` layout too where it has one (a
+    missing or None ``sp_*`` key stays None).
     """
     dev = resolve_device(device)
-    return BarrierTradeBatch(
-        **{k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
-    )
+    tensors = {k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
+    for k in SP_FIELDS:
+        if fields.get(k) is not None:
+            tensors[k] = torch.as_tensor(np.asarray(fields[k])).to(dev)
+    return BarrierTradeBatch(**tensors)
 
 
 def build_trade_batch(
@@ -402,25 +430,81 @@ def build_american_batch(
     return batch_from_numpy(arrays, dev)
 
 
-def _solve_scan(batch: BarrierTradeBatch, sigma, n_nodes: int):
-    """The CN scan over the whole batch; ``sigma`` may be bumped."""
-    grid = CNGrid(batch.x_min, batch.dx)
-    dyn = CNDynamics(
+def _dynamics(batch: BarrierTradeBatch, sigma) -> CNDynamics:
+    return CNDynamics(
         strike=batch.strike, is_call=batch.is_call, sigma=sigma,
         r=batch.r, b=batch.b, q=batch.q,
     )
-    bar = BarrierSpec(
+
+
+def _barrier_spec(batch: BarrierTradeBatch) -> BarrierSpec:
+    return BarrierSpec(
         lower=batch.lower, upper=batch.upper,
         has_lower=batch.has_lower, has_upper=batch.has_upper,
         rebate=batch.rebate, rebate_at_hit=batch.rebate_at_hit,
         rebate_rate=batch.rebate_rate,
     )
-    sch = CNSchedule(
+
+
+def _schedule(batch: BarrierTradeBatch) -> CNSchedule:
+    return CNSchedule(
         dt=batch.dt, theta=batch.theta, tau_next=batch.tau_next,
         monitor=batch.monitor, div_amount=batch.div_amount,
         reset_lambda=batch.reset_lambda,
     )
-    return cn_solve(grid, dyn, sch, n_nodes, barrier=bar)
+
+
+def _solve_scan(batch: BarrierTradeBatch, sigma, n_nodes: int):
+    """The CN scan over the whole batch; ``sigma`` may be bumped."""
+    grid = CNGrid(batch.x_min, batch.dx)
+    return cn_solve(grid, _dynamics(batch, sigma), _schedule(batch), n_nodes, barrier=_barrier_spec(batch))
+
+
+def _solve_scan_american(batch: BarrierTradeBatch, sigma, n_nodes: int, with_dividends: bool):
+    """The American CN scan (Ikonen–Toivanen, American put edge) over the
+    whole batch; ``sigma`` may be bumped."""
+    grid = CNGrid(batch.x_min, batch.dx)
+    return cn_solve(
+        grid, _dynamics(batch, sigma), _schedule(batch), n_nodes, barrier=None, american=True,
+        with_dividends=with_dividends, euro_put_lower_boundary=False,
+    )
+
+
+def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, graph: bool = False):
+    """The spectral propagator over the whole batch at ``sigma``, on the
+    batch's ``sp_*`` layout (:func:`_spectral_layout`):
+
+    - ``"spectral"``: the state and the DSTs in the batch's dtype;
+    - ``"spectral_x64dst"``: the DSTs at float64, the state in the batch's
+      dtype;
+    - ``"spectral_mixed"``: float64 transcendentals and DSTs, float32
+      state (uniform dt only).
+
+    ``graph``: replay the solve from a CUDA graph (``spectral.run_graphed``;
+    a CUDA batch, and not under ``torch.func.jvp``).
+    """
+    mixed = solver == "spectral_mixed"
+    dt = batch.dt[:, 0] if mixed or batch.sp_dt is None else batch.sp_dt
+    b = _barrier_spec(batch)
+    tensors = [batch.x_min, batch.dx, batch.strike, batch.is_call, sigma, batch.r, batch.b,
+               batch.q, *b, dt, batch.sp_k_end, batch.sp_apply, batch.sp_rann]
+    plan = interval_plan(batch.sp_k_end, batch.sp_apply, batch.sp_rann)
+
+    def solve(*t):
+        grid, dyn, bar = CNGrid(*t[:2]), CNDynamics(*t[2:8]), BarrierSpec(*t[8:15])
+        if mixed:
+            return spectral_solve_mixed(grid, dyn, *t[15:18], n_nodes, t[18], barrier=bar, plan=plan)
+        return spectral_solve(
+            grid, dyn, *t[15:18], n_nodes, t[18], barrier=bar, plan=plan,
+            mm_dtype=torch.float64 if solver == "spectral_x64dst" else None,
+        )
+
+    if not graph:
+        return solve(*tensors)
+    if solver == "spectral":  # a replay launches no matmul from here: check first
+        require_full_float32(batch.x_min.dtype, batch.x_min.device)
+    key = (solver, n_nodes, tuple(plan), tuple((t.shape, t.dtype, t.device) for t in tensors))
+    return run_graphed(key, solve, tensors)
 
 
 def _resolve_dv_sigma(dv_sigma, sigma: torch.Tensor) -> float:
@@ -448,28 +532,12 @@ def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor
     return torch.where(x > xp[:, -1], fp[:, -1], f)
 
 
-def _solve_scan_american(batch: BarrierTradeBatch, sigma, n_nodes: int, with_dividends: bool):
-    """The American CN scan (Ikonen–Toivanen, American put edge) over the
-    whole batch; ``sigma`` may be bumped."""
-    grid = CNGrid(batch.x_min, batch.dx)
-    dyn = CNDynamics(
-        strike=batch.strike, is_call=batch.is_call, sigma=sigma,
-        r=batch.r, b=batch.b, q=batch.q,
-    )
-    sch = CNSchedule(
-        dt=batch.dt, theta=batch.theta, tau_next=batch.tau_next,
-        monitor=batch.monitor, div_amount=batch.div_amount,
-        reset_lambda=batch.reset_lambda,
-    )
-    return cn_solve(
-        grid, dyn, sch, n_nodes, barrier=None, american=True,
-        with_dividends=with_dividends, euro_put_lower_boundary=False,
-    )
+_SPIKE_SOLVERS = ("spike", "spike_df64")
+_SPECTRAL_SOLVERS = ("spectral", "spectral_x64dst", "spectral_mixed")
+SOLVERS = ("auto", "scan") + _SPIKE_SOLVERS + _SPECTRAL_SOLVERS
 
 
-def _check_greeks_mode(with_greeks: bool, greeks_mode: str) -> None:
-    if with_greeks and greeks_mode == "ad":
-        raise NotImplementedError("greeks_mode='ad' is not ported yet; use 'bump'")
+def _check_greeks_mode(greeks_mode: str) -> None:
     if greeks_mode not in ("bump", "ad"):
         raise ValueError(f"unknown greeks_mode {greeks_mode!r}")
 
@@ -513,28 +581,68 @@ def _guarded_spike_preps(batch: BarrierTradeBatch, n_nodes: int, spike_segments,
     return preps
 
 
-def _vol_points(batch: BarrierTradeBatch, dv_sigma, with_greeks: bool):
+def _no_ad_rule(solver: str) -> ValueError:
+    return ValueError(
+        f"solver={solver!r} has no AD rule (the SPIKE march is a hand-written "
+        "kernel); use greeks_mode='bump'"
+    )
+
+
+def _solve_values(batch: BarrierTradeBatch, n_nodes: int, solver: str, american: bool, sigmas,
+                  spike_segments=None, spike_preps=None, with_dividends: bool = True,
+                  ad: bool = False) -> List[torch.Tensor]:
+    """V (B, N) at each of ``sigmas`` on ``solver``'s route; with ``ad``,
+    ``[V, dV/dsigma]`` at ``sigmas[0]`` instead, from one ``torch.func.jvp``
+    through the scan or the spectral solve (the tangent flows through the
+    dynamics coefficients only, as the bump's does: the grid is fixed).
+
+    ``"spike_df64"`` is the SPIKE march at float64 whatever the batch's
+    dtype: a float32 batch is solved as its float64 cast (the K2 kernel),
+    and its outputs are cast back to float32 by :func:`_outputs_of`."""
+    if solver in _SPIKE_SOLVERS:
+        if ad:
+            raise _no_ad_rule(solver)
+        if solver == "spike_df64":
+            batch = batch.astype(torch.float64)
+            sigmas = [s.to(torch.float64) for s in sigmas]
+        return _spike_values(batch, n_nodes, spike_segments, american, sigmas, spike_preps)
+    if american:
+        solve = lambda sg: _solve_scan_american(batch, sg, n_nodes, with_dividends)[0]
+    elif solver == "scan":
+        solve = lambda sg: _solve_scan(batch, sg, n_nodes)[0]
+    else:
+        graph = batch.x_min.is_cuda and not ad
+        solve = lambda sg: _solve_spectral(batch, sg, n_nodes, solver, graph)[0]
+    if ad:
+        return list(torch.func.jvp(solve, (sigmas[0],), (torch.ones_like(sigmas[0]),)))
+    return [solve(sg) for sg in sigmas]
+
+
+def _vol_points(batch: BarrierTradeBatch, dv_sigma, with_greeks: bool, greeks_mode: str = "bump"):
     """(the vega bump, the sigmas a call solves at): the batch's, and with
-    greeks the bumped copy."""
+    bump greeks the bumped copy. The driver makes them once per call and
+    passes them to every kernel call."""
     dv_sigma = _resolve_dv_sigma(dv_sigma, batch.sigma)
-    return dv_sigma, [batch.sigma] + ([batch.sigma + dv_sigma] if with_greeks else [])
+    bump = with_greeks and greeks_mode == "bump"
+    return dv_sigma, [batch.sigma] + ([batch.sigma + dv_sigma] if bump else [])
 
 
 def _outputs_of(batch: BarrierTradeBatch, n_nodes: int, values, dv_sigma: float,
-                with_theta: bool) -> Dict[str, torch.Tensor]:
-    """Price and bump greeks from ``values``, V (B, N) at the sigmas of
-    :func:`_vol_points`.
+                with_theta: bool, tangent: bool = False) -> Dict[str, torch.Tensor]:
+    """Price and greeks from ``values``: V (B, N) at the sigmas of
+    :func:`_vol_points`, or with ``tangent`` ``[V, dV/dsigma]``.
 
     Delta/gamma come from the non-uniform central stencil at spot; theta
     (``with_theta``) from the BS PDE identity
     (discrete_barrier_fdm_pricer.py:843-870); vega from the reference's
     one-sided sigma bump, a second full solve at sigma+dv
-    (fd_american_equity.py:1014-1035).
+    (fd_american_equity.py:1014-1035), or with ``tangent`` from the exact
+    derivative (the price's interpolation weights do not depend on sigma).
 
     The post-processing (interpolation, stencil, theta identity, vega
     difference) runs at float64 on node positions recomputed at float64 from
     the grid parameters, whatever the solve's dtype, and the outputs are cast
-    back to it. At float32 the rounded nodes (about 1.3e-5 at S ~ 220, with
+    back to the batch's. At float32 the rounded nodes (about 1.3e-5 at S ~ 220, with
     node spacing ~0.4 at N=1024) are otherwise amplified by the second
     difference to ~1e-2 of gamma and theta. At float64 this is the JAX
     package's arithmetic unchanged: the nodes are the solver's own.
@@ -549,8 +657,8 @@ def _outputs_of(batch: BarrierTradeBatch, n_nodes: int, values, dv_sigma: float,
     price = _interp(f64(batch.s_eff), s, v)
     out = {"price": price}
     if len(values) > 1:
-        v_up = f64(values[1])
-        out["vega"] = (_interp(f64(batch.s_eff), s, v_up) - price) / (dv_sigma * 100.0)
+        second = _interp(f64(batch.s_eff), s, f64(values[1]))
+        out["vega"] = second / 100.0 if tangent else (second - price) / (dv_sigma * 100.0)
         idx = torch.argmin(torch.abs(s - spot[:, None]), dim=1).clamp(1, n_nodes - 2)
         delta, gamma = nonuniform_central(s, v, idx)
         out["delta"] = delta
@@ -573,25 +681,25 @@ def price_batch_kernel(
     solver: str = "scan",
     spike_segments=None,
     spike_preps=None,
+    vol_points=None,
 ) -> Dict[str, torch.Tensor]:
     """Barrier batch on one device -> dict of (B,) tensors on that device:
     price, and with greeks vega, delta, gamma and theta (see :func:`_outputs_of`).
 
-    ``solver="spike"`` runs the SPIKE march (the CUDA kernel on a card);
-    ``spike_segments`` is the ``(segments, set_defs, ...)`` tuple from
-    :func:`_spike_schedule_impl`, None meaning the uniform-dt default;
-    ``spike_preps`` the auto route's preps (:func:`_spike_values`).
-    ``greeks_mode="ad"`` is not ported yet and raises NotImplementedError.
+    ``solver``: ``"scan"``, ``"spike"`` / ``"spike_df64"`` (the SPIKE march,
+    the CUDA kernel on a card; ``spike_segments`` the ``(segments, set_defs,
+    ...)`` tuple from :func:`_spike_schedule_impl`, None meaning the
+    uniform-dt default; ``spike_preps`` the auto route's preps), or one of
+    the spectral names (needs the batch's ``sp_*`` layout; see
+    :func:`_solve_spectral`). ``greeks_mode="ad"`` takes vega from one jvp
+    through the scan or the spectral solve, and raises ValueError on the
+    SPIKE route. ``vol_points``: the driver's :func:`_vol_points`.
     """
-    _check_greeks_mode(with_greeks, greeks_mode)
-    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
-    if solver == "spike":
-        values = _spike_values(batch, n_nodes, spike_segments, False, sigmas, spike_preps)
-    elif solver == "scan":
-        values = [_solve_scan(batch, sig, n_nodes)[0] for sig in sigmas]
-    else:
-        raise ValueError(f"unknown solver {solver!r}; expected 'scan' or 'spike'")
-    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True)
+    _check_greeks_mode(greeks_mode)
+    ad = with_greeks and greeks_mode == "ad"
+    dv_sigma, sigmas = vol_points or _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
+    values = _solve_values(batch, n_nodes, solver, False, sigmas, spike_segments, spike_preps, ad=ad)
+    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True, tangent=ad)
 
 
 def american_batch_kernel(
@@ -604,24 +712,104 @@ def american_batch_kernel(
     spike_segments=None,
     with_dividends: bool = True,
     spike_preps=None,
+    vol_points=None,
 ) -> Dict[str, torch.Tensor]:
     """American batch on one device -> dict of (B,) tensors: price, and
     with greeks vega, delta and gamma (no theta, as in the JAX package).
 
-    ``solver="spike"`` runs the American SPIKE march (the CUDA kernel on a
-    card), with the dividend jumps and lambda resets between launches from
-    ``spike_segments``; ``with_dividends`` affects only the scan, which
-    then applies the spline jump inside its step loop.
+    ``solver="spike"`` / ``"spike_df64"`` runs the American SPIKE march (the
+    CUDA kernel on a card), with the dividend jumps and lambda resets between
+    launches from ``spike_segments``; ``with_dividends`` affects only the
+    scan, which then applies the spline jump inside its step loop.
+    ``greeks_mode="ad"`` takes vega from one jvp through the scan (the
+    Ikonen–Toivanen projection's ``where`` carries the subgradient).
     """
-    _check_greeks_mode(with_greeks, greeks_mode)
-    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks)
-    if solver == "spike":
-        values = _spike_values(batch, n_nodes, spike_segments, True, sigmas, spike_preps)
-    elif solver == "scan":
-        values = [_solve_scan_american(batch, sig, n_nodes, with_dividends)[0] for sig in sigmas]
-    else:
-        raise ValueError(f"unknown solver {solver!r}; expected 'scan' or 'spike'")
-    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=False)
+    _check_greeks_mode(greeks_mode)
+    ad = with_greeks and greeks_mode == "ad"
+    dv_sigma, sigmas = vol_points or _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
+    values = _solve_values(batch, n_nodes, solver, True, sigmas, spike_segments, spike_preps,
+                           with_dividends, ad=ad)
+    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=False, tangent=ad)
+
+
+def _interval_layout(monitor: torch.Tensor, n_iv: int):
+    """(k_end (B, n_iv), apply_proj (B, n_iv)) of :func:`spectral.spectral_intervals`,
+    made where ``monitor`` lives: the j-th monitor step of a trade ends its
+    interval j; the rest of the row repeats n_steps with no projection."""
+    B, n = monitor.shape
+    rank = torch.cumsum(monitor.long(), dim=1) - 1
+    cols = torch.where(monitor, rank, torch.full_like(rank, n_iv))  # column n_iv is dropped
+    steps = torch.arange(1, n + 1, device=monitor.device).expand(B, n)
+    k_end = torch.full((B, n_iv + 1), n, dtype=torch.long, device=monitor.device)
+    k_end = k_end.scatter(1, cols, steps)[:, :n_iv]
+    apply_proj = torch.arange(n_iv, device=monitor.device)[None, :] < monitor.sum(dim=1, keepdim=True)
+    return k_end, apply_proj
+
+
+def _spectral_layout(batch: BarrierTradeBatch, n_nodes: int):
+    """(sp_k_end, sp_apply, sp_rann, sp_dt) on the batch's device if the
+    batch is spectral-eligible, else None; the JAX package's
+    ``_spectral_layout_impl`` with its verdicts and thresholds.
+
+    Eligibility is the schedule shape the closed form assumes (dt constant
+    within each monitor interval: globally uniform or monitor-aligned;
+    thetas 1.0 or 0.5 with the 1.0 steps a prefix; no dividend jumps),
+    |dx mu / sigma^2| < 0.999 (a and c positive), a symmetrizer exponent
+    within 200 at float64 and 15 at float32 (the batch's dtype is the
+    working dtype) and boundary channels conditioned above 1e-9.
+    ``sp_dt`` is None for globally uniform dt (the hoisted branch), also
+    where every interval's dt is within 1e-12 of the first step's.
+
+    The (B, n_steps) reductions run where the batch lives; only flags, the
+    interval count and (B,) vectors come to the host (pulling the whole
+    schedule costs tens of ms per call on a card). Not memoized: torch
+    tensors are mutable.
+    """
+    dt, th, mon = batch.dt.double(), batch.theta.double(), batch.monitor
+    n = dt.shape[1]
+    is_one = th == 1.0
+    R = is_one.sum(dim=1)
+    any_one = is_one.any(dim=1)
+    # the theta=1 steps form a prefix (argmax of the first theta != 1; a
+    # row of theta=1 only fails, as in the JAX package)
+    first_half = torch.where(any_one, torch.argmax((~is_one).to(torch.uint8), dim=1), 0)
+    flags = torch.stack([
+        (batch.div_amount != 0).any(),
+        ((th == 1.0) | (th == 0.5)).all(),
+        ((~any_one) | (first_half == R)).all(),
+        (dt == dt[:, :1]).all(),
+        # steps k-1 and k share an interval unless a monitor ends step k-1
+        ((dt[:, 1:] == dt[:, :-1]) | mon[:, :-1]).all(),
+    ]).long()
+    n_iv = (mon.sum(dim=1) + (~mon[:, -1]).long()).max()
+    has_div, theta_ok, prefix_ok, uniform, within, n_iv = torch.cat([flags, n_iv[None]]).tolist()
+    if has_div or not theta_ok or not prefix_ok:
+        return None
+    sigma, b, q, r, dx, dt0 = (
+        torch.stack([batch.sigma, batch.b, batch.q, batch.r, batch.dx, batch.dt[:, 0]])
+        .double().cpu().numpy()
+    )
+    mu_x = b - q - 0.5 * sigma**2
+    if np.any(np.abs(dx * mu_x / sigma**2) >= 0.999):  # a, c > 0 (sine diagonalization)
+        return None
+    limit = 200.0 if batch.sigma.dtype == torch.float64 else 15.0
+    if np.any(symmetrizer_exponent(sigma, b, q, dx, n_nodes) > limit):
+        return None
+    k_end, apply_proj = _interval_layout(mon, n_iv)
+    sp_dt = None
+    if not uniform:
+        if not within:
+            return None
+        k_start = torch.cat([torch.zeros_like(k_end[:, :1]), k_end[:, :-1]], dim=1)
+        # a padded interval starts at n_steps and repeats the last dt
+        per_iv = torch.gather(dt, 1, k_start.clamp(max=n - 1))
+        if not bool(((per_iv - dt[:, :1]).abs() <= 1e-12 * dt[:, :1].abs()).all()):
+            sp_dt = per_iv
+    cond_dts = dt0[:, None] if sp_dt is None else sp_dt.cpu().numpy()
+    for col in range(cond_dts.shape[1]):
+        if np.any(channel_conditioning(sigma, b, q, r, dx, cond_dts[:, col], n_nodes) < 1e-9):
+            return None
+    return k_end, apply_proj, R, None if sp_dt is None else sp_dt.to(batch.dt.dtype)
 
 
 def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
@@ -696,6 +884,15 @@ def _spike_eligible(batch: BarrierTradeBatch, n_nodes: int) -> bool:
     return _spike_schedule_impl(batch, n_nodes) is not None
 
 
+def _auto_inputs(batch: BarrierTradeBatch, american: bool, with_greeks: bool, greeks_mode: str):
+    """What :func:`auto_solver` reads of a call besides the device and the
+    SPIKE verdicts."""
+    return dict(
+        spectral_ok=batch.sp_k_end is not None, american=american,
+        float64=batch.sigma.dtype == torch.float64, ad=with_greeks and greeks_mode == "ad",
+    )
+
+
 def _run_batch_driver(
     batch: BarrierTradeBatch,
     n_nodes: int,
@@ -710,58 +907,100 @@ def _run_batch_driver(
 ) -> Dict[str, torch.Tensor]:
     """Single-device driver: :func:`american_batch_kernel` (``american``) or
     :func:`price_batch_kernel` over the batch in chunks of ``max_chunk``
-    trades; ``kernel_kw`` goes to every call.
+    trades; ``kernel_kw`` goes to every call. The sigmas of the call
+    (:func:`_vol_points`) are made once here and sliced per chunk.
 
     Chunking bounds the scan's per-step working set (its (B, N) temporaries
     per doubling pass). The SPIKE march keeps each trade's grid in shared
     memory and streams its solver tensors, so the spike route runs the
-    whole batch as one launch per segment.
+    whole batch as one launch per segment; the spectral route also runs it
+    in one pass (about 30 (B, M) tensors: under 1 GB at B=4096, N=1024,
+    float64), since each chunk would repeat its ~1000 launches per solve.
 
-    ``solver="auto"`` (from :func:`_route`: a SPIKE-eligible batch on CUDA)
-    leaves the route to the interface guard: the preps of every sigma of
-    the call are made first, not strict, and :func:`auto_solver` reads
-    their verdict. The spike route then marches those preps; the scan
-    prices the whole call where the guard refused one.
+    ``solver="auto"`` (from :func:`_route`: the rule picked the SPIKE march
+    on CUDA) leaves the route to the interface guard: the preps of every
+    sigma of the call are made first, not strict, and :func:`auto_solver`
+    reads their verdict. The spike route then marches those preps; where
+    the guard refused one, the whole call takes the scan.
     """
     kernel = american_batch_kernel if american else price_batch_kernel
+    dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
     preps = None
     if solver == "auto":
-        sigmas = _vol_points(batch, dv_sigma, with_greeks)[1]
         preps = _guarded_spike_preps(batch, n_nodes, spike_segments, american, sigmas)
-        solver = auto_solver(batch.x_min.device.type, spike_segments, preps is not None)
+        solver = auto_solver(batch.x_min.device.type, spike_segments, preps is not None,
+                             **_auto_inputs(batch, american, with_greeks, greeks_mode))
     B = batch.batch_size
-    chunk = None if solver == "spike" else max_chunk
-    run = lambda piece: kernel(
-        piece, n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
+    chunk = max_chunk if solver == "scan" else None
+    run = lambda sl: kernel(
+        batch[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
         greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
-        spike_preps=preps, **kernel_kw,
+        spike_preps=preps, vol_points=(dv_sigma, [s[sl] for s in sigmas]), **kernel_kw,
     )
     if chunk is None or B <= chunk:
-        return run(batch)
-    pieces = [run(batch[start : start + chunk]) for start in range(0, B, chunk)]
+        return run(slice(None))
+    pieces = [run(slice(start, start + chunk)) for start in range(0, B, chunk)]
     return {k: torch.cat([p[k] for p in pieces]) for k in pieces[0]}
 
 
-def auto_solver(device_type: str, spike_segments, guard_passed: bool) -> str:
-    """The route of ``solver="auto"``: ``"spike"`` for a SPIKE-eligible
-    batch (``spike_segments`` from :func:`_spike_schedule_impl` not None) on
-    CUDA whose SPIKE preps the interface guard passed at every sigma of the
-    call (``spike.interface_refusal``, read from the float64 prep before any
-    launch), else ``"scan"``. Like the JAX package's eligibility rule, a
-    choice of route: an explicit ``solver="spike"`` still raises where the
-    guard refuses."""
-    spike = device_type == "cuda" and spike_segments is not None and guard_passed
-    return "spike" if spike else "scan"
+def auto_solver(
+    device_type: str,
+    spike_segments,
+    guard_passed: bool,
+    *,
+    spectral_ok: bool = False,
+    american: bool = False,
+    float64: bool = False,
+    ad: bool = False,
+) -> str:
+    """The route of ``solver="auto"``.
+
+    - Off CUDA, the JAX package's CPU rule: ``"spectral"`` where the layout
+      admits the batch (``spectral_ok``, :func:`_spectral_layout`), at any
+      dtype, else ``"scan"``; the American path takes the scan.
+    - On CUDA, the JAX package's accelerator rule, which the card's timings
+      bear out (``chip_smoke.py``'s ``route_sweep``, PERF.md): a float64
+      barrier batch takes the spectral propagator where the layout admits
+      it, else the SPIKE march (at ``double``), else the scan; a float32
+      batch takes the SPIKE march, else the scan, never the spectral
+      propagator (at float32 it misses the f32 limits: its DSTs round at
+      the knocked-out region's residual norm). The SPIKE march is taken
+      only where the batch is SPIKE-eligible (``spike_segments`` not None)
+      and the interface guard passed (``guard_passed``, read from the
+      float64 preps of every sigma of the call before any launch). The
+      American path takes the SPIKE march where it may, else the scan.
+      At float64 and 4096 trades the card's timings do not separate the
+      SPIKE march from the spectral propagator (the SPIKE call's host-bound
+      prep varies with the host), and the rule keeps the JAX package's
+      spectral there; below, the spectral propagator is 1.4-3x faster.
+
+    ``ad`` (``greeks_mode="ad"`` with greeks) keeps the call off SPIKE,
+    which has no AD rule. A choice of route, like the JAX package's: an
+    explicit ``solver`` still raises where its route refuses the batch.
+    The fused K3 march is never the auto route, as the JAX package's auto
+    never takes its fused Pallas kernel.
+    """
+    if device_type != "cuda":
+        return "spectral" if spectral_ok and not american else "scan"
+    if float64 and spectral_ok and not american:
+        return "spectral"
+    return "spike" if spike_segments is not None and guard_passed and not ad else "scan"
 
 
-def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str, device):
-    """The batch on its device and dtype, and the route:
-    ``(batch, max_chunk, solver, spike_segments)``.
+def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str, device,
+           american: bool = False, with_greeks: bool = False, greeks_mode: str = "bump"):
+    """The batch on its device and dtype, with its spectral layout attached
+    where it has one, and the route: ``(batch, max_chunk, solver,
+    spike_segments)``.
 
-    ``"auto"`` stays ``"auto"`` for a SPIKE-eligible batch on CUDA, whose
-    route the interface guard decides in :func:`_run_batch_driver`, and is
-    ``"scan"`` otherwise (:func:`auto_solver`); ``"spike"`` on an
-    ineligible batch raises.
+    ``"auto"`` stays ``"auto"`` where :func:`auto_solver` picks the SPIKE
+    march, whose verdict the interface guard gives in
+    :func:`_run_batch_driver`, and becomes the rule's route otherwise. An
+    explicit route that refuses the batch raises ValueError, as the JAX
+    package's does: SPIKE on an ineligible schedule or with
+    ``greeks_mode="ad"``, the spectral names on a layout that
+    :func:`_spectral_layout` refuses or on an American batch, and
+    ``"spectral_mixed"`` on a per-interval dt.
     ``dtype`` casts the batch's floating fields (float64 halves
     ``max_chunk``, the same working-set budget).
     """
@@ -771,18 +1010,46 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
         batch = batch.astype(dtype)
         if max_chunk is not None and dtype.itemsize > 4:
             max_chunk = max(1, max_chunk // 2)
-    if solver not in ("auto", "scan", "spike"):
-        raise ValueError(f"unknown solver {solver!r}; expected 'auto', 'scan' or 'spike'")
-    sched = _spike_schedule_impl(batch, n_nodes) if solver != "scan" else None
-    if solver == "auto" and auto_solver(dev.type, sched, guard_passed=True) == "scan":
-        solver = "scan"
-    if solver == "spike" and sched is None:
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; expected one of {SOLVERS}")
+    _check_greeks_mode(greeks_mode)
+    ad = with_greeks and greeks_mode == "ad"
+    if ad and solver in _SPIKE_SOLVERS:
+        raise _no_ad_rule(solver)
+    if american and solver in _SPECTRAL_SOLVERS:
+        raise ValueError(
+            f"solver={solver!r} prices European barrier batches only (the "
+            "Ikonen–Toivanen projection is not linear); use 'auto', 'scan' or 'spike'"
+        )
+    wants_spike = solver in _SPIKE_SOLVERS or (solver == "auto" and dev.type == "cuda" and not ad)
+    sched = _spike_schedule_impl(batch, n_nodes) if wants_spike else None
+    if solver in _SPIKE_SOLVERS and sched is None:
         raise ValueError(
             "batch is not spike-eligible (needs a piecewise-constant "
             "(theta, dt) schedule shared across trades — uniform, "
             "monitor-aligned or dividend-segmented layouts — and a grid the "
             "SPIKE partitioning admits); use solver='auto'"
         )
+    layout = None
+    if not american and solver in ("auto",) + _SPECTRAL_SOLVERS:
+        layout = _spectral_layout(batch, n_nodes)
+        if layout is None and solver != "auto":
+            raise ValueError(
+                "batch is not spectral-eligible (needs per-interval-constant dt, "
+                "Rannacher-prefix thetas, no dividend jumps, bounded symmetrizer "
+                "exponent); use solver='auto' or 'scan'"
+            )
+        if solver == "spectral_mixed" and layout[3] is not None:
+            raise ValueError(
+                "spectral_mixed supports uniform dt only (the hoisted layout); "
+                "use solver='auto'/'spectral' for monitor-aligned schedules"
+            )
+    batch = replace(batch, **dict(zip(SP_FIELDS, layout or (None,) * len(SP_FIELDS))))
+    if solver == "auto":
+        route = auto_solver(dev.type, sched, True,
+                            **_auto_inputs(batch, american, with_greeks, greeks_mode))
+        if route != "spike":
+            solver = route
     return batch, max_chunk, solver, sched
 
 
@@ -801,17 +1068,21 @@ def price_barrier_batch(
     (price, and with greeks vega, delta, gamma, theta).
 
     ``solver``: ``"spike"`` the SPIKE march (the hand-written CUDA kernel
-    on a card, its plain version on the CPU); ``"scan"`` the CN step loop;
-    ``"auto"`` (default) picks ``"spike"`` for an eligible batch on CUDA whose
-    SPIKE prep the interface guard passes (:func:`auto_solver`) and
-    ``"scan"`` otherwise. Unlike the JAX package, ``"auto"`` never routes to
-    the spectral propagator (a later slice) and takes the spike route at
-    float64 too: the H100 runs the kernel natively in double precision.
-    ``dtype`` casts the batch's floating fields first (float64 halves
-    ``max_chunk``, the same working-set budget); ``max_chunk=None`` forces
-    one pass.
+    on a card, its plain version on the CPU) and ``"spike_df64"`` the same
+    march at float64 (see :func:`_solve_values`); ``"scan"`` the CN step
+    loop; ``"spectral"``, ``"spectral_x64dst"``, ``"spectral_mixed"`` the
+    sine-basis propagator (:func:`_solve_spectral`); ``"auto"`` (default)
+    the rule of :func:`auto_solver` (the JAX package's CPU rule off CUDA,
+    its accelerator rule on a card). ``greeks_mode="ad"`` takes vega from one jvp
+    instead of the sigma bump (not on SPIKE). ``dtype`` casts the batch's
+    floating fields first. ``max_chunk`` bounds the scan's chunks (float64
+    halves it, the same working-set budget; None forces one pass); the
+    SPIKE and spectral routes run the batch in one pass.
     """
-    batch, max_chunk, solver, sched = _route(batch, n_nodes, max_chunk, dtype, solver, device)
+    batch, max_chunk, solver, sched = _route(
+        batch, n_nodes, max_chunk, dtype, solver, device,
+        with_greeks=with_greeks, greeks_mode=greeks_mode,
+    )
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
         solver, sched,
@@ -835,24 +1106,72 @@ def price_american_batch(
     ``solver="auto"`` (default) takes the American SPIKE march — the
     hand-written CUDA kernel with the Ikonen–Toivanen projection fused into
     the step — for a SPIKE-eligible batch on CUDA, at float32 and at
-    float64 alike, unless the interface guard refuses its SPIKE prep
-    (:func:`auto_solver`), and the CN scan otherwise. Dividend batches ride the
-    march as extra segments, with the spline jump applied between launches.
-    Mixed call/put dividend batches are not eligible (calls restart
-    Rannacher after each dividend, so the theta pattern differs per trade)
-    and take the scan, as in the JAX package. Unlike the JAX package there
-    is no ``"spike_df64"`` route: the float64 march is the same kernel
-    compiled at ``double``, since the H100 has native float64.
+    float64 alike, unless the interface guard refuses its SPIKE prep or
+    ``greeks_mode="ad"`` asks for a jvp (:func:`auto_solver`), and the CN
+    scan otherwise, as on the CPU. Dividend batches ride the march as extra
+    segments, with the spline jump applied between launches. Mixed call/put
+    dividend batches are not eligible (calls restart Rannacher after each
+    dividend, so the theta pattern differs per trade) and take the scan, as
+    in the JAX package. ``"spike_df64"`` is the march at float64
+    (:func:`_solve_values`); the spectral names raise (European only).
     ``dtype``, ``max_chunk``: as :func:`price_barrier_batch`.
     """
-    batch, max_chunk, solver, sched = _route(batch, n_nodes, max_chunk, dtype, solver, device)
-    # the scan applies the spline jump only when asked (the spike route
-    # places its jumps from the segmentation and ignores the flag)
-    with_dividends = bool((batch.div_amount != 0).any())
+    batch, max_chunk, solver, sched = _route(
+        batch, n_nodes, max_chunk, dtype, solver, device, american=True,
+        with_greeks=with_greeks, greeks_mode=greeks_mode,
+    )
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched, american=True, with_dividends=with_dividends,
+        solver, sched, american=True, with_dividends=_with_dividends(batch, sched),
     )
+
+
+def _with_dividends(batch: BarrierTradeBatch, sched) -> bool:
+    """Whether the American scan must apply the spline jump: read from the
+    SPIKE segmentation's dividend columns where the route made one (no
+    device work), else from the batch."""
+    if sched is not None:
+        return bool(sched[2])
+    return bool((batch.div_amount != 0).any())
+
+
+def solve_value_surfaces(
+    batch: BarrierTradeBatch,
+    n_nodes: int,
+    solver: str = "auto",
+    american: bool = False,
+    dtype: Optional[torch.dtype] = None,
+    device=DEFAULT_DEVICE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(V, s): per-trade value functions over the grid, (B, n_nodes) each,
+    on ``device``.
+
+    The surface form of the batched solve, what an XVA engine's
+    ``precompute`` hook wants (price an exotic once per scenario date,
+    then interpolate simulated spots against the surface). A barrier batch
+    takes the route :func:`price_barrier_batch` takes for a price-only call
+    (``"auto"`` by :func:`auto_solver`, or any explicit solver name);
+    ``american=True`` runs the Ikonen–Toivanen scan (``solver`` ``"auto"``
+    or ``"scan"``: the per-step projection is inherently sequential, and
+    the JAX package's surface takes the scan there too). V is in the
+    batch's dtype (``"spectral_mixed"``'s float32 state excepted, as in the
+    JAX package).
+    """
+    if american and solver not in ("auto", "scan"):
+        raise ValueError("the American surface is the scan's; use solver='auto' or 'scan'")
+    batch, _, solver, sched = _route(
+        batch, n_nodes, None, dtype, "scan" if american else solver, device, american=american,
+    )
+    preps = None
+    if solver == "auto":
+        preps = _guarded_spike_preps(batch, n_nodes, sched, False, [batch.sigma])
+        solver = auto_solver(batch.x_min.device.type, sched, preps is not None,
+                             **_auto_inputs(batch, False, False, "bump"))
+    with_div = american and bool((batch.div_amount != 0).any())
+    v = _solve_values(batch, n_nodes, solver, american, [batch.sigma], sched, preps, with_div)[0]
+    i = torch.arange(n_nodes, dtype=batch.x_min.dtype, device=batch.x_min.device)
+    s = torch.exp(batch.x_min[:, None] + i[None, :] * batch.dx[:, None])
+    return (v if solver == "spectral_mixed" else v.to(batch.x_min.dtype)), s
 
 
 def price_american_batch_richardson(

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ...ops.interp import cubic_spline_eval, natural_cubic_spline
@@ -149,7 +148,9 @@ def cn_solve(
 
     div_cols = set()
     if with_dividends:
-        div_cols = set(np.flatnonzero((schedule.div_amount != 0).any(dim=0).cpu().numpy()).tolist())
+        # tolist, not numpy: the scan runs inside torch.func.jvp too (ad greeks)
+        has_div = (schedule.div_amount != 0).any(dim=0).tolist()
+        div_cols = {k for k, has in enumerate(has_div) if has}
 
     for k in range(schedule.dt.shape[1]):
         dt, theta = schedule.dt[:, k], schedule.theta[:, k]

@@ -138,13 +138,23 @@ class TestRouting:
         assert seen == ["scan"]
 
     def test_auto_on_cpu_takes_the_scan_and_ad_raises(self, monkeypatch):
+        """auto takes the scan on the CPU; greeks_mode="ad" is ported (it
+        raised before), so it is held against the bump: the same price,
+        delta and gamma, and the vega within the one-sided bump's
+        truncation (1e-3 of max|vega| at dv = 1e-4). It raises on SPIKE."""
         pb = port_batch.build_american_batch(device="cpu", **_kwargs(n_time_steps=16))
         assert port_batch._spike_eligible(pb, 202)
         seen = self._seen_solvers(monkeypatch)
         port_batch.price_american_batch(pb, 202, with_greeks=False, device="cpu")
         assert seen == ["scan"]
-        with pytest.raises(NotImplementedError, match="ad"):
-            port_batch.price_american_batch(pb, 202, greeks_mode="ad", device="cpu")
+        ad = port_batch.price_american_batch(pb, 202, greeks_mode="ad", device="cpu")
+        bump = port_batch.price_american_batch(pb, 202, device="cpu")
+        assert seen == ["scan"] * 3
+        for k in ("price", "delta", "gamma"):
+            torch.testing.assert_close(ad[k], bump[k], rtol=0.0, atol=1e-12 * float(bump[k].abs().max()))
+        assert float((ad["vega"] - bump["vega"]).abs().max()) <= 1e-3 * float(bump["vega"].abs().max())
+        with pytest.raises(ValueError, match="no AD rule"):
+            port_batch.price_american_batch(pb, 202, solver="spike", greeks_mode="ad", device="cpu")
 
     def test_float32_spike_route(self):
         pb = port_batch.build_american_batch(device="cpu", **_kwargs(n_time_steps=32, **_dividends(False)))

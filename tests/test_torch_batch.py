@@ -147,6 +147,9 @@ class TestRouting:
         return port_batch.build_trade_batch(device="cpu", **kw), n_nodes
 
     def test_auto_on_cpu_takes_the_scan(self, monkeypatch):
+        """The JAX package's rule on the CPU: the scan where the spectral
+        layout refuses the batch (here a theta pattern that is not a
+        Rannacher prefix), the spectral propagator where it admits it."""
         pb, n = self._batch()
         seen = []
         real = port_batch._run_batch_driver
@@ -154,10 +157,17 @@ class TestRouting:
             port_batch, "_run_batch_driver",
             lambda *a, **k: seen.append(a[6]) or real(*a, **k),
         )
-        auto = port_batch.price_barrier_batch(pb, n, with_greeks=False, device="cpu")
-        assert seen == ["scan"]
-        scan = port_batch.price_barrier_batch(pb, n, with_greeks=False, solver="scan", device="cpu")
+        refused = pb._map(lambda x: x)
+        refused.theta = refused.theta.clone()
+        refused.theta[:, 5] = 1.0
+        assert port_batch._spectral_layout(refused, n) is None
+        auto = port_batch.price_barrier_batch(refused, n, with_greeks=False, device="cpu")
+        scan = port_batch.price_barrier_batch(refused, n, with_greeks=False, solver="scan", device="cpu")
         assert torch.equal(auto["price"], scan["price"])
+        auto = port_batch.price_barrier_batch(pb, n, with_greeks=False, device="cpu")
+        spectral = port_batch.price_barrier_batch(pb, n, with_greeks=False, solver="spectral", device="cpu")
+        assert torch.equal(auto["price"], spectral["price"])
+        assert seen == ["scan", "scan", "spectral", "spectral"]
 
     def test_chunking_matches_one_pass(self):
         pb, n = self._batch()
@@ -174,10 +184,13 @@ class TestRouting:
         assert port_batch._spike_eligible(pb, n)
         with pytest.raises(ValueError, match="spike-eligible"):
             port_batch.price_barrier_batch(bad, n, solver="spike", device="cpu")
-        with pytest.raises(NotImplementedError, match="ad"):
-            port_batch.price_barrier_batch(pb, n, greeks_mode="ad", device="cpu")
+        # every JAX solver name and greeks_mode is ported; SPIKE has no AD rule
+        with pytest.raises(ValueError, match="no AD rule"):
+            port_batch.price_barrier_batch(pb, n, solver="spike", greeks_mode="ad", device="cpu")
+        with pytest.raises(ValueError, match="unknown greeks_mode"):
+            port_batch.price_barrier_batch(pb, n, greeks_mode="fd", device="cpu")
         with pytest.raises(ValueError, match="unknown solver"):
-            port_batch.price_barrier_batch(pb, n, solver="spectral", device="cpu")
+            port_batch.price_barrier_batch(pb, n, solver="spectral64", device="cpu")
 
     def test_float32_dtype_and_vega_bump(self):
         pb, n = self._batch()

@@ -11,7 +11,10 @@ inputs, at float64 within 1e-11 and float32 within 2e-4 of max|V|
 spike.spike_march_reference), the fused march with Hillis–Steele scans
 (csrc/hs_march.cu, against fused.hs_march_reference) and the fused march
 with cyclic reduction (csrc/cr_march.cu, against cr.cr_march_reference);
-and it shows that each path launches its kernel.
+and it shows that each path launches its kernel. The spectral propagator
+and greeks_mode="ad" (no hand-written kernel) are held on the card against
+the port on the CPU at float64 within 1e-12, and a float32 spectral call
+under TF32 raises rather than lose the sine reconstruction.
 """
 import dataclasses
 
@@ -27,6 +30,7 @@ from finite_difference_tpu_torch.models.pde.batch import (
     build_trade_batch,
     price_american_batch,
     price_barrier_batch,
+    solve_value_surfaces,
 )
 
 pytestmark = pytest.mark.gpu
@@ -237,7 +241,9 @@ def test_main_path_goes_through_the_kernel(cuda):
     kw = _kwargs(seed=3)
     tb = build_trade_batch(device=cuda, **kw)
     kernels.reset_launch_counts()
-    got = price_barrier_batch(tb, 128)  # solver="auto" -> spike on CUDA
+    # the SPIKE route asked for by name: at float64 auto's measured rule
+    # may take the spectral propagator (batch.AUTO_CUDA_RULE)
+    got = price_barrier_batch(tb, 128, solver="spike")
     assert kernels.launch_counts["spike_march_f64"] == 4  # 2 segments x (base + vega bump)
     ref = price_barrier_batch(tb, 128, solver="scan", device="cpu")
     for k in KEYS:
@@ -474,3 +480,118 @@ def test_american_kernel_matches_plain_version_at_main_width(cuda, dtype, limit)
     scale = float(v_r.abs().max())
     assert float((v_k - v_r).abs().max()) <= limit * scale
     assert float((e_k - e_r).abs().max()) <= limit * scale
+
+
+# the spectral propagator and greeks_mode="ad" on the card --------------------
+
+def _spectral_kwargs(B=8, aligned=False):
+    """Up-and-out calls with rebates, 8 monitors (uniform dt) or irregular
+    monitors on a monitor-aligned schedule (per-interval dt)."""
+    rng = np.random.default_rng(5)
+    t = 31.0 / 365.0
+    mons = [t * f for f in (0.13, 0.29, 0.55, 0.62, 0.91)] if aligned else [
+        t * (k + 1) / 8.0 for k in range(8)]
+    kw = dict(
+        spots=list(rng.uniform(180.0, 250.0, B)), strikes=[190.0] * B,
+        sigmas=list(rng.uniform(0.2, 0.35, B)), t_expiry=[t] * B, r=[0.0705] * B,
+        b=[0.0705] * B, is_call=[True] * B, n_time_steps=48, monitor_times=[mons] * B,
+        upper=[260.0] * B, lower=[150.0, None] * (B // 2), rebate=[1.0] * B,
+        num_space_nodes=127,
+    )
+    if aligned:
+        kw.update(monitor_aligned=True, steps_per_interval=7)
+    return kw
+
+
+@pytest.mark.parametrize("solver", ["spectral", "spectral_x64dst"])
+@pytest.mark.parametrize("aligned", [False, True])
+def test_spectral_on_the_card_matches_the_cpu(cuda, solver, aligned):
+    """V within 1e-12 of max|V|; the greeks, whose bump and second
+    difference amplify V's roundings (the DSTs sum in another order on the
+    card), within 1e-9, as the other card tests hold them."""
+    tb = build_trade_batch(device="cpu", **_spectral_kwargs(aligned=aligned))
+    v_ref, s_ref = solve_value_surfaces(tb, 128, solver=solver, device="cpu")
+    v, s = solve_value_surfaces(tb.to(cuda), 128, solver=solver)
+    assert v.is_cuda
+    scale = float(v_ref.abs().max())
+    assert float((v.cpu() - v_ref).abs().max()) <= 1e-12 * scale
+    ref = price_barrier_batch(tb, 128, solver=solver, device="cpu")
+    got = price_barrier_batch(tb.to(cuda), 128, solver=solver)
+    for k in KEYS:
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-9, atol=1e-9, err_msg=k)
+
+
+def test_float32_spectral_refuses_tf32(cuda):
+    """TF32's 10-bit mantissa would destroy the sine reconstruction: with
+    TF32 on, a float32 DST raises; with it off the call runs at full
+    float32 (and the float64 DSTs of spectral_x64dst are unaffected)."""
+    tb = build_trade_batch(dtype=torch.float32, device=cuda, **_spectral_kwargs())
+    plain = price_barrier_batch(tb, 128, with_greeks=False, solver="spectral")
+    x64 = price_barrier_batch(tb, 128, with_greeks=False, solver="spectral_x64dst")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(ValueError, match="TF32"):
+            price_barrier_batch(tb, 128, with_greeks=False, solver="spectral")
+        again = price_barrier_batch(tb, 128, with_greeks=False, solver="spectral_x64dst")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(again["price"], x64["price"])
+    assert torch.equal(price_barrier_batch(tb, 128, with_greeks=False, solver="spectral")["price"],
+                       plain["price"])
+
+
+@pytest.mark.parametrize("route", ["barrier_scan", "barrier_spectral", "american_scan"])
+def test_ad_on_the_card_matches_the_cpu(cuda, route):
+    if route.startswith("american"):
+        tb = build_american_batch(device="cpu", **_american_kwargs(seed=6, B=8))
+        price = price_american_batch
+    else:
+        tb = build_trade_batch(device="cpu", **_spectral_kwargs())
+        price = price_barrier_batch
+    solver = route.split("_")[1]
+    ref = price(tb, 128, greeks_mode="ad", solver=solver, device="cpu")
+    kernels.reset_launch_counts()
+    got = price(tb.to(cuda), 128, greeks_mode="ad", solver=solver)
+    assert not any(kernels.launch_counts.values())
+    for k in ref:  # the jvp's vega has no bump to amplify V's roundings
+        tol = 1e-11 * float(ref[k].abs().max()) if k in ("price", "vega") else 1e-9
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=0.0, atol=tol, err_msg=k)
+    with pytest.raises(ValueError, match="no AD rule"):
+        price(tb.to(cuda), 128, greeks_mode="ad", solver="spike")
+
+
+def test_auto_sends_a_refused_float32_batch_to_the_scan(cuda, monkeypatch):
+    """A float32 batch whose spectral layout is admitted, with the interface
+    guard's verdict forced to a refusal (a batch the guard refuses for real
+    is drift dominated, and the layout refuses it too): auto prices it on
+    the scan, with no SPIKE launch, never on the float32 spectral route."""
+    from finite_difference_tpu_torch.models.pde import batch as port_batch
+
+    tb = build_trade_batch(dtype=torch.float32, device=cuda, **_spectral_kwargs())
+    assert port_batch._spectral_layout(tb, 128) is not None
+    monkeypatch.setattr(port_batch, "prepare_spike", lambda *a, **k: None)
+    kernels.reset_launch_counts()
+    got = price_barrier_batch(tb, 128)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts.values())
+    monkeypatch.undo()
+    ref = price_barrier_batch(tb, 128, solver="scan")
+    assert set(got) == set(ref)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], msg=k)
+
+
+def test_auto_sends_a_float32_ad_call_to_the_scan(cuda):
+    """greeks_mode="ad" under auto on a float32 batch that SPIKE and the
+    spectral layout both admit: the scan (SPIKE has no AD rule, and float32
+    never takes the spectral route on a card)."""
+    tb = build_trade_batch(dtype=torch.float32, device=cuda, **_spectral_kwargs())
+    kernels.reset_launch_counts()
+    got = price_barrier_batch(tb, 128, greeks_mode="ad")
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts.values())
+    ref = price_barrier_batch(tb, 128, greeks_mode="ad", solver="scan")
+    spectral = price_barrier_batch(tb, 128, greeks_mode="ad", solver="spectral")
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], msg=k)
+    assert not torch.equal(got["price"], spectral["price"])

@@ -13,6 +13,8 @@ refuses, ``solver="auto"`` takes the scan for the whole call, from the
 prep's verdict and without a second prep; an explicit ``solver="spike"``
 raises.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -318,13 +320,55 @@ def test_interface_guard_holds_the_block_pivot_floor(tip, refused):
 
 # solver="auto" on a batch that the guard refuses: a choice of route ---------
 
-@pytest.mark.parametrize("device_type", ["cuda", "cpu"])
-@pytest.mark.parametrize("eligible", [True, False])
-@pytest.mark.parametrize("guard_passed", [True, False])
-def test_auto_route_reads_device_schedule_and_guard(device_type, eligible, guard_passed):
+# (device, SPIKE-eligible, guard passed, layout admitted, american, float64,
+# ad) -> the route; every combination whose answer differs, written out
+_AUTO_ROUTES = {
+    # off CUDA, the JAX package's CPU rule: spectral wherever the layout admits
+    "cpu-f32-spectral": (("cpu", True, True, True, False, False, False), "spectral"),
+    "cpu-f64-ad-spectral": (("cpu", False, False, True, False, True, True), "spectral"),
+    "cpu-no-layout": (("cpu", True, True, False, False, True, False), "scan"),
+    "cpu-american": (("cpu", True, True, True, True, False, False), "scan"),
+    "cpu-f32-no-layout": (("cpu", True, True, False, False, False, False), "scan"),
+    "cpu-ineligible": (("cpu", False, True, False, False, False, False), "scan"),
+    "cpu-refused": (("cpu", True, False, False, False, False, False), "scan"),
+    "cpu-ineligible-refused": (("cpu", False, False, False, False, False, False), "scan"),
+    # on CUDA, float32: SPIKE, else the scan, never spectral
+    "cuda-f32-spike": (("cuda", True, True, True, False, False, False), "spike"),
+    "cuda-f32-no-layout-spike": (("cuda", True, True, False, False, False, False), "spike"),
+    "cuda-f32-refused": (("cuda", True, False, True, False, False, False), "scan"),
+    "cuda-f32-ad": (("cuda", True, True, True, False, False, True), "scan"),
+    "cuda-f32-ineligible": (("cuda", False, True, True, False, False, False), "scan"),
+    "cuda-f32-no-layout-refused": (("cuda", True, False, False, False, False, False), "scan"),
+    "cuda-f32-no-layout-ineligible": (("cuda", False, True, False, False, False, False), "scan"),
+    "cuda-f32-none": (("cuda", False, False, False, False, False, False), "scan"),
+    # on CUDA, float64: spectral, else SPIKE, else the scan
+    "cuda-f64-spectral": (("cuda", True, True, True, False, True, False), "spectral"),
+    "cuda-f64-ad-spectral": (("cuda", True, True, True, False, True, True), "spectral"),
+    "cuda-f64-refused-spectral": (("cuda", True, False, True, False, True, False), "spectral"),
+    "cuda-f64-no-layout-spike": (("cuda", True, True, False, False, True, False), "spike"),
+    "cuda-f64-no-layout-refused": (("cuda", True, False, False, False, True, False), "scan"),
+    "cuda-f64-no-layout-ad": (("cuda", True, True, False, False, True, True), "scan"),
+    "cuda-f64-no-layout-ineligible": (("cuda", False, True, False, False, True, False), "scan"),
+    # the American path: SPIKE, else the scan
+    "cuda-american-f64-spike": (("cuda", True, True, True, True, True, False), "spike"),
+    "cuda-american-f32-spike": (("cuda", True, True, False, True, False, False), "spike"),
+    "cuda-american-refused": (("cuda", True, False, False, True, True, False), "scan"),
+    "cuda-american-ad": (("cuda", True, True, False, True, False, True), "scan"),
+    "cuda-american-ineligible": (("cuda", False, True, False, True, False, False), "scan"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_AUTO_ROUTES))
+def test_auto_route_reads_device_schedule_and_guard(case):
+    """Off CUDA the JAX package's CPU rule; on CUDA its accelerator rule:
+    float64 spectral where the layout admits, else SPIKE where it is
+    eligible, the guard passed and no jvp is asked, else the scan; float32
+    SPIKE or the scan; American SPIKE or the scan."""
+    (device_type, eligible, guard_passed, spectral_ok, american, float64, ad), want = _AUTO_ROUTES[case]
     sched = ((0, 4, 0),) if eligible else None
-    want = "spike" if device_type == "cuda" and eligible and guard_passed else "scan"
-    assert port_batch.auto_solver(device_type, sched, guard_passed) == want
+    got = port_batch.auto_solver(device_type, sched, guard_passed, spectral_ok=spectral_ok,
+                                 american=american, float64=float64, ad=ad)
+    assert got == want
 
 
 def _drift_dominated_batch(american: bool):
@@ -355,17 +399,22 @@ def test_explicit_spike_still_raises_where_the_guard_refuses(american):
         price(tb, 128, solver="spike", device="cpu")
 
 
-def _auto_as_on_a_card(monkeypatch):
+def _auto_as_on_a_card(monkeypatch, refuse: bool = False):
     """The driver's auto route with the CPU read as CUDA (the march then
-    runs its plain version), and a count of the SPIKE preps it makes."""
+    runs its plain version), and a count of the SPIKE preps it makes;
+    ``refuse`` makes the interface guard refuse every prep."""
     real = port_batch.auto_solver
     monkeypatch.setattr(port_batch, "auto_solver",
-                        lambda dev, sched, passed: real("cuda", sched, passed))
+                        lambda dev, sched, passed, **kw: real("cuda", sched, passed, **kw))
     preps = []
+
+    def counted(*a, _fn, **k):
+        preps.append(a[3])
+        return None if refuse else _fn(*a, **k)
+
     for module in (port_batch, spike):
-        fn = module.prepare_spike
         monkeypatch.setattr(module, "prepare_spike",
-                            lambda *a, _fn=fn, **k: preps.append(a[3]) or _fn(*a, **k))
+                            lambda *a, _fn=module.prepare_spike, **k: counted(*a, _fn=_fn, **k))
     return preps
 
 
@@ -402,5 +451,50 @@ def test_auto_route_preps_each_sigma_once_where_the_guard_passes(monkeypatch, am
     preps = _auto_as_on_a_card(monkeypatch)
     got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched, **kw)
     assert preps == [None, None]  # at the rule's P, one per sigma
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0.0, atol=0.0)
+
+
+def _layout_batch(dtype):
+    """A SPIKE-eligible batch whose spectral layout is admitted at ``dtype``,
+    with the layout attached (as ``_route`` attaches it)."""
+    tb = build_trade_batch(device="cpu", dtype=dtype, **_kwargs(B=4))
+    layout = port_batch._spectral_layout(tb, 128)
+    assert layout is not None and _spike_schedule_impl(tb, 128) is not None
+    return replace(tb, **dict(zip(port_batch.SP_FIELDS, layout)))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "scan"), (torch.float64, "spectral")])
+def test_auto_route_after_a_guard_refusal_keeps_float32_off_spectral(monkeypatch, dtype, route):
+    """The guard refuses (forced here: a batch it refuses for real is drift
+    dominated, |mu|*dx > sigma^2, and then the layout refuses it too) a
+    batch whose spectral layout is admitted: on a card a float32 call then
+    takes the scan, never the float32 spectral propagator, which misses the
+    f32 limits; a float64 call the spectral propagator (the JAX package's
+    accelerator rule: f32 SPIKE or the scan, f64 spectral)."""
+    tb = _layout_batch(dtype)
+    sched = _spike_schedule_impl(tb, 128)
+    preps = _auto_as_on_a_card(monkeypatch, refuse=True)
+    got = port_batch._run_batch_driver(tb, 128, None, True, 1024, "bump", "auto", sched)
+    assert len(preps) == 1
+    monkeypatch.undo()
+    ref = port_batch.price_barrier_batch(tb, 128, solver=route, device="cpu")
+    assert set(got) == set(ref)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0.0, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "scan"), (torch.float64, "spectral")])
+def test_auto_route_of_an_ad_call_on_a_card(monkeypatch, dtype, route):
+    """greeks_mode="ad" under auto on a card, on a batch that SPIKE and the
+    spectral layout both admit: float32 takes the scan (SPIKE has no AD
+    rule, and float32 never takes spectral), float64 the spectral route."""
+    tb = build_trade_batch(device="cpu", dtype=dtype, **_kwargs(B=4))
+    preps = _auto_as_on_a_card(monkeypatch)
+    got = port_batch.price_barrier_batch(tb, 128, greeks_mode="ad", device="cpu")
+    assert preps == []
+    monkeypatch.undo()
+    ref = port_batch.price_barrier_batch(tb, 128, greeks_mode="ad", solver=route, device="cpu")
+    assert set(got) == set(ref)
     for k in ref:
         torch.testing.assert_close(got[k], ref[k], rtol=0.0, atol=0.0)
