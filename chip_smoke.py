@@ -23,7 +23,11 @@ phase:
 - the spectral propagator (``solver="spectral"``) on the barrier set at
   f64 and f32, its f32 rungs, ``greeks_mode="ad"``,
   ``solve_value_surfaces``, and the route sweep that ``solver="auto"``'s
-  rule on the card (``batch.auto_solver``) rests on.
+  rule on the card (``batch.auto_solver``) rests on;
+- the serving path: the bucketed barrier and American services on a
+  desk's mixed stream at buckets 8 to 4096 (float32 price only through
+  K1 and K1a, float64 with greeks through the spectral route and K2), and
+  the micro-batching HTTP server on the float64 barrier service.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -76,6 +80,10 @@ CR_SWEEP_N = (130, 258, 514, 1026, 2050)  # its grid sweep at 4 trades per SM
 ROUTE_SWEEP_B = (256, 1024, 4096)  # batches at which auto's routes are timed
 ROUTE_REPS = 9  # host-clock calls of spike and spectral there, interleaved, after a warm-up
 ROUTE_RECORD_REPS = 3  # host-clock calls of the fused march and the scan (for the record)
+SERVE_BUCKETS = (8, 64, 512, 4096)  # the serving phase's buckets, per service
+SERVE_REQUESTS = 20  # fresh mixed requests per service and bucket: the first, then steady
+SERVER_CLIENTS = 256  # concurrent 1-trade clients of the server
+SERVER_BURST = 24  # then a burst of requests of 1-512 trades
 
 # the American trade set (bench.py make_american_batch): 1-year puts,
 # spots U(80, 120), sigma U(0.15, 0.40), seed 7, K=100, r=0.06, b=0.02;
@@ -838,9 +846,10 @@ def spectral_phases(dev, card: dict) -> None:
       at f32 (Black–Scholes, and main_path's f32 limits against the f64
       route) gate auto: where f32 misses them, auto_solver must not route a
       float32 batch to spectral on any of its inputs (checked), and the
-      sweep leaves f32 spectral out of the measured rule. The first f64
-      call's ms (warm-up and graph capture) and the card memory it leaves
-      reserved (the CUDA graph's pool). spectral_x64dst and spectral_mixed
+      sweep leaves f32 spectral out of the measured rule. The first
+      call's ms (eager: spectral.run_graphed's capture rule) and the
+      greeks call after it, which captures the CUDA graph, with the card
+      memory they leave reserved (the graph's pool). spectral_x64dst and spectral_mixed
       at f32, B=256, against f64 (1e-3 per trade: the JAX package's
       TestX64DstRescue floors); an f32 call under TF32 raises (or equals).
     - ad: greeks_mode="ad" at f64, B=256, on the barrier scan, the American
@@ -891,7 +900,8 @@ def spectral_phases(dev, card: dict) -> None:
     for dtype in (torch.float64, torch.float32):
         tb = build(B_MAIN, dtype)
         label = str(dtype).split(".")[-1]
-        # the first call warms up, captures the CUDA graph and replays it
+        # the first call of a key runs eagerly (the capture rule of
+        # spectral.run_graphed); the greeks call after it captures
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reserved0 = torch.cuda.memory_reserved()
@@ -899,9 +909,13 @@ def spectral_phases(dev, card: dict) -> None:
         out_p = price(tb, N_NODES, with_greeks=False, solver="spectral")
         torch.cuda.synchronize()
         first_call = dict(ms=(time.perf_counter() - t0) * 1e3,
-                          reserved_bytes=torch.cuda.memory_reserved() - reserved0,
-                          peak_reserved_bytes=torch.cuda.max_memory_reserved())
+                          reserved_bytes=torch.cuda.memory_reserved() - reserved0)
+        t0 = time.perf_counter()
         out_g = price(tb, N_NODES, with_greeks=True, solver="spectral", dv_sigma=1e-2)
+        torch.cuda.synchronize()
+        capture_call = dict(ms=(time.perf_counter() - t0) * 1e3,
+                            reserved_bytes=torch.cuda.memory_reserved() - reserved0,
+                            peak_reserved_bytes=torch.cuda.max_memory_reserved())
         for key, val in {**out_p, **out_g}.items():
             check(val.shape == (B_MAIN,) and bool(torch.isfinite(val).all()),
                   f"spectral {label} {key} not finite")
@@ -942,7 +956,8 @@ def spectral_phases(dev, card: dict) -> None:
         torch.cuda.synchronize()
         auto_route = "spike" if any(kernels.launch_counts.values()) else "not spike"
         emit("spectral", dtype=label, B=B_MAIN, N=N_NODES, steps=N_STEPS, monitors=24,
-             far_barrier_max_rel_err_vs_bs=bs_err, **accuracy, first_call=first_call, timing=timing,
+             far_barrier_max_rel_err_vs_bs=bs_err, **accuracy, first_call=first_call,
+             greeks_call_capturing=capture_call, timing=timing,
              auto_route_price_only=auto_route, **card)
         del tb, out_p, out_g
 
@@ -1034,7 +1049,8 @@ def spectral_phases(dev, card: dict) -> None:
                 calls = {route: (lambda r=route: price(tb, N_NODES, with_greeks=greeks, solver=r))
                          for route in ("spike", "spectral")}
                 runs = {route: [] for route in calls}
-                for fn in calls.values():
+                for fn in calls.values():  # twice: spectral captures on a key's second call
+                    fn()
                     fn()
                 for rep in range(ROUTE_REPS):  # interleaved, the order turned every call
                     for route in (("spike", "spectral") if rep % 2 == 0 else ("spectral", "spike")):
@@ -1068,6 +1084,307 @@ def spectral_phases(dev, card: dict) -> None:
          unresolved=sum(c["measured"] == "unresolved" for c in cells),
          graphs_cached=len(spectral._GRAPHS), graph_cache_size=spectral.GRAPH_CACHE_SIZE,
          reserved_bytes=torch.cuda.memory_reserved(), wall_s=time.perf_counter() - t_phase, **card)
+
+
+def serving_trades(kind: str, n: int, rng) -> list:
+    """A request of ``n`` trade dicts, as a desk's stream mixes them.
+
+    barrier: bench_trades's underlyings (spots U(180, 250), sigma
+    U(0.2, 0.35), K=190, r=b=0.0705), each with its own expiry (0.5-2x the
+    set's month) and monitor count (4-24, evenly spaced): up-and-out at the
+    set's far barrier (H=420), up-and-out at a near barrier (H U(260, 320))
+    with a rebate of 1 at hit, its up-and-in twin with a rebate of 1, and
+    vanillas. american: american_trades's puts (spots U(80, 120), sigma
+    U(0.15, 0.40), K=100, r=0.06, b=0.02), each with its own expiry
+    (0.25-2 years), no dividends."""
+    if kind == "barrier":
+        _, spots, sigmas = bench_trades(B_MAIN)
+    else:
+        _, spots, sigmas = american_trades(B_MAIN)
+    idx = rng.integers(0, B_MAIN, n)
+    out = []
+    for i in idx:
+        if kind == "american":
+            out.append(dict(spot=float(spots[i]), strike=AM_STRIKE, sigma=float(sigmas[i]),
+                            t_expiry=float(rng.uniform(0.25, 2.0)), r=AM_RATE, b=AM_CARRY))
+            continue
+        t = T_EXP * float(rng.uniform(0.5, 2.0))
+        n_mon = int(rng.integers(4, 25))
+        trade = dict(spot=float(spots[i]), strike=STRIKE, sigma=float(sigmas[i]), t_expiry=t,
+                     r=RATE, monitor_times=[t * (k + 1) / n_mon for k in range(n_mon)])
+        style = int(rng.integers(0, 4))
+        near = float(rng.uniform(260.0, 320.0))
+        trade.update((dict(barrier_type="up-and-out", upper=BARRIER),
+                      dict(barrier_type="up-and-out", upper=near, rebate=1.0, rebate_at_hit=True),
+                      dict(barrier_type="up-and-in", upper=near, rebate=1.0),
+                      dict(barrier_type="none"))[style])
+        out.append(trade)
+    return out
+
+
+def rows_error(got: list, want: list, keys=None, per_trade_price: bool = False) -> dict:
+    """Each output's max error over the rows, of its max|want| (price per
+    trade with ``per_trade_price``)."""
+    errs = {}
+    for k in keys or want[0]:
+        g = np.array([r[k] for r in got])
+        w = np.array([r[k] for r in want])
+        if k == "price" and per_trade_price:
+            errs[k] = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-8)))
+        else:
+            errs[k] = float(np.max(np.abs(g - w)) / max(float(np.max(np.abs(w))), 1e-300))
+    return errs
+
+
+def serving_phases(dev, card: dict) -> dict:
+    """The serving path: the port's bucketed services and micro-batching
+    server at full width (512 steps, 1024 nodes), on a desk's mixed stream
+    (:func:`serving_trades`).
+
+    - Four services: barrier float32 price only (SPIKE, K1), barrier
+      float64 with greeks (the default: spectral), American float64 with
+      greeks (the default: K2), American float32 price only (K1a). At each
+      bucket of :data:`SERVE_BUCKETS`, :data:`SERVE_REQUESTS` requests of
+      fresh mixes (half the bucket to the bucket): the first request's ms,
+      the steady ms (median, min, max of the rest), the K1/K1a/K2 launches
+      and the spectral graph counts over them (eager first sightings,
+      captures, replays), the route, one request's host build ms
+      (``build_batch``) and price ms (the driver call on that batch), its
+      device kernels (profiler), and the card memory reserved.
+    - Checks: each service's rows equal a direct ``price_barrier_batch`` /
+      ``price_american_batch`` call on the same padded bucket (knock-ins
+      excepted: they are served by parity), within 1e-12 of max|value| at
+      float64 and 2e-4 at float32; served KO + KI = generalized
+      Black–Scholes + R·DF within 1e-10 (float64); the hybrid lane on the
+      card (``greeks_mode="ad"``) equals the port's analytic lane on the
+      CPU within 1e-12 (theta, a central maturity bump of 1e-5, within
+      1e-9); the launches of K1, K1a and K2 on their services.
+    - Policy evidence (not a gate): float32 services with greeks
+      (``greeks_dtype=float32``) against the float64 ones, per greek,
+      beside the f32 limits of the earlier phases.
+    - Server: ``PricingServer`` at ``window_ms=5`` on the float64 barrier
+      service; :data:`SERVER_CLIENTS` concurrent 1-trade clients, then a
+      burst of :data:`SERVER_BURST` requests of 1-512 trades: latency p50
+      and p99, batches, trades per batch, trades per second; every response
+      against ``service.price`` of the same trades within 1e-9.
+    """
+    import http.client
+    import statistics
+    import threading
+
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.analytic import (
+        generalized_bs_price,
+        monitoring_decision,
+    )
+    from finite_difference_tpu_torch.models.pde import spectral
+    from finite_difference_tpu_torch.models.pde.batch import (
+        price_american_batch,
+        price_barrier_batch,
+    )
+    from finite_difference_tpu_torch.serving import (
+        AmericanPricingService,
+        BarrierPricingService,
+        PricingServer,
+    )
+
+    spike_names = ("spike_march_f32", "spike_march_f64", "spike_march_american_f32",
+                   "spike_march_american_f64")
+    services = (
+        ("barrier_f32_price", "barrier", "spike_march_f32",
+         BarrierPricingService(dtype=np.float32, with_greeks=False, device=dev)),
+        ("barrier_f64_greeks", "barrier", None, BarrierPricingService(device=dev)),
+        ("american_f64_greeks", "american", "spike_march_american_f64",
+         AmericanPricingService(device=dev)),
+        ("american_f32_price", "american", "spike_march_american_f32",
+         AmericanPricingService(dtype=np.float32, with_greeks=False, device=dev)),
+    )
+    serving_launches = {}
+    lines = []
+    for label, kind, kernel, svc in services:
+        f64 = svc.dtype == torch.float64
+        check(svc.num_space_nodes + (1 if kind == "barrier" else 2) == N_NODES
+              and svc.n_time_steps == N_STEPS, f"{label} is not at full width")
+        driver = price_barrier_batch if kind == "barrier" else price_american_batch
+        launches_total = dict.fromkeys(spike_names, 0)
+        for bucket in SERVE_BUCKETS:
+            rng = np.random.default_rng(1000 * bucket + len(lines))
+            request = lambda: serving_trades(kind, int(rng.integers(bucket // 2 + 1, bucket + 1)), rng)
+            stream = [request() for _ in range(SERVE_REQUESTS)]
+            kernels.reset_launch_counts()
+            spectral.reset_graph_counts()
+            first_ms = host_ms(lambda: svc.price(stream[0]))[1]
+            steady = [host_ms(lambda: svc.price(req))[1] for req in stream[1:]]
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            graphs = dict(spectral.graph_counts)
+            # a request's first solve is its sighting of its graph key (the
+            # vega bump's solve follows it): what a rule that captured on a
+            # key's first call would have captured
+            graphs["first_sightings"] = graphs["eager"] // (2 if svc.with_greeks else 1)
+            for k in spike_names:
+                launches_total[k] += kernels.launch_counts[k]
+            route = ("spike" if any(launches.get(k) for k in spike_names) else
+                     "spectral" if any(graphs.values()) else "scan")
+            # one request split into its host build and its price, and held
+            # against the driver's call on the same padded bucket
+            trades = request()
+            tb, build_ms = host_ms(lambda: svc.build_batch(trades, bucket))
+            direct, price_ms = host_ms(lambda: driver(tb, N_NODES, with_greeks=svc.with_greeks,
+                                                      solver=svc.solver, device=dev))
+            served = svc.price(trades)
+            keep = [i for i, t in enumerate(trades) if "in" not in t.get("barrier_type", "none")]
+            want = [{k: float(direct[k][i]) for k in served[0]} for i in keep]
+            vs_direct = rows_error([served[i] for i in keep], want)
+            limit = 1e-12 if f64 else 2e-4
+            prof = profile_call(lambda: svc.price(trades), statistics.median(steady))
+            line = dict(service=label, bucket=bucket, requests=SERVE_REQUESTS, route=route,
+                        first_ms=first_ms, steady_ms=dict(median=statistics.median(steady),
+                                                          min=min(steady), max=max(steady)),
+                        trades_per_request=len(trades), build_ms=build_ms, price_ms=price_ms,
+                        device_kernels=prof["device_kernels"], busy_share=prof["busy_share"],
+                        launches=launches, graph_counts=graphs,
+                        graphs_cached=len(spectral._GRAPHS),
+                        reserved_bytes=torch.cuda.memory_reserved(), vs_direct=vs_direct,
+                        limit=limit)
+            emit("serving", dtype=str(svc.dtype), with_greeks=svc.with_greeks, N=N_NODES,
+                 steps=N_STEPS, **line, **card)
+            lines.append(line)
+            for k, v in vs_direct.items():
+                check(math.isfinite(v) and v <= limit,
+                      f"{label} B={bucket} {k} vs the direct call {v:.3e} > {limit}")
+        if kernel is not None:
+            check(launches_total[kernel] > 0, f"the {label} service launched no {kernel} kernel")
+            serving_launches[kernel] = launches_total[kernel]
+
+    svc32, svc64, am64, am32 = (svc for *_, svc in services)
+
+    # knock-in parity: KO + KI = generalized Black–Scholes + R·DF (float64)
+    rng = np.random.default_rng(5)
+    twins = []
+    for t in serving_trades("barrier", 32, rng):
+        t.update(barrier_type="up-and-out", upper=float(rng.uniform(260.0, 320.0)),
+                 rebate=float(rng.uniform(0.5, 2.0)), rebate_at_hit=False)
+        twins += [t, dict(t, barrier_type="up-and-in")]
+    served = svc64.price(twins)
+    col = lambda key: torch.tensor([t[key] for t in twins[::2]], dtype=torch.float64)
+    van = generalized_bs_price(col("spot"), col("strike"), col("sigma"), col("t_expiry"),
+                               col("r"), col("r"), True).numpy()
+    ref = van + (col("rebate") * torch.exp(-col("r") * col("t_expiry"))).numpy()
+    got = np.array([served[2 * i]["price"] + served[2 * i + 1]["price"] for i in range(32)])
+    parity = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+    check(parity <= 1e-10, f"served KO + KI vs Black–Scholes + R·DF {parity:.3e} > 1e-10")
+
+    # the hybrid lane on the card against the port's analytic lane on the CPU
+    hyb = dict(route="hybrid", greeks_mode="ad")
+    trades = serving_trades("barrier", 64, rng)
+    for t in trades[::2]:
+        t.update(barrier_type="up-and-out", upper=float(rng.uniform(260.0, 320.0)), rebate=0.0,
+                 monitor_times=[t["t_expiry"] * (k + 1) / 2100 for k in range(2100)])
+    served = BarrierPricingService(device=dev, **hyb).price(trades)
+    cpu = BarrierPricingService(device="cpu", **hyb)
+    cont = list(range(0, 64, 2))
+    use_cont, adj = monitoring_decision(
+        np.array([trades[i]["t_expiry"] for i in cont]), cpu._monitors([trades[i] for i in cont]),
+        np.array([trades[i]["sigma"] for i in cont]))
+    check(bool(use_cont.all()), "the hybrid check's dense trades are not in the continuous regime")
+    want = cpu._price_continuous([trades[i] for i in cont], adj)
+    hybrid = rows_error([served[i] for i in cont], want)
+    for k, v in hybrid.items():
+        lim = 1e-9 if k == "theta" else 1e-12
+        check(v <= lim, f"hybrid lane on the card vs the CPU {k} {v:.3e} > {lim}")
+
+    # policy evidence: float32 greeks against the float64 services
+    policy = {}
+    limits_policy = {
+        "barrier": {"price": 1e-3, "delta": 1e-2, "gamma": 1e-2, "theta": 1e-2, "vega": 5e-2},
+        "american": {"price": 2e-3, "delta": 1e-2, "gamma": 1e-1, "vega": 5e-2},
+    }
+    for kind, ref_svc, cls in (("barrier", svc64, BarrierPricingService),
+                               ("american", am64, AmericanPricingService)):
+        check(cls(dtype=np.float32, device=dev).dtype == torch.float64,
+              f"a float32 {kind} service with greeks does not solve at float64")
+        f32g = cls(dtype=np.float32, greeks_dtype=np.float32, device=dev)
+        trades = serving_trades(kind, 512, np.random.default_rng(6))
+        got, want = f32g.price(trades), ref_svc.price(trades)
+        errs = rows_error(got, want, per_trade_price=True)
+        policy[kind] = dict(f32_vs_f64=errs, limits=limits_policy[kind],
+                            price_of_max_price=rows_error(got, want, keys=["price"])["price"],
+                            within={k: errs[k] <= lim for k, lim in limits_policy[kind].items()},
+                            max_over_1e_3={k: errs[k] / 1e-3 for k in errs})
+    emit("serving_checks", dtype="float64", N=N_NODES, steps=N_STEPS,
+         ki_parity_vs_bs_plus_rebate=parity, ki_limit=1e-10, hybrid_ad_vs_cpu=hybrid,
+         hybrid_limits={"theta": 1e-9, "others": 1e-12}, policy=policy,
+         serving_launches=serving_launches, **card)
+
+    # the micro-batching server on the float64 barrier service
+    def post(srv, trades):
+        conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/price", json.dumps({"trades": trades}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            return resp.status, body, (time.perf_counter() - t0) * 1e3
+        finally:
+            conn.close()
+
+    def wave(srv, requests):
+        out = [None] * len(requests)
+        start = threading.Barrier(len(requests))
+
+        def client(i):
+            start.wait()
+            out[i] = post(srv, requests[i])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        batches0, t0 = srv.stats["batches"], time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600.0)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a server client did not finish")
+        check(all(o[0] == 200 for o in out), f"server statuses {sorted({o[0] for o in out})}")
+        lat = np.array([o[2] for o in out])
+        n_trades = sum(len(r) for r in requests)
+        batches = srv.stats["batches"] - batches0
+        return [o[1]["results"] for o in out], dict(
+            requests=len(requests), trades=n_trades, p50_ms=float(np.percentile(lat, 50)),
+            p99_ms=float(np.percentile(lat, 99)), max_ms=float(lat.max()), batches=batches,
+            trades_per_batch=n_trades / max(batches, 1), trades_per_s=n_trades / wall, wall_s=wall)
+
+    rng = np.random.default_rng(8)
+    singles = [serving_trades("barrier", 1, rng) for _ in range(SERVER_CLIENTS)]
+    burst = [serving_trades("barrier", int(n), rng) for n in rng.integers(1, 513, SERVER_BURST)]
+    with PricingServer(svc64, window_ms=5.0, max_queue=1024) as srv:
+        got_singles, single_stats = wave(srv, singles)
+        got_burst, burst_stats = wave(srv, burst)
+        server_stats = dict(srv.stats)
+        backend = srv.backend
+    # the references, after the server stopped: service.price of the same trades
+    server_err = {}
+    for label, reqs, got in (("singles", singles, got_singles), ("burst", burst, got_burst)):
+        want, group = [], []
+        for req in reqs + [None]:
+            if req is None or sum(map(len, group)) + len(req) > svc64.max_bucket:
+                rows = svc64.price([t for g in group for t in g])
+                for g in group:
+                    want.append(rows[:len(g)])
+                    rows = rows[len(g):]
+                group = []
+            if req is not None:
+                group.append(req)
+        server_err[label] = rows_error([r for g in got for r in g], [r for g in want for r in g])
+    emit("serving_server", service="barrier_f64_greeks", window_ms=5.0, backend=backend,
+         singles=single_stats, burst=burst_stats, stats=server_stats,
+         vs_service_price=server_err, limit=1e-9, **card)
+    for label, errs in server_err.items():
+        for k, v in errs.items():
+            check(v <= 1e-9, f"server {label} {k} vs service.price {v:.3e} > 1e-9")
+    return serving_launches
 
 
 def main() -> int:
@@ -1241,6 +1558,13 @@ def main() -> int:
     t1 = time.perf_counter()
     spectral_phases(dev, card)
     wall["15-18 spectral, ad, surfaces, route sweep"] = time.perf_counter() - t1
+
+    # 19. the serving path ------------------------------------------------------
+    t1 = time.perf_counter()
+    serving_launches = serving_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["serving_launches"] = serving_launches.get(k["name"], 0)
+    wall["19 serving"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``finite_difference_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package mirrors its layout
-(``models/pde/``, ``ops/``) so each module has an obvious counterpart, and
-imports neither ``jax`` nor anything of ``finite_difference_tpu``.
+(``models/pde/``, ``models/analytic/``, ``ops/``, ``serving/``) so each
+module has an obvious counterpart, and imports neither ``jax`` nor
+anything of ``finite_difference_tpu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card, the default device raises instead of falling back to the CPU.

@@ -470,7 +470,8 @@ def _solve_scan_american(batch: BarrierTradeBatch, sigma, n_nodes: int, with_div
     )
 
 
-def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, graph: bool = False):
+def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, graph: bool = False,
+                    new_call: bool = True):
     """The spectral propagator over the whole batch at ``sigma``, on the
     batch's ``sp_*`` layout (:func:`_spectral_layout`):
 
@@ -480,8 +481,10 @@ def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, 
     - ``"spectral_mixed"``: float64 transcendentals and DSTs, float32
       state (uniform dt only).
 
-    ``graph``: replay the solve from a CUDA graph (``spectral.run_graphed``;
-    a CUDA batch, and not under ``torch.func.jvp``).
+    ``graph``: run the solve by ``spectral.run_graphed``'s capture rule
+    (eager in a key's first driver call, from a CUDA graph after; a CUDA
+    batch, and not under ``torch.func.jvp``); ``new_call``: this solve
+    starts a driver call (False for the vega bump's solve).
     """
     mixed = solver == "spectral_mixed"
     dt = batch.dt[:, 0] if mixed or batch.sp_dt is None else batch.sp_dt
@@ -504,7 +507,7 @@ def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, 
     if solver == "spectral":  # a replay launches no matmul from here: check first
         require_full_float32(batch.x_min.dtype, batch.x_min.device)
     key = (solver, n_nodes, tuple(plan), tuple((t.shape, t.dtype, t.device) for t in tensors))
-    return run_graphed(key, solve, tensors)
+    return run_graphed(key, solve, tensors, new_call)
 
 
 def _resolve_dv_sigma(dv_sigma, sigma: torch.Tensor) -> float:
@@ -610,9 +613,14 @@ def _solve_values(batch: BarrierTradeBatch, n_nodes: int, solver: str, american:
         solve = lambda sg: _solve_scan_american(batch, sg, n_nodes, with_dividends)[0]
     elif solver == "scan":
         solve = lambda sg: _solve_scan(batch, sg, n_nodes)[0]
+    elif ad:
+        solve = lambda sg: _solve_spectral(batch, sg, n_nodes, solver)[0]
     else:
-        graph = batch.x_min.is_cuda and not ad
-        solve = lambda sg: _solve_spectral(batch, sg, n_nodes, solver, graph)[0]
+        # the call's first solve is its sighting of the graph key; the vega
+        # bump's solve follows it (spectral.run_graphed)
+        graph = batch.x_min.is_cuda
+        return [_solve_spectral(batch, sg, n_nodes, solver, graph, new_call=i == 0)[0]
+                for i, sg in enumerate(sigmas)]
     if ad:
         return list(torch.func.jvp(solve, (sigmas[0],), (torch.ones_like(sigmas[0]),)))
     return [solve(sg) for sg in sigmas]

@@ -37,7 +37,7 @@ from __future__ import annotations
 import functools
 import math
 from collections import OrderedDict
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -771,26 +771,55 @@ def spectral_solve_mixed(
 # B=4096 (chip_smoke.py's spectral phase). A graph replays them in one launch.
 # Each graph keeps its own memory pool. chip_smoke.py's spectral phase
 # measures the largest solve it runs (float64, B=4096, N=1024) on an H100:
-# its first call (warm-up, capture, replay) takes about 480 ms against
-# 22 ms replayed and leaves 0.18 GB more reserved; after its route sweep
-# (12 more shapes), with 8 graphs kept, the whole script holds about 4 GB
-# reserved. So 8 graphs cost at most a few GB of an 80 GB card, and a miss
-# costs about 20 replays.
+# its capture (warm-up, capture, replay) takes about 480 ms against 22 ms
+# replayed and leaves 0.18 GB more reserved.
+#
+# The capture rule: in a key's first driver call its solves run eagerly; its
+# second call captures, and later calls replay. The key holds the host plan,
+# which changes with the trades' monitor layout, so a serving stream of
+# mixed trades makes new keys often (every single-trade request padded with
+# its own clones is one); a capture costs about 20 replays and pays only
+# where the key comes back (chip_smoke.py's serving phase counts both). A
+# call's further solves (the vega bump's, of the same key) follow its first:
+# they never capture. GRAPH_CACHE_SIZE covers the serving buckets (8 ...
+# 4096: ten) with room for the other routes' shapes; chip_smoke.py's whole
+# run, serving included, leaves about 5.4 GB reserved on the H100.
 _GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
-GRAPH_CACHE_SIZE = 8  # graphs kept, the least recently used dropped first
+_SEEN: "OrderedDict[tuple, None]" = OrderedDict()  # keys run once, eagerly
+GRAPH_CACHE_SIZE = 16  # graphs kept, the least recently used dropped first
+SEEN_KEYS = 1024  # keys remembered between their first and second call
+graph_counts: Dict[str, int] = {"eager": 0, "captures": 0, "replays": 0}
 
 
-def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-    """``solve(*tensors)`` replayed from a CUDA graph: captured on the first
-    call with this ``key`` (after one warm-up run on a side stream, which
-    builds the DST matrix and cuBLAS's state), which must name everything
-    the captured work depends on besides the values of ``tensors``: their
-    shapes and dtypes, and the host-side plan. Each call copies the inputs
-    into the graph's buffers, replays it and returns clones of the outputs.
-    At most :data:`GRAPH_CACHE_SIZE` graphs are kept, the least recently
-    used dropped first. Not safe to call from two threads at once."""
+def reset_graph_counts() -> None:
+    for name in graph_counts:
+        graph_counts[name] = 0
+
+
+def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
+                new_call: bool = True) -> Tuple[torch.Tensor, ...]:
+    """``solve(*tensors)`` by the capture rule above: eagerly in the first
+    driver call with this ``key``; in the second, captured into a CUDA graph
+    (after one warm-up run on a side stream, which builds the DST matrix and
+    cuBLAS's state) and replayed; later, replayed. ``new_call``: this solve
+    starts a driver call (one sighting of ``key``); a solve that does not
+    replays an existing graph or runs eagerly. ``key`` must name
+    everything the captured work depends on besides the values of
+    ``tensors``: their shapes and dtypes, and the host-side plan. A replay
+    copies the inputs into the graph's buffers and returns clones of the
+    outputs. At most :data:`GRAPH_CACHE_SIZE` graphs are kept, the least
+    recently used dropped first; :data:`graph_counts` counts each kind of
+    call. Not safe to call from two threads at once."""
     hit = _GRAPHS.get(key)
     if hit is None:
+        if not new_call or key not in _SEEN:
+            if new_call:
+                _SEEN[key] = None
+                while len(_SEEN) > SEEN_KEYS:
+                    _SEEN.popitem(last=False)
+            graph_counts["eager"] += 1
+            return tuple(solve(*tensors))
+        del _SEEN[key]
         static = [t.clone() for t in tensors]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -803,8 +832,10 @@ def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor]) -> Tuple[tor
         hit = _GRAPHS[key] = (graph, static, out)
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
+        graph_counts["captures"] += 1
     else:
         _GRAPHS.move_to_end(key)
+    graph_counts["replays"] += 1
     graph, static, out = hit
     for buf, t in zip(static, tensors):
         buf.copy_(t)

@@ -595,3 +595,86 @@ def test_auto_sends_a_float32_ad_call_to_the_scan(cuda):
     for k in ref:
         torch.testing.assert_close(got[k], ref[k], msg=k)
     assert not torch.equal(got["price"], spectral["price"])
+
+
+def _service_trades(seed, n, n_mon=None):
+    """Mixed barrier trades as a desk sends them: expiries, monitor counts
+    (or ``n_mon`` each), barrier types and rebates drawn per trade."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        t = float(rng.uniform(0.05, 0.3))
+        m = n_mon or int(rng.integers(2, 9))
+        kind = ("up-and-out", "up-and-in", "down-and-out", "none")[i % 4]
+        out.append(dict(
+            spot=float(rng.uniform(90.0, 110.0)), strike=float(rng.uniform(95.0, 105.0)),
+            sigma=float(rng.uniform(0.2, 0.4)), t_expiry=t, r=0.05, is_call=kind != "down-and-out",
+            monitor_times=[t * (k + 1) / m for k in range(m)], barrier_type=kind,
+            upper=130.0, lower=80.0, rebate=1.0 if i % 3 == 0 else 0.0,
+        ))
+    return out
+
+
+def test_float32_barrier_service_launches_the_kernel(cuda):
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+
+    kw = dict(n_time_steps=32, num_space_nodes=127, with_greeks=False, dtype=np.float32,
+              min_bucket=8)
+    trades = _service_trades(1, 5)
+    kernels.reset_launch_counts()
+    got = BarrierPricingService(device=cuda, **kw).price(trades)
+    assert kernels.launch_counts["spike_march_f32"] > 0
+    want = BarrierPricingService(device="cpu", **kw).price(trades)
+    scale = max(abs(w["price"]) for w in want)
+    assert max(abs(g["price"] - w["price"]) for g, w in zip(got, want)) <= 2e-4 * scale
+
+
+def test_float64_american_service_launches_the_kernel(cuda):
+    from finite_difference_tpu_torch.serving import AmericanPricingService
+
+    kw = dict(n_time_steps=40, num_space_nodes=126, min_bucket=8)
+    rng = np.random.default_rng(2)
+    trades = [dict(spot=float(s), strike=100.0, sigma=float(v), t_expiry=float(t), r=0.06, b=0.02)
+              for s, v, t in zip(rng.uniform(85, 115, 6), rng.uniform(0.15, 0.4, 6),
+                                 rng.uniform(0.25, 1.5, 6))]
+    kernels.reset_launch_counts()
+    got = AmericanPricingService(device=cuda, **kw).price(trades)
+    assert kernels.launch_counts["spike_march_american_f64"] > 0
+    want = AmericanPricingService(device="cpu", solver="spike", **kw).price(trades)
+    for k in want[0]:
+        scale = max(abs(w[k]) for w in want)
+        assert max(abs(g[k] - w[k]) for g, w in zip(got, want)) <= 1e-9 * scale, k
+
+
+def test_mixed_service_stream_captures_no_graph_after_warm_up(cuda):
+    """The float64 barrier service takes the spectral route, whose graphs
+    are keyed on the trades' monitor layout. A stream of new mixes (each
+    its own layout) runs eagerly and captures nothing; the stream's second
+    pass captures each layout once (the vega bump's solve replays it); the
+    third pass only replays, with the eager pass's results."""
+    from finite_difference_tpu_torch.models.pde import spectral
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+
+    svc = BarrierPricingService(n_time_steps=32, num_space_nodes=127, device=cuda, min_bucket=8)
+    svc.price(_service_trades(3, 5, n_mon=9))  # warm-up: the DST matrix, cuBLAS's state
+    stream = [_service_trades(10 + i, 1 + i % 6, n_mon=2 + i) for i in range(6)]
+    counts = []
+    passes = []
+    for _ in range(3):
+        spectral.reset_graph_counts()
+        kernels.reset_launch_counts()
+        passes.append([svc.price(req) for req in stream])
+        counts.append(dict(spectral.graph_counts))
+        assert not any(kernels.launch_counts.values())
+    assert counts[0] == {"eager": 2 * len(stream), "captures": 0, "replays": 0}
+    assert counts[1] == {"eager": 0, "captures": len(stream), "replays": 2 * len(stream)}
+    assert counts[2] == {"eager": 0, "captures": 0, "replays": 2 * len(stream)}
+    for rows_eager, rows_replayed in zip(passes[0], passes[2]):
+        for g, w in zip(rows_replayed, rows_eager):
+            for k in w:
+                assert g[k] == pytest.approx(w[k], rel=1e-12, abs=1e-12), k
+    want = BarrierPricingService(n_time_steps=32, num_space_nodes=127, device="cpu",
+                                 min_bucket=8).price(stream[1])
+    for g, w in zip(passes[0][1], want):
+        for k in w:
+            assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-12), k

@@ -219,6 +219,11 @@ class TestPortBoundary:
         sources = sorted((REPO_ROOT / "finite_difference_tpu_torch").rglob("*.py"))
         sources.append(REPO_ROOT / "chip_smoke.py")
         assert len(sources) > 5
+        names = {p.relative_to(REPO_ROOT).as_posix() for p in sources}
+        assert {"finite_difference_tpu_torch/ops/special.py",
+                "finite_difference_tpu_torch/models/analytic/batch.py",
+                "finite_difference_tpu_torch/serving/service.py",
+                "finite_difference_tpu_torch/serving/server.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -232,7 +237,9 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.models.pde.fused, "
             "finite_difference_tpu_torch.models.pde.cr, "
             "finite_difference_tpu_torch.kernels, finite_difference_tpu_torch.native, "
-            "finite_difference_tpu_torch.ops.interp; "
+            "finite_difference_tpu_torch.ops.interp, finite_difference_tpu_torch.ops.special, "
+            "finite_difference_tpu_torch.models.analytic, finite_difference_tpu_torch.serving, "
+            "finite_difference_tpu_torch.serving.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu')]; "
             "assert not bad, bad"
