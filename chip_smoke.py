@@ -27,7 +27,12 @@ phase:
 - the serving path: the bucketed barrier and American services on a
   desk's mixed stream at buckets 8 to 4096 (float32 price only through
   K1 and K1a, float64 with greeks through the spectral route and K2), and
-  the micro-batching HTTP server on the float64 barrier service.
+  the micro-batching HTTP server on the float64 barrier service;
+- the FA-validation path (phase 20, :func:`fa_phases`): the xlsx golden
+  rows through the scalar barrier pricer (its scan replayed from CUDA
+  graphs), the American scalar pricers, the batched scenario runners on a
+  4160-row barrier stress table and a 4096-row American table (K2), the
+  per-scenario runner and the two CLIs.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -91,6 +96,72 @@ SERVER_BURST = 24  # then a burst of requests of 1-512 trades
 AM_STRIKE, AM_RATE, AM_CARRY = 100.0, 0.06, 0.02
 AM_DIVIDENDS = [(0.35, 1.2), (0.75, 1.2)]
 B_AM64 = 256  # the float64 rung's batch
+
+# the FA-validation path (phase 20): the xlsx model block of the reference's
+# 500x500 engine (tests/test_xlsx_golden.py:37-82, copied): spot 229.74, a
+# flat NACA of 0.073085649282, valuation 2025-07-28, maturity 2025-08-28,
+# monitored on its 24 South African business days (day offsets below); rows
+# (name, option, barrier type, K, sigma, lower, upper, model price, delta,
+# gamma, vega)
+FA_SPOT, FA_RATE = 229.74, 0.073085649282
+FA_MONITOR_DAYS = (0, 1, 2, 3, 4, 7, 8, 9, 10, 11, 14, 15, 16, 17, 18, 21, 22, 23, 24, 25,
+                   28, 29, 30, 31)
+FA_GOLDEN = [
+    ("co1", "call", "up-and-out", 190.0, 0.287899981643, None, 260.0,
+     32.464174906875897, 0.122330501269814, -0.065045360125054602, -0.80200735270210499),
+    ("co2", "call", "up-and-out", 190.0, 0.287899981643, None, 420.0,
+     40.932576101800002, 0.99120615060498096, 1.23569532945566e-3, 1.5858548508163001e-2),
+    ("co3", "call", "up-and-out", 190.0, 0.287899981643, None, 240.0,
+     12.8984955654629, -0.79900392310436497, -0.053366924178646899, -0.58726173002270299),
+    ("co4", "call", "down-and-out", 200.0, 0.278483170115, 150.0, None,
+     31.1935362626187, 0.96554617906390605, 4.0918919511341301e-3, 0.050774047045720701),
+    ("co5", "call", "down-and-out", 220.0, 0.261319367995, 140.0, None,
+     13.716232712515099, 0.75262636730426602, 0.0180646178608867, 0.2111778964478),
+    ("ci1", "call", "up-and-in", 190.0, 0.287899981643, None, 260.0,
+     8.4683807425467901, 0.86894191858081904, 0.066272829031302993, 0.81786376729908705),
+    ("ci2", "call", "up-and-in", 190.0, 0.287899981643, None, 420.0,
+     -2.04523773632558e-5, 6.6269245653116594e-5, -8.22642320736223e-6, -2.1339111810902901e-6),
+    ("ci3", "call", "up-and-in", 190.0, 0.287899981643, None, 240.0,
+     28.034060083959702, 1.7902763429549899, 0.0545943930848952, 0.60311814461968505),
+    ("ci4", "call", "down-and-in", 200.0, 0.278483170115, 150.0, None,
+     -2.9547590855827302e-5, 2.67928988613941e-4, -2.70330697361353e-5, -9.4173806530761699e-7),
+    ("ci5", "call", "down-and-in", 220.0, 0.261319367995, 140.0, None,
+     -2.16467431446432e-5, 8.8558748080025396e-4, -3.8470577094013699e-5, 1.3839315471386701e-6),
+    ("po1", "put", "up-and-out", 260.0, 0.234882165755, None, 280.0,
+     28.997294437893999, -0.95441823233073797, 6.0885809449473501e-3, 0.064495720763701997),
+    ("po2", "put", "up-and-out", 260.0, 0.234882165755, None, 420.0,
+     28.997359536003501, -0.95422044902792802, 6.1110714591450198e-3, 0.064535977379875903),
+    ("po3", "put", "up-and-out", 260.0, 0.234882165755, None, 240.0,
+     20.8029963459574, -1.6227928623466701, -0.024604102947932902, -0.1913910030364),
+    ("po4", "put", "down-and-out", 250.0, 0.239975287381, 150.0, None,
+     19.862392172093902, -0.860666117466102, 0.0138031902723696, 0.14785509623784701),
+    ("po5", "put", "down-and-out", 230.0, 0.253462822027, 140.0, None,
+     6.2099541607035498, -0.46114326169532399, 0.02340594433781, 0.26569498628736798),
+    ("pi1", "put", "up-and-in", 260.0, 0.234882165755, None, 280.0,
+     1.5431450748337701e-5, 3.3021700531099502e-4, 3.6810978096188997e-5, 3.9856905331703199e-5),
+    ("pi2", "put", "up-and-in", 260.0, 0.234882165755, None, 420.0,
+     -4.9666658700431299e-5, 1.3243370250171001e-4, 1.43204638985185e-5, -3.9971084220269399e-7),
+    ("pi3", "put", "up-and-in", 260.0, 0.234882165755, None, 240.0,
+     8.1943135233874003, 0.66870484702124999, 0.030729494870976402, 0.255926580705434),
+    ("pi4", "put", "down-and-in", 250.0, 0.239975287381, 150.0, None,
+     -9.8732281077928906e-5, -9.9156590774474008e-4, -6.20930541235884e-5, 2.5908121870088499e-6),
+    ("pi5", "put", "down-and-in", 230.0, 0.253462822027, 140.0, None,
+     -9.0546526354096102e-5, 2.0528203486550002e-3, -2.1166298145212901e-5, 4.0009002333363199e-6),
+]
+FA_CPU_ROWS = ("co1", "pi3")  # golden rows held on the card against the CPU
+FA_SPOT_SHOCKS = np.linspace(-0.3, 0.3, 16)  # the stress table: spot -30% ... +30%
+FA_VOL_SHOCKS = np.linspace(0.7, 1.3, 13)  # x sigma x0.7 ... x1.3
+FA_SUBSET = 64  # rows of each table held against the port's CPU runner
+FA_TABLE_CALLS = 3  # runner calls per table: eager, capture, replay (the spectral graph)
+FA_AMERICAN_ROWS = 4096  # the American table: bench.py's put set
+# trade 201870944 of the FA validation notebook (examples/fa_american_validation.py)
+# and FA's own numbers for it
+FIS_TRADE = dict(spot_price=176.39, strike_price=170.0, volatility=0.296783211249,
+                 option_type="put", exercise_type="american", settlement_type="cash",
+                 underlying_spot_days=3, option_spot_days=0, option_settlement_days=0)
+FIS_R_NACC = 0.070538282720
+FIS_FRONT_ARENA = {"Price": 2.9846891127, "Delta": -0.2978815582, "Gamma": 0.0230742255,
+                   "Vega": 0.1778185529, "Theta (Annual)": -27.96921280}
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -571,8 +642,8 @@ def fused_phases(dev, card: dict, limits: dict):
 
     from finite_difference_tpu_torch import kernels
     from finite_difference_tpu_torch.models.pde import cr, fused
+    from finite_difference_tpu_torch.ops.interp import linear_interp
     from finite_difference_tpu_torch.models.pde.batch import (
-        _interp,
         _solve_scan,
         build_trade_batch,
         price_barrier_batch,
@@ -652,7 +723,7 @@ def fused_phases(dev, card: dict, limits: dict):
     check(v_cr.shape == (B_MAIN, N_CR) and bool(torch.isfinite(v_cr).all()), "CR values not finite")
     i = torch.arange(N_CR, dtype=torch.float64, device=dev)
     s_cr = torch.exp(tbc.x_min.double()[:, None] + i[None, :] * tbc.dx.double()[:, None])
-    price_cr = _interp(tbc.s_eff.double(), s_cr, v_cr.double()).cpu().numpy()
+    price_cr = linear_interp(tbc.s_eff.double(), s_cr, v_cr.double()).cpu().numpy()
     bs_cr = black_scholes_call(spots_cr, sigmas_cr)
     bs_err_cr = float(np.max(np.abs(price_cr - bs_cr) / np.maximum(bs_cr, 1e-8)))
     tbc64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_CHECK, N_CR)[0])
@@ -878,6 +949,7 @@ def spectral_phases(dev, card: dict) -> None:
     from finite_difference_tpu_torch import kernels
     from finite_difference_tpu_torch.models.pde import batch as pbatch
     from finite_difference_tpu_torch.models.pde import fused, spectral
+    from finite_difference_tpu_torch.ops.interp import linear_interp
 
     build = lambda B, dtype: pbatch.build_trade_batch(dtype=dtype, device=dev, **bench_trades(B)[0])
     price = pbatch.price_barrier_batch
@@ -1030,7 +1102,7 @@ def spectral_phases(dev, card: dict) -> None:
     ):
         v, s = pbatch.solve_value_surfaces(batch, N_NODES, solver=solver, american=american)
         check(v.shape == s.shape == (B_CHECK, N_NODES) and v.is_cuda, f"surface {label} shape/device")
-        p_surf = pbatch._interp(batch.s_eff, s, v)
+        p_surf = linear_interp(batch.s_eff, s, v)
         p_path = fn(batch, N_NODES, with_greeks=False, solver=solver)["price"]
         surf[label] = float((p_surf - p_path).abs().max() / p_path.abs().max())
         check(surf[label] <= 1e-12, f"surface {label} vs its price path {surf[label]:.3e} > 1e-12")
@@ -1387,6 +1459,337 @@ def serving_phases(dev, card: dict) -> dict:
     return serving_launches
 
 
+def fa_phases(dev, card: dict) -> dict:
+    """Phase 20, the FA-validation path, at the runners' and FA's own widths
+    (float64, 500 steps). Returns the kernels' launches in 20c's tables.
+
+    - 20a, the xlsx golden rows (:data:`FA_GOLDEN`) through
+      ``DiscreteBarrierFDMPricer`` on the card (``price_log2``,
+      ``greeks_log2``; the chooser's 2134 nodes), each held to
+      test_xlsx_golden.py's limits (the ``abs(p) > 1e-3`` split included),
+      :data:`FA_CPU_ROWS` against the port on the CPU (1e-10 of
+      max|value|). Per row its ms, and the graph counts; one key's eager,
+      capture and replayed ms, the replay against the eager run (1e-12),
+      and a solve's device kernels (profiler, on a replay). No kernel of ours
+      runs: the scalar pricers keep to the scan, as the JAX package's do.
+    - 20b, the American scalar pricers: FA trade 201870944 through
+      ``VanillaOptionPricerFIS`` (``price(500)``, ``calculate_greeks(500)``;
+      within FA's 1% materiality) and a one-year put with a cash dividend
+      through ``AmericanFDMPricer`` at 500 x 500 (``price_log2``,
+      ``greeks_log2``), each against the CPU: first-order outputs within
+      1e-10 of max|value|; FIS gamma and theta, second differences over
+      ds = 1e-3 S that multiply a price's rounding by 4/ds^2, within 1e-7.
+    - 20c, the batched runners at a desk's scenario size: the golden
+      trades x :data:`FA_SPOT_SHOCKS` x :data:`FA_VOL_SHOCKS` (4160 rows, a
+      table of calls and one of puts, since a runner prices one option
+      type) through ``run_all_scenarios_batched`` (routes ``pde`` and ``hybrid``;
+      the default 500 steps, 501 nodes: the spectral route on the card),
+      and 4096 rows of bench.py's American put set (spots U(80, 120),
+      sigma U(0.15, 0.40), K=100, seed 7; the runner's flat curve makes
+      r = b = 0.06) through ``run_all_american_scenarios_batched``
+      (Richardson, 500 x 500 and 1000 steps: K2). Per table the ms of each
+      of :data:`FA_TABLE_CALLS` calls, rows/s of the last, its host build
+      ms beside its driver ms, the graph counts, K2's launches and the card
+      memory reserved; the first :data:`FA_SUBSET` rows against the port's
+      CPU runner (barrier 1e-9 of max|price|, American 1e-6), and the
+      barrier batch's spectral prices against the scan on the card (1e-9).
+    - 20d, ``run_all_scenarios`` on the golden rows written as CSVs (calls,
+      puts) gives 20a's numbers exactly; the two CLIs (``--batched``; the
+      barrier CLI on the golden calls) run at once as subprocesses on the
+      card, exit 0 and write their CSVs.
+    """
+    import csv
+    import datetime as dt
+    import statistics
+    import tempfile
+
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.pde import (
+        AmericanFDMPricer,
+        DiscreteBarrierFDMPricer,
+        VanillaOptionPricerFIS,
+        spectral,
+    )
+    from finite_difference_tpu_torch.models.pde import batch as pbatch
+    from finite_difference_tpu_torch.runners import (
+        run_all_american_scenarios_batched,
+        run_all_scenarios,
+        run_all_scenarios_batched,
+    )
+    from finite_difference_tpu_torch.utils.curves import flat_curve, flat_naca_dataframe
+
+    val, mat = dt.date(2025, 7, 28), dt.date(2025, 8, 28)
+    monitors = [val + dt.timedelta(days=d) for d in FA_MONITOR_DAYS]
+    curve = flat_curve(FA_RATE, val)
+    wall = {}
+
+    def rel_err(got: dict, want: dict, keys=None) -> float:
+        keys = keys or list(want)
+        scale = max(abs(float(want[k])) for k in keys)
+        return max(abs(float(got[k]) - float(want[k])) for k in keys) / scale
+
+    def golden_pricer(row, device):
+        _, opt, btype, k, sigma, lower, upper = row[:7]
+        return DiscreteBarrierFDMPricer(
+            spot=FA_SPOT, strike=k, valuation_date=val, maturity_date=mat, sigma=sigma,
+            option_type=opt, barrier_type=btype, lower_barrier=lower, upper_barrier=upper,
+            monitor_dates=monitors, discount_curve=curve, forward_curve=curve,
+            underlying_spot_days=0, option_days=0, option_settlement_days=0,
+            num_space_nodes=500, num_time_steps=500, device=device,
+        )
+
+    def priced(pricer) -> dict:
+        g = pricer.greeks_log2()
+        return {"price": pricer.price_log2(), **{k: g[k] for k in ("delta", "gamma", "vega", "theta")}}
+
+    # 20a. the golden rows on the scalar barrier pricer ---------------------------
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    # the capture rule on one key: a three-sigma solve on co1's grid
+    p0 = golden_pricer(FA_GOLDEN[0], dev)
+    sig = p0.sigma
+    solve3 = lambda: p0._solve_grids([sig, sig + 1e-4, sig - 1e-4], "up-and-out")
+    spectral.reset_graph_counts()
+    v_eager, eager_ms = host_ms(solve3)
+    _, capture_ms = host_ms(solve3)
+    v_replay, replay_ms = host_ms(solve3)
+    prof = profile_call(solve3, replay_ms)
+    key_counts = dict(spectral.graph_counts)
+    check(key_counts == {"eager": 1, "captures": 1, "replays": 3},
+          f"the scan's capture rule: {key_counts}")
+    replay_err = float(np.abs(v_replay - v_eager).max() / np.abs(v_eager).max())
+    check(replay_err <= 1e-12, f"replayed scan vs its eager run {replay_err:.3e} > 1e-12")
+    emit("fa_scan_key", B=3, N=p0.grid.n_nodes, steps=500, eager_ms=eager_ms,
+         capture_ms=capture_ms, replay_ms=replay_ms, replay_vs_eager=replay_err,
+         device_kernels_per_solve=prof["device_kernels"], replay_device_ms=prof["device_ms"],
+         replay_busy_share=prof["busy_share"], graphs=key_counts, **card)
+
+    spectral.reset_graph_counts()
+    golden, row_ms = {}, []
+    for row in FA_GOLDEN:
+        name, p, d, g, v = row[0], *row[7:]
+        pricer = golden_pricer(row, dev)
+        out, ms = host_ms(lambda: priced(pricer))
+        golden[name] = out
+        row_ms.append(ms)
+        if abs(p) > 1e-3:
+            ok = (abs(out["price"] - p) <= 5e-6 * abs(p)
+                  and abs(out["delta"] - d) <= max(5e-6 * abs(d), 1e-7)
+                  and abs(out["gamma"] - g) <= max(5e-4 * abs(g), 1e-7)
+                  and abs(out["vega"] - v) <= max(2e-4 * abs(v), 1e-7))
+        else:
+            ok = abs(out["price"] - p) <= 1e-4 and abs(out["delta"] - d) <= 1e-3
+        emit("fa_golden_row", name=name, ms=ms, **out,
+             xlsx=dict(price=p, delta=d, gamma=g, vega=v), within_xlsx_limits=ok)
+        check(ok, f"golden row {name} outside test_xlsx_golden.py's limits: {out}")
+    graphs = dict(spectral.graph_counts)
+    cpu_err = {}
+    for row in FA_GOLDEN:
+        if row[0] in FA_CPU_ROWS:
+            cpu_err[row[0]] = rel_err(golden[row[0]], priced(golden_pricer(row, "cpu")))
+            check(cpu_err[row[0]] <= 1e-10, f"golden row {row[0]} card vs CPU {cpu_err[row[0]]:.3e}")
+    launches = dict(kernels.launch_counts)
+    check(not any(launches.values()), f"the scalar pricers launched a kernel of ours: {launches}")
+    emit("fa_golden", rows=len(FA_GOLDEN), N=p0.grid.n_nodes, steps=500, first_row_ms=row_ms[0],
+         second_row_ms=row_ms[1], steady_row_ms=statistics.median(row_ms[2:]),
+         steady_min_ms=min(row_ms[2:]), steady_max_ms=max(row_ms[2:]), total_ms=sum(row_ms),
+         graph_counts=graphs, card_vs_cpu=cpu_err, limit=1e-10, **card)
+    wall["20a golden rows"] = time.perf_counter() - t_phase
+
+    # 20b. the American scalar pricers ---------------------------------------------
+    t_phase = time.perf_counter()
+    fis_curve = flat_naca_dataframe(math.exp(FIS_R_NACC) - 1.0)
+
+    def fis(device):
+        pr = VanillaOptionPricerFIS(valuation_date=val, maturity_date=mat, discount_curve=fis_curve,
+                                    device=device, **FIS_TRADE)
+        return {"price_500": pr.price(500), **pr.calculate_greeks(500)}
+
+    am_curve = flat_curve(0.06, val)
+
+    def american(device):
+        pr = AmericanFDMPricer(
+            100.0, 100.0, val, dt.date(2026, 7, 28), 0.3, "put", am_curve,
+            dividend_schedule=[(dt.date(2026, 1, 15), 2.0)], num_space_nodes=500,
+            num_time_steps=500, device=device)
+        return {"price_log2": pr.price_log2(), **pr.greeks_log2()}
+
+    spectral.reset_graph_counts()
+    fis_gpu, fis_ms = host_ms(lambda: fis(dev))
+    am_gpu, am_ms = host_ms(lambda: american(dev))
+    graphs_b = dict(spectral.graph_counts)
+    t0 = time.perf_counter()
+    fis_cpu, am_cpu = fis("cpu"), american("cpu")
+    cpu_s = time.perf_counter() - t0
+    second = ("Gamma", "Theta (Annual)", "Theta (Daily)")
+    errs = dict(fis_first=rel_err(fis_gpu, fis_cpu, [k for k in fis_cpu if k not in second]),
+                fis_second=rel_err(fis_gpu, fis_cpu, second), american=rel_err(am_gpu, am_cpu))
+    fa_pct = {k: abs(fis_gpu[k] - v) / abs(v) * 100.0 for k, v in FIS_FRONT_ARENA.items()}
+    emit("fa_american_scalar", fis=fis_gpu, fis_ms=fis_ms, american=am_gpu, american_ms=am_ms,
+         cpu_s=cpu_s, card_vs_cpu=errs, limits=dict(first=1e-10, second=1e-7),
+         fis_vs_fa_pct=fa_pct, graph_counts=graphs_b, **card)
+    check(errs["fis_first"] <= 1e-10 and errs["american"] <= 1e-10,
+          f"American scalar pricers card vs CPU {errs}")
+    check(errs["fis_second"] <= 1e-7, f"FIS gamma/theta card vs CPU {errs['fis_second']:.3e}")
+    check(max(fa_pct.values()) < 1.0, f"FIS trade outside FA's 1% materiality: {fa_pct}")
+    wall["20b American scalar"] = time.perf_counter() - t_phase
+
+    # 20c-d. the runners ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    timings = {"build": [], "driver": []}
+    built = []
+
+    def timed(fn, log, keep=None):
+        def wrapped(*a, **kw):
+            out, ms = host_ms(lambda: fn(*a, **kw))
+            timings[log].append(ms)
+            if keep is not None:
+                keep[:] = [out]
+            return out
+        return wrapped
+
+    header_b = ["scenario_name", "S0", "K", "sigma", "rate", "barrier_type", "upper_barrier",
+                "lower_barrier", "FA_price", "FA_delta", "FA_gamma", "FA_vega"]
+    header_a = ["scenario_name", "S0", "K", "sigma", "rate", "FA_price", "FA_delta", "FA_gamma",
+                "FA_vega"]
+    blank = lambda x: "" if x is None else x
+    # a runner prices one option type per table (``opt_type``): calls and puts
+    # go in two tables each
+    bar_rows = {opt: [[f"{r[0]}_s{i}_v{j}", FA_SPOT * (1.0 + ds), r[3], r[4] * dv, FA_RATE, r[2],
+                       blank(r[6]), blank(r[5]), "", "", "", ""]
+                      for r in FA_GOLDEN if r[1] == opt for i, ds in enumerate(FA_SPOT_SHOCKS)
+                      for j, dv in enumerate(FA_VOL_SHOCKS)] for opt in ("call", "put")}
+    golden_rows = {opt: [[r[0], FA_SPOT, r[3], r[4], FA_RATE, r[2], blank(r[6]), blank(r[5]),
+                          *r[7:]] for r in FA_GOLDEN if r[1] == opt] for opt in ("call", "put")}
+    rng = np.random.default_rng(7)
+    am_rows = [[f"am{i}", s_, 100.0, v_, math.exp(0.06) - 1.0, "", "", "", ""]
+               for i, (s_, v_) in enumerate(zip(rng.uniform(80.0, 120.0, 4096),
+                                                rng.uniform(0.15, 0.4, 4096)))][:FA_AMERICAN_ROWS]
+    bar_base = dict(valuation=val, maturity=mat, monitor_dates=monitors)
+
+    def run_barrier(paths, out_csv, base, **kw):
+        """Both option types' tables through ``run_all_scenarios_batched``."""
+        return [row for opt in ("call", "put")
+                for row in run_all_scenarios_batched(paths[opt], None, dict(base, opt_type=opt), **kw)]
+
+    am_base = dict(valuation=val, maturity=dt.date(2026, 7, 28), opt_type="put")
+    cols = ("model_price", "model_delta", "model_gamma", "model_vega")
+    patched = {n: getattr(pbatch, n) for n in (
+        "build_trade_batch", "price_barrier_batch", "build_american_batch", "price_american_batch")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fa_") as tmp:
+        def write(name, header, rows):
+            path = os.path.join(tmp, name)
+            with open(path, "w", newline="") as fh:
+                w = csv.writer(fh)
+                w.writerow(header)
+                w.writerows(rows)
+            return path
+
+        bar_csv = {o: write(f"barrier_{o}.csv", header_b, rows) for o, rows in bar_rows.items()}
+        bar_sub = {o: write(f"barrier_{o}_sub.csv", header_b, rows[:FA_SUBSET // 2])
+                   for o, rows in bar_rows.items()}
+        am_csv = write("american.csv", header_a, am_rows)
+        am_sub = write("american_sub.csv", header_a, am_rows[:FA_SUBSET])
+        golden_csv = {o: write(f"golden_{o}.csv", header_b, rows) for o, rows in golden_rows.items()}
+        pbatch.build_trade_batch = timed(patched["build_trade_batch"], "build", built)
+        # (``built`` keeps the last barrier batch built)
+        pbatch.build_american_batch = timed(patched["build_american_batch"], "build")
+        pbatch.price_barrier_batch = timed(patched["price_barrier_batch"], "driver")
+        pbatch.price_american_batch = timed(patched["price_american_batch"], "driver")
+        try:
+            kernels.reset_launch_counts()
+            fa_launches, card_batch = None, None
+            for label, run, path, sub, base, kw in (
+                ("barrier_pde", run_barrier, bar_csv, bar_sub, bar_base, dict(route="pde")),
+                ("barrier_hybrid", run_barrier, bar_csv, bar_sub, bar_base, dict(route="hybrid")),
+                ("american", run_all_american_scenarios_batched, am_csv, am_sub, am_base, {}),
+            ):
+                ms = []
+                spectral.reset_graph_counts()
+                for _ in range(FA_TABLE_CALLS):
+                    timings["build"].clear()
+                    timings["driver"].clear()
+                    out, call_ms = host_ms(lambda: run(path, None, base, device=dev, **kw))
+                    ms.append(call_ms)
+                    if label == "american" and fa_launches is None:
+                        fa_launches = dict(kernels.launch_counts)
+                split = dict(build_ms=sum(timings["build"]), driver_ms=sum(timings["driver"]))
+                graphs_c = dict(spectral.graph_counts)
+                if label == "barrier_pde":
+                    card_batch = built[-1]
+                want = run(sub, None, base, device="cpu", **kw)
+                scale = max(abs(w["model_price"]) for w in want)
+                by_name = {r["scenario_name"]: r for r in out}
+                sub_err = {c: max(abs(by_name[w["scenario_name"]][c] - w[c]) for w in want) / scale
+                           for c in cols}
+                limit = 1e-6 if label == "american" else 1e-9
+                emit("fa_table", table=label, rows=len(out), call_ms=ms,
+                     rows_per_s=len(out) / ms[-1] * 1e3, **split, graph_counts=graphs_c,
+                     subset_vs_cpu=sub_err, limit=limit,
+                     reserved_bytes=torch.cuda.memory_reserved(), **card)
+                n_rows = len(am_rows) if label == "american" else sum(map(len, bar_rows.values()))
+                check(len(out) == n_rows, f"{label}: {len(out)} rows")
+                check(all(math.isfinite(r[c]) for r in out for c in cols), f"{label}: not finite")
+                check(max(sub_err.values()) <= limit, f"{label} vs the CPU runner {sub_err} > {limit}")
+        finally:
+            for n, fn in patched.items():
+                setattr(pbatch, n, fn)
+        check(fa_launches["spike_march_american_f64"] > 0, "the American table launched no K2")
+        # the barrier batch's spectral prices against the scan, on the card
+        tb = card_batch[:FA_SUBSET]
+        p_spec = pbatch.price_barrier_batch(tb, 501, with_greeks=False, solver="spectral", device=dev)["price"]
+        p_scan = pbatch.price_barrier_batch(tb, 501, with_greeks=False, solver="scan", device=dev)["price"]
+        spec_err = float((p_spec - p_scan).abs().max() / p_scan.abs().max())
+        check(spec_err <= 1e-9, f"barrier table spectral vs scan {spec_err:.3e} > 1e-9")
+        wall["20c runner tables"] = time.perf_counter() - t_phase
+
+        # 20d. the per-scenario runner and the CLIs
+        t_phase = time.perf_counter()
+        rows20, ms20 = host_ms(lambda: [
+            row for opt in ("call", "put") for row in run_all_scenarios(
+                golden_csv[opt], os.path.join(tmp, f"golden_{opt}_out.csv"),
+                dict(bar_base, opt_type=opt), device=dev)])
+        check(len(rows20) == len(FA_GOLDEN), f"run_all_scenarios gave {len(rows20)} rows")
+        diff = max(abs(r[f"model_{k}"] - golden[r["scenario_name"]][k])
+                   for r in rows20 for k in ("price", "delta", "gamma", "vega"))
+        check(diff == 0.0, f"run_all_scenarios vs 20a's pricers: {diff:.3e}")
+        # the two CLIs at once, each a process of its own on the card
+        cli = {}
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+        jobs = {mod: (path, n_rows, os.path.join(tmp, f"{mod}_cli.csv")) for mod, path, n_rows in (
+            ("barrier_scenarios", golden_csv["call"], len(golden_rows["call"])),
+            ("american_scenarios", am_sub, FA_SUBSET))}
+        t_cli = time.perf_counter()
+        procs = {mod: subprocess.Popen(
+            [sys.executable, "-m", f"finite_difference_tpu_torch.runners.{mod}", path, "--batched",
+             "-o", out_csv], cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True) for mod, (path, _, out_csv) in jobs.items()}
+        try:
+            errs_cli = {mod: proc.communicate(timeout=600)[1] for mod, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli_ms = (time.perf_counter() - t_cli) * 1e3
+        for mod, (path, n_rows, out_csv) in jobs.items():
+            rc = procs[mod].returncode
+            check(rc == 0, f"{mod} CLI exited {rc}: {errs_cli[mod][-2000:]}")
+            with open(out_csv, newline="") as fh:
+                got_rows = list(csv.DictReader(fh))
+            check(len(got_rows) == n_rows and all(math.isfinite(float(r["model_price"]))
+                                                  for r in got_rows), f"{mod} CLI's CSV")
+            cli[mod] = dict(rc=rc, rows=len(got_rows))
+    emit("fa_runner", table_spectral_vs_scan=spec_err, per_scenario_ms=ms20,
+         per_scenario_vs_golden=diff, cli=cli, cli_ms=cli_ms, fa_launches=fa_launches, **card)
+    wall["20d per-scenario runner and CLIs"] = time.perf_counter() - t_phase
+    emit("fa_phase_wall_s", **wall, total=sum(wall.values()))
+    return fa_launches
+
+
 def main() -> int:
     import torch
 
@@ -1565,6 +1968,13 @@ def main() -> int:
     for k in (k1, k1a, k2, k3, k4):
         k["serving_launches"] = serving_launches.get(k["name"], 0)
     wall["19 serving"] = time.perf_counter() - t1
+
+    # 20. the FA-validation path ------------------------------------------------
+    t1 = time.perf_counter()
+    fa_launches = fa_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["fa_launches"] = fa_launches.get(k["name"], 0)
+    wall["20 FA validation"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

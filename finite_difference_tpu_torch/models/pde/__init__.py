@@ -13,5 +13,35 @@
 - :mod:`.fused` — the fused march with Hillis–Steele scans
   (``price_barrier_batch_fused``, ``cn_barrier_solve_fused``);
 - :mod:`.cr` — the fused march with cyclic reduction
-  (``cn_barrier_solve_cr``).
+  (``cn_barrier_solve_cr``);
+- the scalar pricers of the FA-validation path, each trade one batched
+  scan over its sigma bumps: :mod:`.american` (``AmericanFDMPricer``),
+  :mod:`.american_black76`, :mod:`.barrier` (``DiscreteBarrierFDMPricer``),
+  :mod:`.vanilla_fis`, :mod:`.cn_log`, :mod:`.hybrid`, and :mod:`.risk`'s
+  spot-scenario functions.
 """
+from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
+from .american import AmericanFDMPricer
+from .american_black76 import AmericanFwdFDMPricer
+from .barrier import DiscreteBarrierFDMPricer
+from .cn_log import DiscreteBarrierCrankNicolsonLog
+from .hybrid import DiscreteBarrierFDMPricerAnalytic
+from .vanilla_fis import VanillaOptionPricerFIS
+from .risk import front_arena_style_spot_curve, risk_reprice_spot, risk_spot_scenario
+
+__all__ = [
+    "CNDynamics",
+    "CNGrid",
+    "CNSchedule",
+    "BarrierSpec",
+    "cn_solve",
+    "AmericanFDMPricer",
+    "AmericanFwdFDMPricer",
+    "DiscreteBarrierFDMPricer",
+    "DiscreteBarrierCrankNicolsonLog",
+    "DiscreteBarrierFDMPricerAnalytic",
+    "VanillaOptionPricerFIS",
+    "front_arena_style_spot_curve",
+    "risk_reprice_spot",
+    "risk_spot_scenario",
+]

@@ -33,7 +33,8 @@ import torch
 
 from ... import native
 from ...device import DEFAULT_DEVICE, resolve_device
-from ...ops.stencils import nonuniform_central
+from ...ops.interp import linear_interp
+from ...ops.stencils import nearest_index, nonuniform_central
 from .grid import (
     _PPF_99999,
     american_log_grid,
@@ -522,19 +523,6 @@ def _resolve_dv_sigma(dv_sigma, sigma: torch.Tensor) -> float:
     return 1e-4 if sigma.dtype == torch.float64 else 1e-2
 
 
-def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """Row-wise linear interpolation, ``jnp.interp`` semantics: x (B,),
-    xp/fp (B, N) with xp ascending; values outside [xp0, xp_last] clamp
-    to the end values."""
-    n = xp.shape[1]
-    i = torch.searchsorted(xp, x[:, None], right=True).clamp(1, n - 1)
-    x0, x1 = torch.gather(xp, 1, i - 1)[:, 0], torch.gather(xp, 1, i)[:, 0]
-    f0, f1 = torch.gather(fp, 1, i - 1)[:, 0], torch.gather(fp, 1, i)[:, 0]
-    f = f0 + ((x - x0) / (x1 - x0)) * (f1 - f0)
-    f = torch.where(x < xp[:, 0], fp[:, 0], f)
-    return torch.where(x > xp[:, -1], fp[:, -1], f)
-
-
 _SPIKE_SOLVERS = ("spike", "spike_df64")
 _SPECTRAL_SOLVERS = ("spectral", "spectral_x64dst", "spectral_mixed")
 SOLVERS = ("auto", "scan") + _SPIKE_SOLVERS + _SPECTRAL_SOLVERS
@@ -662,13 +650,12 @@ def _outputs_of(batch: BarrierTradeBatch, n_nodes: int, values, dv_sigma: float,
     spot = f64(batch.spot)
 
     v = f64(values[0])
-    price = _interp(f64(batch.s_eff), s, v)
+    price = linear_interp(f64(batch.s_eff), s, v)
     out = {"price": price}
     if len(values) > 1:
-        second = _interp(f64(batch.s_eff), s, f64(values[1]))
+        second = linear_interp(f64(batch.s_eff), s, f64(values[1]))
         out["vega"] = second / 100.0 if tangent else (second - price) / (dv_sigma * 100.0)
-        idx = torch.argmin(torch.abs(s - spot[:, None]), dim=1).clamp(1, n_nodes - 2)
-        delta, gamma = nonuniform_central(s, v, idx)
+        delta, gamma = nonuniform_central(s, v, nearest_index(s, spot, lo=1, hi_offset=1))
         out["delta"] = delta
         out["gamma"] = gamma
         if with_theta:

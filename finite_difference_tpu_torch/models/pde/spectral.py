@@ -784,6 +784,9 @@ def spectral_solve_mixed(
 # they never capture. GRAPH_CACHE_SIZE covers the serving buckets (8 ...
 # 4096: ten) with room for the other routes' shapes; chip_smoke.py's whole
 # run, serving included, leaves about 5.4 GB reserved on the H100.
+#
+# The scalar pricers' scan (american._solve_batch) shares the rule and the
+# cache: one solve is one driver call, keyed on its shape and scan plan.
 _GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _SEEN: "OrderedDict[tuple, None]" = OrderedDict()  # keys run once, eagerly
 GRAPH_CACHE_SIZE = 16  # graphs kept, the least recently used dropped first
@@ -801,7 +804,7 @@ def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
     """``solve(*tensors)`` by the capture rule above: eagerly in the first
     driver call with this ``key``; in the second, captured into a CUDA graph
     (after one warm-up run on a side stream, which builds the DST matrix and
-    cuBLAS's state) and replayed; later, replayed. ``new_call``: this solve
+    cuBLAS's state on the spectral route) and replayed; later, replayed. ``new_call``: this solve
     starts a driver call (one sighting of ``key``); a solve that does not
     replays an existing graph or runs eagerly. ``key`` must name
     everything the captured work depends on besides the values of

@@ -9,7 +9,13 @@ Python step loop.
 - Per-step behaviour (theta for Rannacher smoothing, dt, KO-monitor flags,
   lambda resets) is data, precomputed host-side into a :class:`CNSchedule`.
 - The tridiagonal solve is the log-depth constant-diagonal Thomas
-  (:func:`ops.tridiag.thomas_solve_const`).
+  (:mod:`ops.tridiag`), factored once per run of equal (theta, dt) steps
+  (:func:`ops.tridiag.const_factor`) and applied at each step
+  (:func:`ops.tridiag.const_solve`); the far-field values and the rebate's
+  PV are formed for every step at once. What the loop reads from the
+  schedule on the host (those runs, the dividend and reset columns) is a
+  :class:`ScanPlan`: given beforehand, the loop makes no host read, so it
+  can be captured into a CUDA graph.
 - Discrete-barrier knock-out is a masked projection on monitor steps
   (discrete_barrier_fdm_pricer.py:413-440), with rebate PV.
 - American early exercise is Ikonen–Toivanen operator splitting
@@ -23,12 +29,12 @@ kernel.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ...ops.interp import cubic_spline_eval, natural_cubic_spline
-from ...ops.tridiag import thomas_solve_const
+from ...ops.tridiag import const_factor, const_solve
 
 
 class CNGrid(NamedTuple):
@@ -102,6 +108,32 @@ def _boundary_values(tau, s_min, s_max, dyn: CNDynamics, euro_put_lower: bool):
     return v_min, v_max
 
 
+class ScanPlan(NamedTuple):
+    """The host-side plan of one scan: the steps that start a run of equal
+    (theta, dt) columns (the systems are factored once per run), the steps
+    after which some trade takes a dividend jump or is monitored, and the
+    steps before which some trade resets its Ikonen–Toivanen multiplier."""
+
+    runs: Tuple[int, ...]
+    div_cols: Tuple[int, ...]
+    monitor_cols: Tuple[int, ...]
+    reset_cols: Tuple[int, ...]
+
+
+def scan_plan(schedule: CNSchedule, with_dividends: bool) -> ScanPlan:
+    """Read :class:`ScanPlan` from ``schedule`` (one host read per field)."""
+    # tolist, not numpy: the scan runs inside torch.func.jvp too (ad greeks)
+    dt, theta = schedule.dt, schedule.theta
+    same = ((dt[:, 1:] == dt[:, :-1]) & (theta[:, 1:] == theta[:, :-1])).all(dim=0).tolist()
+    cols = lambda mask: tuple(k for k, has in enumerate(mask.any(dim=0).tolist()) if has)
+    return ScanPlan(
+        runs=(0,) + tuple(k + 1 for k, eq in enumerate(same) if not eq),
+        div_cols=cols(schedule.div_amount != 0) if with_dividends else (),
+        monitor_cols=cols(schedule.monitor),
+        reset_cols=cols(schedule.reset_lambda),
+    )
+
+
 def cn_solve(
     grid: CNGrid,
     dyn: CNDynamics,
@@ -113,6 +145,7 @@ def cn_solve(
     exercise_call_at_div: bool = True,
     euro_put_lower_boundary: bool = True,
     terminal_values: Optional[torch.Tensor] = None,
+    plan: Optional[ScanPlan] = None,
 ):
     """March the value grids from expiry (tau=0) to valuation (tau=T).
 
@@ -121,8 +154,11 @@ def cn_solve(
     jump after each step where a trade's ``div_amount`` is nonzero (the JAX
     stepper evaluates it on every step and keeps it where the amount is
     nonzero; here only the columns where some trade has a dividend run it,
-    with the same result).
+    with the same result). ``plan``: the schedule's :class:`ScanPlan`, read
+    from it when not given.
     """
+    if plan is None:
+        plan = scan_plan(schedule, with_dividends)
     dtype, device = grid.x_min.dtype, grid.x_min.device
     i = torch.arange(n_nodes, dtype=dtype, device=device)
     s = torch.exp(grid.x_min[:, None] + i[None, :] * grid.dx[:, None])
@@ -139,64 +175,65 @@ def cn_solve(
     c_coef = alpha + beta_adv
     b_coef = -2.0 * alpha - dyn.r
 
-    payoff_int = payoff[:, 1:-1]
-    lam = torch.zeros_like(payoff_int)
+    # the far-field values and the rebate's PV after every step, (B, n_steps)
+    col = lambda x: x[:, None]
+    v_min_all, v_max_all = _boundary_values(
+        schedule.tau_next, col(s_min), col(s_max), CNDynamics(*map(col, dyn)),
+        euro_put_lower_boundary,
+    )
     if barrier is not None:
         out_mask = (barrier.has_lower[:, None] & (s <= barrier.lower[:, None])) | (
             barrier.has_upper[:, None] & (s >= barrier.upper[:, None])
         )
-
-    div_cols = set()
-    if with_dividends:
-        # tolist, not numpy: the scan runs inside torch.func.jvp too (ad greeks)
-        has_div = (schedule.div_amount != 0).any(dim=0).tolist()
-        div_cols = {k for k, has in enumerate(has_div) if has}
-
-    for k in range(schedule.dt.shape[1]):
-        dt, theta = schedule.dt[:, k], schedule.theta[:, k]
-        tau = schedule.tau_next[:, k]
-
-        a_l = -theta * dt * a_coef
-        a_c = 1.0 - theta * dt * b_coef
-        a_u = -theta * dt * c_coef
-        b_l = (1.0 - theta) * dt * a_coef
-        b_c = 1.0 + (1.0 - theta) * dt * b_coef
-        b_u = (1.0 - theta) * dt * c_coef
-
-        v_min, v_max = _boundary_values(
-            tau, s_min, s_max, dyn, euro_put_lower_boundary
+        rebate_pv_all = torch.where(
+            col(barrier.rebate_at_hit),
+            col(barrier.rebate),
+            col(barrier.rebate) * torch.exp(-col(barrier.rebate_rate) * schedule.tau_next),
         )
 
-        rhs = b_l[:, None] * v[:, :-2] + b_c[:, None] * v[:, 1:-1] + b_u[:, None] * v[:, 2:]
-        if american:
-            lam = torch.where(schedule.reset_lambda[:, k, None], 0.0, lam)
-            rhs = rhs + dt[:, None] * lam
-        rhs[:, 0] -= a_l * v_min  # rhs is a fresh tensor: in place is safe
-        rhs[:, -1] -= a_u * v_max
+    payoff_int = payoff[:, 1:-1]
+    lam = torch.zeros_like(payoff_int)
+    runs, resets, monitors = set(plan.runs), set(plan.reset_cols), set(plan.monitor_cols)
+    for k in range(schedule.dt.shape[1]):
+        if k in runs:
+            dt, theta = schedule.dt[:, k], schedule.theta[:, k]
+            dt_col = dt[:, None]
+            a_l = -theta * dt * a_coef
+            a_c = 1.0 - theta * dt * b_coef
+            a_u = -theta * dt * c_coef
+            b_l = ((1.0 - theta) * dt * a_coef)[:, None]
+            b_c = (1.0 + (1.0 - theta) * dt * b_coef)[:, None]
+            b_u = ((1.0 - theta) * dt * c_coef)[:, None]
+            factor = const_factor(a_l, a_c, a_u, n_nodes - 2, dtype, device)
 
-        tilde = thomas_solve_const(a_l, a_c, a_u, rhs)
+        # rhs = b_l v[i-1] + b_c v[i] + b_u v[i+1] (+ dt lam), then the
+        # boundary columns; rhs is a fresh tensor, so in place is safe
+        rhs = torch.addcmul(torch.addcmul(b_c * v[:, 1:-1], b_l, v[:, :-2]), b_u, v[:, 2:])
+        if american:
+            if k in resets:
+                lam = torch.where(schedule.reset_lambda[:, k, None], 0.0, lam)
+            rhs = torch.addcmul(rhs, dt_col, lam)
+        rhs[:, 0].addcmul_(a_l, v_min_all[:, k], value=-1.0)
+        rhs[:, -1].addcmul_(a_u, v_max_all[:, k], value=-1.0)
+
+        tilde = const_solve(factor, rhs)
 
         if american:
             # Ikonen–Toivanen: v = max(payoff, tilde - dt*lam_old);
             # lam_new = max(0, lam_old + (payoff - tilde)/dt)
-            v_int = torch.maximum(payoff_int, tilde - dt[:, None] * lam)
-            lam = torch.clamp(lam + (payoff_int - tilde) / dt[:, None], min=0.0)
+            v_int = torch.maximum(payoff_int, torch.addcmul(tilde, dt_col, lam, value=-1.0))
+            lam = torch.clamp(lam + (payoff_int - tilde) / dt_col, min=0.0)
         else:
             v_int = tilde
 
-        v = torch.cat([v_min[:, None], v_int, v_max[:, None]], dim=1)
+        v = torch.cat([v_min_all[:, k, None], v_int, v_max_all[:, k, None]], dim=1)
 
-        if barrier is not None:
-            rebate_pv = torch.where(
-                barrier.rebate_at_hit,
-                barrier.rebate,
-                barrier.rebate * torch.exp(-barrier.rebate_rate * tau),
-            )
+        if barrier is not None and k in monitors:
             v = torch.where(
-                schedule.monitor[:, k, None] & out_mask, rebate_pv[:, None], v
+                schedule.monitor[:, k, None] & out_mask, rebate_pv_all[:, k, None], v
             )
 
-        if k in div_cols:
+        if k in plan.div_cols:
             div = schedule.div_amount[:, k, None]
             v_shift = cubic_spline_eval(natural_cubic_spline(s, v), s - div)
             if exercise_call_at_div:

@@ -1,10 +1,11 @@
-"""Natural cubic spline on batched torch tensors.
+"""Interpolation on batched torch tensors.
 
-Counterpart of ``finite_difference_tpu.ops.interp``'s
-``natural_cubic_spline`` and ``cubic_spline_eval``, used by the dividend
-jump V(t-, S) = V(t+, S - D) (fd_american_equity.py:479-558, 732-776).
-The JAX functions work on one row and are vmapped; here every argument
-carries the batch as leading axes and the knots on the last axis.
+Counterpart of ``finite_difference_tpu.ops.interp``: ``linear_interp``
+(``jnp.interp`` semantics, the price read off each trade's grid) and the
+natural cubic spline (``natural_cubic_spline``, ``cubic_spline_eval``) of
+the dividend jump V(t-, S) = V(t+, S - D) (fd_american_equity.py:479-558,
+732-776). The JAX functions work on one row and are vmapped; here every
+argument carries the batch as leading axes and the knots on the last axis.
 """
 from __future__ import annotations
 
@@ -13,6 +14,19 @@ from typing import NamedTuple
 import torch
 
 from .tridiag import thomas_solve_pscan
+
+
+def linear_interp(xq: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Row-wise piecewise-linear interpolation of y(x) at ``xq``, clamped to
+    the end values (``jnp.interp`` semantics): ``xq`` (B,), ``x`` and ``y``
+    (B, N) with ``x`` ascending along each row."""
+    n = x.shape[1]
+    i = torch.searchsorted(x, xq[:, None], right=True).clamp(1, n - 1)
+    x0, x1 = torch.gather(x, 1, i - 1)[:, 0], torch.gather(x, 1, i)[:, 0]
+    f0, f1 = torch.gather(y, 1, i - 1)[:, 0], torch.gather(y, 1, i)[:, 0]
+    f = f0 + ((xq - x0) / (x1 - x0)) * (f1 - f0)
+    f = torch.where(xq < x[:, 0], y[:, 0], f)
+    return torch.where(xq > x[:, -1], y[:, -1], f)
 
 
 class SplineCoeffs(NamedTuple):

@@ -2,9 +2,14 @@
 
 Counterparts of ``finite_difference_tpu.ops.tridiag``:
 
-- ``thomas_solve_const``, the CN hot path of the scan stepper;
+- ``thomas_solve_const``, the CN hot path of the scan stepper, and its two
+  halves ``const_factor`` / ``const_solve`` (the stepper factors each run of
+  equal (theta, dt) steps once and solves every step of the run with it);
 - ``thomas_solve_pscan``, the general-coefficient solve behind the
-  natural cubic spline of the dividend jump (``ops.interp``).
+  natural cubic spline of the dividend jump (``ops.interp``);
+- ``thomas_solve``, JAX's general solve by name, computed by the same
+  log-depth scan as ``thomas_solve_pscan``;
+- ``tridiag_matvec``.
 
 With constant diagonals
 (a_l, a_c, a_u) the forward-elimination denominators satisfy the
@@ -20,39 +25,86 @@ first-order affine recurrences, run as log-depth doubling scans.
 """
 from __future__ import annotations
 
+from typing import List, NamedTuple
+
 import torch
 
 
-def _affine_scan(alpha: torch.Tensor, beta: torch.Tensor, reverse: bool = False):
-    """Solve y_i = alpha_i * y_{i-1} + beta_i (y_{-1} = 0) along the last axis.
+def tridiag_matvec(dl, d, du, x):
+    """y = T @ x for tridiagonal T given by its (sub, main, super) diagonals.
 
-    Log-depth doubling (Hillis–Steele) scan: after the pass with shift s,
-    element i holds the composition of the affine maps i-2s+1..i, so
-    ceil(log2 n) passes finish it. ``reverse=True`` runs the recurrence from
+    All inputs shaped (..., n); dl[..., 0] and du[..., -1] are ignored.
+    """
+    dl, d, du, x = torch.broadcast_tensors(dl, d, du, x)
+    y = d * x
+    y[..., 1:] += dl[..., 1:] * x[..., :-1]
+    y[..., :-1] += du[..., :-1] * x[..., 1:]
+    return y
+
+
+def _scan_multipliers(alpha: torch.Tensor, reverse: bool = False) -> List[torch.Tensor]:
+    """The multipliers of each pass of the doubling scan of
+    y_i = alpha_i * y_{i-1} + beta_i along the last axis (``reverse``:
+    y_i = alpha_i * y_{i+1} + beta_i): after the pass with shift s, element
+    i holds the composition of the affine maps i-2s+1..i (i..i+2s-1), so
+    ceil(log2 n) passes finish it. They depend on ``alpha`` only, so a
+    solve whose matrix repeats reuses them (:func:`const_factor`).
+    """
+    n = alpha.shape[-1]
+    out = []
+    a, s = alpha, 1
+    while s < n:
+        if reverse:
+            out.append(a[..., :-s])
+            if 2 * s < n:
+                a = torch.cat([a[..., :-s] * a[..., s:], a[..., -s:]], dim=-1)
+        else:
+            out.append(a[..., s:])
+            if 2 * s < n:
+                a = torch.cat([a[..., :s], a[..., s:] * a[..., :-s]], dim=-1)
+        s *= 2
+    return out
+
+
+def _scan_apply(multipliers: List[torch.Tensor], beta: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+    """The doubling scan's passes on ``beta`` (y_{-1} = 0, or y_n = 0 when
+    ``reverse``): two launches per pass."""
+    b, s = beta, 1
+    for m in multipliers:
+        if reverse:
+            b = torch.cat([torch.addcmul(b[..., :-s], m, b[..., s:]), b[..., -s:]], dim=-1)
+        else:
+            b = torch.cat([b[..., :s], torch.addcmul(b[..., s:], m, b[..., :-s])], dim=-1)
+        s *= 2
+    return b
+
+
+def _affine_scan(alpha: torch.Tensor, beta: torch.Tensor, reverse: bool = False):
+    """Solve y_i = alpha_i * y_{i-1} + beta_i (y_{-1} = 0) along the last axis,
+    in log depth (Hillis–Steele). ``reverse=True`` runs the recurrence from
     the far end (y_i = alpha_i * y_{i+1} + beta_i).
     """
     a, b = torch.broadcast_tensors(alpha, beta)
-    if reverse:
-        a, b = a.flip(-1), b.flip(-1)
-    n = b.shape[-1]
-    s = 1
-    while s < n:
-        b = torch.cat([b[..., :s], a[..., s:] * b[..., :-s] + b[..., s:]], dim=-1)
-        a = torch.cat([a[..., :s], a[..., s:] * a[..., :-s]], dim=-1)
-        s *= 2
-    return b.flip(-1) if reverse else b
+    return _scan_apply(_scan_multipliers(a, reverse), b, reverse)
 
 
-def thomas_solve_const(a_l, a_c, a_u, rhs: torch.Tensor) -> torch.Tensor:
-    """Constant-diagonal Thomas solve in O(log n) depth.
+class ConstFactor(NamedTuple):
+    """A constant-diagonal system factored for :func:`const_solve`: the
+    forward-elimination weights w_i = 1/D_i and the doubling scans'
+    multipliers of both sweeps."""
 
-    ``a_l, a_c, a_u``: scalars or tensors of ``rhs``'s batch shape — the
-    constant sub/main/super diagonal of each system. ``rhs``: (..., n).
-    Requires a_c^2 - 4 a_l a_u > 0, which holds for the diagonally
-    dominant Crank–Nicolson / fully implicit systems the stepper builds.
-    """
-    dtype, device = rhs.dtype, rhs.device
-    n = rhs.shape[-1]
+    w: torch.Tensor
+    forward: List[torch.Tensor]
+    backward: List[torch.Tensor]
+
+
+def const_factor(a_l, a_c, a_u, n: int, dtype: torch.dtype, device) -> ConstFactor:
+    """Factor the constant-diagonal systems of size ``n``: ``a_l, a_c, a_u``
+    scalars or tensors of the batch shape, the constant sub/main/super
+    diagonal of each system. Requires a_c^2 - 4 a_l a_u > 0, which holds
+    for the diagonally dominant Crank–Nicolson / fully implicit systems
+    the stepper builds."""
     a_l = torch.as_tensor(a_l, dtype=dtype, device=device)[..., None]
     a_c = torch.as_tensor(a_c, dtype=dtype, device=device)[..., None]
     a_u = torch.as_tensor(a_u, dtype=dtype, device=device)[..., None]
@@ -73,11 +125,25 @@ def thomas_solve_const(a_l, a_c, a_u, rhs: torch.Tensor) -> torch.Tensor:
     rp2 = rho * rp1
     w = 1.0 / (l1 * (1.0 - rp2) / (1.0 - rp1))
     c_prime = a_u * w
-
     # forward sweep d'_i = w_i rhs_i - (a_l w_i) d'_{i-1};
     # backward sweep x_i = d'_i - c'_i x_{i+1}
-    d_prime = _affine_scan(-a_l * w, w * rhs)
-    return _affine_scan(-c_prime, d_prime, reverse=True)
+    return ConstFactor(w, _scan_multipliers(-a_l * w), _scan_multipliers(-c_prime, reverse=True))
+
+
+def const_solve(factor: ConstFactor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve the factored systems for ``rhs`` (..., n)."""
+    d_prime = _scan_apply(factor.forward, factor.w * rhs)
+    return _scan_apply(factor.backward, d_prime, reverse=True)
+
+
+def thomas_solve_const(a_l, a_c, a_u, rhs: torch.Tensor) -> torch.Tensor:
+    """Constant-diagonal Thomas solve in O(log n) depth.
+
+    ``a_l, a_c, a_u``: scalars or tensors of ``rhs``'s batch shape — the
+    constant sub/main/super diagonal of each system. ``rhs``: (..., n).
+    See :func:`const_factor` for the condition on the coefficients.
+    """
+    return const_solve(const_factor(a_l, a_c, a_u, rhs.shape[-1], rhs.dtype, rhs.device), rhs)
 
 
 def _homography_scan(m00, m01, m10, m11):
@@ -130,3 +196,16 @@ def thomas_solve_pscan(dl, d, du, rhs):
     denom = d - dl * cp_prev
     d_prime = _affine_scan(-dl / denom, rhs / denom)
     return _affine_scan(-c_prime, d_prime, reverse=True)
+
+
+def thomas_solve(dl, d, du, rhs):
+    """General batched tridiagonal solve of T x = rhs, JAX's ``thomas_solve``.
+
+    Shapes (..., n); dl[..., 0] and du[..., -1] are ignored. The JAX
+    function is the classic sequential Thomas algorithm (a ``lax.scan``
+    over the space axis). A loop over rows would cost 2n launches per call
+    on the card, so this is the log-depth homography scan of
+    :func:`thomas_solve_pscan`; the two agree to roundings on the
+    diagonally dominant systems both are used for.
+    """
+    return thomas_solve_pscan(dl, d, du, rhs)

@@ -1,0 +1,35 @@
+"""Host utilities of the port (counterpart of ``finite_difference_tpu.utils``):
+dates, day counts, the South African calendar, rate conversions and the
+daily NACA curves, all without pandas."""
+from .dates import to_date, day_offset, add_days, ensure_dates
+from .daycount import year_fraction, year_denominator
+from .calendars import SouthAfricaCalendar, build_monitoring_dates
+from .rates import nacc_to_naca, naca_to_nacc, discount_factor
+from .curves import (
+    DailyNacaCurve,
+    NacaCurve,
+    create_rate_df,
+    flat_curve,
+    flat_naca_dataframe,
+    load_curve_csv,
+)
+
+__all__ = [
+    "to_date",
+    "day_offset",
+    "add_days",
+    "ensure_dates",
+    "year_fraction",
+    "year_denominator",
+    "SouthAfricaCalendar",
+    "build_monitoring_dates",
+    "nacc_to_naca",
+    "naca_to_nacc",
+    "discount_factor",
+    "DailyNacaCurve",
+    "NacaCurve",
+    "create_rate_df",
+    "flat_curve",
+    "flat_naca_dataframe",
+    "load_curve_csv",
+]

@@ -14,7 +14,10 @@ with cyclic reduction (csrc/cr_march.cu, against cr.cr_march_reference);
 and it shows that each path launches its kernel. The spectral propagator
 and greeks_mode="ad" (no hand-written kernel) are held on the card against
 the port on the CPU at float64 within 1e-12, and a float32 spectral call
-under TF32 raises rather than lose the sine reconstruction.
+under TF32 raises rather than lose the sine reconstruction. On the
+FA-validation path, the scalar pricers on the card equal the port on the
+CPU within 1e-10, a replayed scan (a CUDA graph) equals its eager run
+within 1e-12, and the batched American runner at float64 launches K2.
 """
 import dataclasses
 
@@ -678,3 +681,96 @@ def test_mixed_service_stream_captures_no_graph_after_warm_up(cuda):
     for g, w in zip(passes[0][1], want):
         for k in w:
             assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-12), k
+
+
+# --------------------------------------------------------------------------- #
+# The FA-validation path: scalar pricers (the graphed scan) and the runners    #
+# --------------------------------------------------------------------------- #
+def _scalar_pricers(device):
+    import datetime as dt
+
+    from finite_difference_tpu_torch.models.pde import AmericanFDMPricer, DiscreteBarrierFDMPricer
+    from finite_difference_tpu_torch.utils.curves import flat_curve
+
+    val = dt.date(2025, 7, 28)
+    curve = flat_curve(0.0731, val)
+    barrier = DiscreteBarrierFDMPricer(
+        spot=229.74, strike=190.0, valuation_date=val, maturity_date=dt.date(2025, 8, 28),
+        sigma=0.2879, option_type="call", barrier_type="up-and-in", upper_barrier=260.0,
+        monitor_dates=[val + dt.timedelta(days=7 * k) for k in range(1, 5)],
+        discount_curve=curve, num_time_steps=100, fixed_num_space_nodes=200,
+        rebate_amount=2.0, device=device,
+    )
+    american = AmericanFDMPricer(
+        100.0, 100.0, val, dt.date(2026, 7, 28), 0.3, "put", curve,
+        dividend_schedule=[(dt.date(2026, 1, 15), 2.0)], num_space_nodes=150,
+        num_time_steps=80, device=device,
+    )
+    return barrier, american
+
+
+def test_scalar_pricers_on_the_card_equal_the_cpu(cuda):
+    """Price and greeks of a knock-in (KO leg by the scan, the Black-76
+    vanilla on the card) and of an American put with a cash dividend, within
+    1e-10 of max|value|; each run twice so the second replays its graphs."""
+    want = [(p.price_log2(), p.greeks_log2()) for p in _scalar_pricers("cpu")]
+    for _ in range(2):
+        got = [(p.price_log2(), p.greeks_log2()) for p in _scalar_pricers(cuda)]
+        for (pg, gg), (pw, gw) in zip(got, want):
+            scale = max(abs(v) for v in (pw, *gw.values()))
+            assert abs(pg - pw) <= 1e-10 * scale
+            for k in gw:
+                assert abs(gg[k] - gw[k]) <= 1e-10 * scale, k
+
+
+def test_replayed_scan_equals_its_eager_run(cuda):
+    """One key's first solve runs eagerly, its second is captured, the third
+    replays: the replay with the first solve's inputs gives its values
+    (<= 1e-12 of max|V|), and new inputs replay without a capture."""
+    from finite_difference_tpu_torch.models.pde import spectral
+    from finite_difference_tpu_torch.models.pde.american import _dynamics, _solve_batch
+    from finite_difference_tpu_torch.models.pde.grid import uniform_schedule
+
+    barrier, _ = _scalar_pricers(cuda)
+    grid, n = barrier.grid, barrier.grid.n_nodes
+    sch = uniform_schedule(barrier.time_to_expiry, 100, 2, barrier.monitor_times)
+    spec = barrier._barrier_spec("up-and-out")
+    solve = lambda sigmas: _solve_batch(
+        grid, _dynamics(cuda, 190.0, True, sigmas, 0.07, 0.07), sch, n, False,
+        american=False, barrier=spec)
+    spectral.reset_graph_counts()
+    eager = solve([0.25, 0.3, 0.27])  # three rows: a key no other test uses
+    solve([0.35, 0.2, 0.22])
+    replayed = solve([0.25, 0.3, 0.27])
+    torch.cuda.synchronize()
+    assert spectral.graph_counts == {"eager": 1, "captures": 1, "replays": 2}
+    scale = float(eager.abs().max())
+    assert float((replayed - eager).abs().max()) <= 1e-12 * scale
+
+
+def test_american_batched_runner_launches_k2(cuda, tmp_path):
+    """The batched American runner at float64 takes the double SPIKE march
+    (K2) on the card, Richardson's two calls with their vega bumps; it
+    agrees with the scan on the CPU within 1e-6 of max|value|."""
+    import datetime as dt
+    import math
+
+    from finite_difference_tpu_torch.runners.american_scenarios import (
+        run_all_american_scenarios_batched,
+    )
+
+    cfg = tmp_path / "am.csv"
+    lines = ["scenario_name,S0,K,sigma,rate,FA_price,FA_delta,FA_gamma,FA_vega"]
+    rng = np.random.default_rng(7)
+    for i, (s, v) in enumerate(zip(rng.uniform(80, 120, 12), rng.uniform(0.15, 0.4, 12))):
+        lines.append(f"a{i},{s},100.0,{v},{math.exp(0.06) - 1.0},,,,")
+    cfg.write_text("\n".join(lines) + "\n")
+    base = dict(valuation=dt.date(2025, 7, 28), maturity=dt.date(2026, 7, 28), opt_type="put",
+                num_space_nodes=200, num_time_steps=100)
+    kernels.reset_launch_counts()
+    got = run_all_american_scenarios_batched(str(cfg), None, base, device=cuda)
+    assert kernels.launch_counts["spike_march_american_f64"] > 0
+    want = run_all_american_scenarios_batched(str(cfg), None, base, device="cpu")
+    for k in ("model_price", "model_delta", "model_gamma", "model_vega"):
+        scale = max(abs(w[k]) for w in want)
+        assert max(abs(g[k] - w[k]) for g, w in zip(got, want)) <= 1e-6 * scale, k

@@ -214,6 +214,7 @@ class TestGrid:
 
 class TestPortBoundary:
     IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|finite_difference_tpu)(?:[.\s]|$)", re.M)
+    PANDAS = re.compile(r"^(?:from|import)\s+pandas(?:[.\s]|$)", re.M)  # at module level
 
     def test_sources_import_no_jax(self):
         sources = sorted((REPO_ROOT / "finite_difference_tpu_torch").rglob("*.py"))
@@ -223,11 +224,17 @@ class TestPortBoundary:
         assert {"finite_difference_tpu_torch/ops/special.py",
                 "finite_difference_tpu_torch/models/analytic/batch.py",
                 "finite_difference_tpu_torch/serving/service.py",
-                "finite_difference_tpu_torch/serving/server.py"} <= names
+                "finite_difference_tpu_torch/serving/server.py",
+                "finite_difference_tpu_torch/utils/curves.py",
+                "finite_difference_tpu_torch/models/pde/barrier.py",
+                "finite_difference_tpu_torch/models/pde/hybrid.py",
+                "finite_difference_tpu_torch/runners/barrier_scenarios.py",
+                "finite_difference_tpu_torch/runners/american_scenarios.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
-            for m in self.IMPORT.finditer(p.read_text())
+            for pattern in (self.IMPORT, self.PANDAS)
+            for m in pattern.finditer(p.read_text())
         ]
         assert not bad, bad
 
@@ -239,9 +246,10 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.kernels, finite_difference_tpu_torch.native, "
             "finite_difference_tpu_torch.ops.interp, finite_difference_tpu_torch.ops.special, "
             "finite_difference_tpu_torch.models.analytic, finite_difference_tpu_torch.serving, "
-            "finite_difference_tpu_torch.serving.__main__; "
+            "finite_difference_tpu_torch.serving.__main__, finite_difference_tpu_torch.utils, "
+            "finite_difference_tpu_torch.models.pde, finite_difference_tpu_torch.runners; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'finite_difference_tpu')]; "
+            "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"
         )
         subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, check=True, timeout=120)

@@ -1,5 +1,7 @@
-"""Port ops (tridiagonal solves, stencil, cubic spline) and the CN stepper,
-dividend jump included, against the JAX package at float64 (<= 1e-12)."""
+"""Port ops (tridiagonal solves, stencils, interpolation, cubic spline) and
+the CN stepper, dividend jump included, against the JAX package at float64:
+solves and the stepper within 1e-12, stencils and linear_interp within
+1e-13 of max|value|."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,40 @@ class TestTridiag:
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
+    @pytest.mark.parametrize("n", [3, 8, 64, 513, 1024])
+    def test_thomas_solve_matches_jax(self, n):
+        """test_tridiag.py's diagonally dominant systems, JAX's sequential
+        Thomas against the port's log-depth scan; and the matvec round trip."""
+        rng = np.random.default_rng(4)
+        dl = rng.uniform(-1.0, 1.0, (6, n))
+        du = rng.uniform(-1.0, 1.0, (6, n))
+        d = np.abs(dl) + np.abs(du) + rng.uniform(1.0, 2.0, (6, n))
+        rhs = rng.standard_normal((6, n))
+        want = np.asarray(jax_tridiag.thomas_solve(dl, d, du, rhs))
+        got = port_tridiag.thomas_solve(T(dl), T(d), T(du), T(rhs))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+        back_j = np.asarray(jax_tridiag.tridiag_matvec(jnp.asarray(dl), jnp.asarray(d), jnp.asarray(du),
+                                                       jnp.asarray(want)))
+        back_p = port_tridiag.tridiag_matvec(T(dl), T(d), T(du), got).numpy()
+        np.testing.assert_allclose(back_p, back_j, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(back_p, rhs, rtol=1e-9, atol=1e-12)
+
+    def test_thomas_solve_const_broadcast_and_factored(self):
+        """A scalar system on a 1-D rhs (test_tridiag.py's broadcast case),
+        and the factored solve equal to the one-shot one bit for bit."""
+        x = port_tridiag.thomas_solve_const(-0.2, 1.5, -0.2, torch.ones(16, dtype=torch.float64))
+        want = np.asarray(jax_tridiag.thomas_solve_const(-0.2, 1.5, -0.2, np.ones(16)))
+        np.testing.assert_allclose(x.numpy(), want, rtol=1e-12, atol=1e-12)
+        rng = np.random.default_rng(9)
+        a_c = T(rng.uniform(1.5, 4.0, 3))
+        a_l, a_u = -0.4 * a_c, -0.3 * a_c
+        f = port_tridiag.const_factor(a_l, a_c, a_u, 77, torch.float64, "cpu")
+        for _ in range(2):
+            rhs = T(rng.normal(size=(3, 77)))
+            assert torch.equal(port_tridiag.const_solve(f, rhs),
+                               port_tridiag.thomas_solve_const(a_l, a_c, a_u, rhs))
+
+
 class TestSpline:
     def _knots(self, seed, B=5, n=40):
         rng = np.random.default_rng(seed)
@@ -98,16 +134,74 @@ class TestSpline:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
 
 
-def test_nonuniform_central_matches_jax():
-    rng = np.random.default_rng(4)
-    B, N = 6, 40
+def _grids(seed, B=6, N=40):
+    rng = np.random.default_rng(seed)
     s = np.exp(np.cumsum(rng.uniform(0.01, 0.05, (B, N)), axis=1) + 4.0)
     v = rng.normal(size=(B, N)).cumsum(axis=1)
-    idx = rng.integers(1, N - 1, B)
+    return rng, s, v
+
+
+def _close(got, want, rtol=1e-13):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=rtol * np.abs(w).max())
+
+
+def test_nonuniform_central_matches_jax():
+    rng, s, v = _grids(4)
+    idx = rng.integers(1, s.shape[1] - 1, s.shape[0])
     want = jax.vmap(jax_stencils.nonuniform_central)(s, v, idx)
     got = port_stencils.nonuniform_central(T(s), T(v), T(idx))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-12)
+    _close(got, want, 1e-12)
+
+
+def test_one_sided_and_cubic_stencils_match_jax():
+    rng, s, v = _grids(5)
+    N = s.shape[1]
+    idx_f = rng.integers(0, N - 2, s.shape[0])
+    idx_b = rng.integers(2, N, s.shape[0])
+    _close(port_stencils.nonuniform_forward(T(s), T(v), T(idx_f)),
+           jax.vmap(jax_stencils.nonuniform_forward)(s, v, idx_f))
+    _close(port_stencils.nonuniform_backward(T(s), T(v), T(idx_b)),
+           jax.vmap(jax_stencils.nonuniform_backward)(s, v, idx_b))
+    idx_c = rng.integers(1, N - 2, s.shape[0])
+    s0 = s[np.arange(s.shape[0]), idx_c] * rng.uniform(0.999, 1.001, s.shape[0])
+    _close(port_stencils.local_cubic_fit(T(s), T(v), T(s0), T(idx_c)),
+           jax.vmap(jax_stencils.local_cubic_fit)(s, v, s0, idx_c))
+    lo, hi = rng.integers(0, 3, s.shape[0]), rng.integers(0, 3, s.shape[0])
+    for a, b in zip(lo, hi):
+        got = port_stencils.nearest_index(T(s), T(s0), lo=int(a), hi_offset=int(b))
+        want = jax.vmap(lambda x, y: jax_stencils.nearest_index(x, y, int(a), int(b)))(s, s0)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("lower,upper,band,one_sided", [
+    (None, None, 2, True), (None, 90.0, 2, True), (70.0, None, 3, True),
+    (70.0, 90.0, 2, True), (None, 90.0, 2, False),
+])
+def test_barrier_aware_delta_gamma_matches_jax(lower, upper, band, one_sided):
+    """Spots near and far from the barrier, so both stencils are taken."""
+    rng = np.random.default_rng(6)
+    B, N = 8, 60
+    s = np.exp(np.log(60.0) + 0.0075 * np.arange(N))[None].repeat(B, 0)
+    v = np.maximum(s - 75.0, 0.0) + rng.normal(scale=0.01, size=(B, N))
+    s0 = np.linspace(62.0, 92.0, B)
+    want = jax.vmap(lambda x, y, z: jax_stencils.barrier_aware_delta_gamma(
+        x, y, z, lower, upper, band, one_sided))(s, v, s0)
+    got = port_stencils.barrier_aware_delta_gamma(T(s), T(v), T(s0), lower, upper, band, one_sided)
+    _close(got, want)
+
+
+def test_linear_interp_matches_jax():
+    """Inside, on nodes and beyond both ends (clamped)."""
+    rng, s, v = _grids(7)
+    xq = np.concatenate([s[:, [0]] - 1.0, s[:, [5]], 0.5 * (s[:, [9]] + s[:, [10]]),
+                         s[:, [-1]] + 2.0], axis=1)
+    for j in range(xq.shape[1]):
+        want = np.array([np.asarray(jax_interp.linear_interp(xq[i, j], s[i], v[i]))
+                         for i in range(s.shape[0])])
+        got = port_interp.linear_interp(T(np.ascontiguousarray(xq[:, j])), T(s), T(v)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
 def _stepper_inputs(seed, B=6, N=66, n_steps=40):
@@ -181,6 +275,35 @@ def test_cn_solve_matches_jax(american, euro_put_lower, with_barrier):
     (v_p, s_p), (v_j, s_j) = _run_both(fields, N, american, euro_put_lower, with_barrier)
     np.testing.assert_allclose(s_p, s_j, rtol=1e-14, atol=0)
     np.testing.assert_allclose(v_p, v_j, rtol=1e-12, atol=1e-12)
+
+
+def test_cn_solve_runs_of_theta_and_dt_match_jax():
+    """A schedule whose (theta, dt) changes in runs per trade (Rannacher
+    restarts, piecewise dt): the systems are factored once per run. And the
+    plan given beforehand gives the same grids as the one read inside."""
+    fields, N = _stepper_inputs(seed=8)
+    B, S = fields["dt"].shape
+    dt = np.where(np.arange(S) < 17, 0.6, 1.3)[None] * fields["dt"]
+    dt[1::2, 25:] *= 0.9  # a run boundary for half the trades only
+    theta = fields["theta"].copy()
+    theta[:, 30:32] = 1.0
+    fields.update(dt=dt, theta=theta, tau_next=np.cumsum(dt, axis=1))
+    (v_p, _), (v_j, _) = _run_both(fields, N, True, False, with_barrier=True)
+    np.testing.assert_allclose(v_p, v_j, rtol=1e-12, atol=1e-12)
+    sch = port_stepper.CNSchedule(*(T(fields[k]) for k in (
+        "dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda")))
+    plan = port_stepper.scan_plan(sch, with_dividends=False)
+    assert plan.runs == (0, 2, 17, 25, 30, 32) and plan.reset_cols == (20,)
+    t = {k: T(v) for k, v in fields.items()}
+    v_plan, _ = port_stepper.cn_solve(
+        port_stepper.CNGrid(t["x_min"], t["dx"]),
+        port_stepper.CNDynamics(t["strike"], t["is_call"], t["sigma"], t["r"], t["b"], t["q"]),
+        sch, N, barrier=port_stepper.BarrierSpec(
+            t["lower"], t["upper"], t["has_lower"], t["has_upper"], t["rebate"],
+            t["rebate_at_hit"], t["rebate_rate"]),
+        american=True, euro_put_lower_boundary=False, plan=plan,
+    )
+    np.testing.assert_array_equal(v_plan.numpy(), v_p)
 
 
 def test_cn_solve_with_dividends_matches_jax():

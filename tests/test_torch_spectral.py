@@ -33,6 +33,7 @@ from finite_difference_tpu.models.pde import stepper as jax_stepper
 from finite_difference_tpu.models.pde.grid import uniform_schedule
 from finite_difference_tpu_torch.models.pde import batch as port_batch
 from finite_difference_tpu_torch.models.pde import spectral, stepper
+from finite_difference_tpu_torch.ops import interp as port_interp
 
 import chip_smoke
 
@@ -578,5 +579,5 @@ def test_solve_value_surfaces_matches_jax(case):
     # the surface is the price path's own V: its interpolation at the spot is the price
     price = port_batch.price_american_batch if american else port_batch.price_barrier_batch
     out = price(pb, 128, solver=solver, with_greeks=False, device="cpu")
-    np.testing.assert_allclose(port_batch._interp(pb.s_eff, s, v).numpy(), out["price"].numpy(),
+    np.testing.assert_allclose(port_interp.linear_interp(pb.s_eff, s, v).numpy(), out["price"].numpy(),
                                rtol=1e-12, atol=1e-12)
