@@ -32,7 +32,12 @@ phase:
   rows through the scalar barrier pricer (its scan replayed from CUDA
   graphs), the American scalar pricers, the batched scenario runners on a
   4160-row barrier stress table and a 4096-row American table (K2), the
-  per-scenario runner and the two CLIs.
+  per-scenario runner and the two CLIs;
+- the rest of the FA-validation layer (phase 21, :func:`fa_analytics_phases`):
+  implied vol on a 2^20-quote chain, the FIS stencil pricer, the
+  Bjerksund–Stensland and BGK runners (BGK and Monte Carlo routes) beside
+  the batched sweeps on the desk's stress shape, their CLIs, the
+  cross-check engine and the order-of-accuracy diagnostics.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -162,6 +167,17 @@ FIS_TRADE = dict(spot_price=176.39, strike_price=170.0, volatility=0.29678321124
 FIS_R_NACC = 0.070538282720
 FIS_FRONT_ARENA = {"Price": 2.9846891127, "Delta": -0.2978815582, "Gamma": 0.0230742255,
                    "Vega": 0.1778185529, "Theta (Annual)": -27.96921280}
+
+# the rest of the FA-validation layer (phase 21)
+FA_IV_QUOTES = 1 << 20  # the implied-vol chain (tests/test_implied_vol.py's draws, seed 0)
+FA_IV_CPU_QUOTES = 4096  # its prefix held on the card against the CPU
+# the runner tables' spot shocks, -20% ... +20%: four, not eight, so that
+# phase 21 keeps to about a minute (a BGK row takes about 128 ms on the card)
+FA_BS_SPOT_SHOCKS = np.linspace(-0.2, 0.2, 4)
+FA_ANALYTIC_CPU_ROWS = 32  # rows of each runner table priced on the CPU too
+FA_MC_CPU_ROWS = 8  # MC-route rows priced on the CPU too (about 0.37 s each there)
+FA_MC_BARRIER = 130.0  # the MC-route rows: one-year up-and-out calls, monthly monitors
+FA_ORDER_LADDER = (150, 300, 600)  # the FIS stencil's step counts for the order fit
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -1790,6 +1806,440 @@ def fa_phases(dev, card: dict) -> dict:
     return fa_launches
 
 
+def iv_chain(seed: int, B: int):
+    """The implied-vol chain of tests/test_implied_vol.py's ``_chain`` (copied,
+    seeded): forwards U(50, 400), log-moneyness U(-3, 3), tenors U(0.02, 10),
+    vols U(0.02, 1.5), rates U(0, 0.1), calls and puts; returns numpy arrays
+    (f, k, t, df, is_call, sigma), unpriced."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(50, 400, B)
+    k = f * np.exp(rng.uniform(-3.0, 3.0, B))
+    t = rng.uniform(0.02, 10.0, B)
+    sigma = rng.uniform(0.02, 1.5, B)
+    r = rng.uniform(0.0, 0.1, B)
+    df = np.exp(-r * t)
+    is_call = rng.integers(0, 2, B).astype(bool)
+    return f, k, t, df, is_call, sigma
+
+
+def iv_noise(price, f, k, df, is_call, sigma_t, eps: float):
+    """Per quote, the relative error in sigma that the roundings of its
+    normalized premium imply (float64 numpy): eps times the magnitudes that
+    meet in c(x, v) = e^{x/2} N(d+) - e^{-x/2} N(d-) (and in the intrinsic an
+    ITM quote sheds), over dc/dlnv. Two correct solvers whose exp differs
+    in the last bit differ by about this; and the quotes whose premium lies
+    within this noise of the no-arbitrage band's edges (or below the
+    solver's 1e-300 clip) may fall on either side of it. Returns (relative
+    noise, at-an-edge mask)."""
+    from math import sqrt, pi
+
+    from scipy.special import ndtr
+
+    x = np.log(f / k)
+    xm = -np.abs(x)
+    v = sigma_t
+    c_in = price / df / np.sqrt(f * k)
+    itm = np.where(is_call, x > 0, x < 0)
+    wings = np.exp(0.5 * x) + np.exp(-0.5 * x)
+    d1 = xm / v + 0.5 * v
+    terms = np.exp(0.5 * xm) * ndtr(d1) + np.exp(-0.5 * xm) * ndtr(d1 - v)
+    noise = eps * (c_in + terms + np.where(itm, wings, 0.0))
+    vega = np.exp(0.5 * xm) * np.exp(-0.5 * d1 * d1) / sqrt(2 * pi)
+    intr = np.abs(np.exp(0.5 * x) - np.exp(-0.5 * x))
+    c_otm = c_in - np.where(itm, intr, 0.0)
+    floor = np.where(itm, 8.0 * eps * intr, 0.0)
+    edge = ((np.abs(c_otm - floor) <= 4 * noise) | (np.abs(np.exp(0.5 * xm) - c_otm) <= 4 * noise)
+            | (c_otm < 1e-290))
+    return noise / (vega * v), edge
+
+
+def fa_analytics_phases(dev, card: dict) -> None:
+    """Phase 21, the rest of the FA-validation layer, float64 unless stated.
+    No kernel of ours runs here (checked): the closed forms, the implied-vol
+    solver and the FIS march are plain PyTorch ops.
+
+    - 21a, implied vol (``implied_vol_black76``) on a 2^20-quote chain
+      (:func:`iv_chain`, seed 0) at float64 and float32: ms per call,
+      quotes/s and device kernels per call (``utils.profiling.throughput``);
+      test_implied_vol.py's gates at float64; 4096 quotes on the card
+      against the port on the CPU (the same NaN mask off the band's edges,
+      1e-12 relative or :func:`iv_noise`'s bound); the jvp through the
+      solver against 1/vega (1e-6); a ``utils.profiling.trace`` of a 2^16
+      call.
+    - 21b, the FIS stencil pricer (``DiscreteBarrierFDMPricer2``) on
+      test_pde_extensions.py's trade at the class defaults (600 x 600): one
+      solve's eager, capture and replayed ms and device kernels; KO, KI and
+      greeks; KO + KI = the vanilla (1e-10); card against CPU (1e-10 of
+      max|value|, gamma 1e-7); the replay against the eager run (1e-12).
+    - 21c, the BS and BGK runners: 80 curve-path BS rows (bench.py's
+      American set, 10 calls and 10 puts, x :data:`FA_BS_SPOT_SHOCKS`), 80
+      BGK rows (:data:`FA_GOLDEN` x the same shocks) and 20 MC-route rows
+      (monthly monitors, the runner's 100,000 paths); ms per row and rows/s
+      on the card and for :data:`FA_ANALYTIC_CPU_ROWS` rows
+      (:data:`FA_MC_CPU_ROWS` MC rows) on the CPU, device kernels per row;
+      the card's rows against the CPU's (price, delta, vega 1e-10 of the
+      column's max; gamma 1e-7), no ``error`` row;
+      beside them, ``bs93_sweep`` and ``bgk_discrete_sweep`` on the desk's
+      stress shape (20 x 16 spot x 13 vol shocks = 4160 rows) from the
+      runners' resolved inputs, ms and rows/s, and each sweep's price
+      against the runner's on the tables' rows (1e-12 of the table's
+      max|price|; BGK: the BGK-route table).
+    - 21d, the two CLIs as subprocesses on the card; the cross-check engine
+      (``QLDiscreteBarrierPricer``) against ``DiscreteBarrierFDMPricer`` on
+      golden row co1 (5e-2) and against itself on the CPU (1e-10);
+      ``diagnose_order_of_accuracy`` on the FIS stencil's price.
+    """
+    import csv
+    import datetime as dt
+    import statistics
+    import tempfile
+
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.analytic import (
+        DiscreteBarrierBGKPricer,
+        bgk_discrete_sweep,
+        bs93_sweep,
+        generalized_bs_price,
+        implied_vol_black76,
+    )
+    from finite_difference_tpu_torch.models.analytic.bs_forward import (
+        BjerksundStenslandForwardPricer,
+    )
+    from finite_difference_tpu_torch.models.pde import (
+        DiscreteBarrierFDMPricer,
+        DiscreteBarrierFDMPricer2,
+        MarketParams,
+        QLDiscreteBarrierPricer,
+        diagnose_order_of_accuracy,
+        spectral,
+    )
+    from finite_difference_tpu_torch.runners import run_all_bgk_scenarios, run_all_bs_scenarios
+    from finite_difference_tpu_torch.utils import flat_curve, flat_naca_dataframe, throughput, trace
+    from finite_difference_tpu_torch.utils.calendars import build_monitoring_dates
+
+    wall = {}
+    kernels.reset_launch_counts()
+    f64 = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    # 21a. implied vol on a chain ---------------------------------------------------
+    t_phase = time.perf_counter()
+    f, k, t, df, is_call, sigma = iv_chain(0, FA_IV_QUOTES)
+    price = (f64(df) * generalized_bs_price(f64(f), f64(k), f64(sigma), f64(t), 0.0, 0.0,
+                                            f64(is_call))).cpu().numpy()
+    iv_out, chains = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        args = chains[dtype] = [f64(a).to(dtype) if a.dtype != bool else f64(a)
+                                for a in (price, f, k, t, df, is_call)]
+        call = lambda: implied_vol_black76(*args)
+        res = throughput(call, FA_IV_QUOTES, iters=5, warmup=1)
+        prof = profile_call(call, res["seconds_per_call"] * 1e3)
+        iv = call().double().cpu().numpy()
+        ok = np.isfinite(iv)
+        err = np.abs(iv[ok] - sigma[ok]) / sigma[ok]
+        rt = (f64(df) * generalized_bs_price(f64(f), f64(k), f64(np.where(ok, iv, 0.3)), f64(t),
+                                             0.0, 0.0, f64(is_call))).cpu().numpy()
+        rel_p = np.abs(rt[ok] - price[ok]) / np.maximum(price[ok], 1e-300)
+        iv_out[str(dtype)] = dict(
+            ms_per_call=res["seconds_per_call"] * 1e3, quotes_per_s=res["items_per_sec"],
+            device_kernels_per_call=prof["device_kernels"], device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"], finite_share=float(ok.mean()),
+            sigma_rel_err_quantiles={q: float(np.quantile(err, q)) for q in (0.5, 0.9, 0.99, 1.0)},
+            price_round_trip_p99=float(np.quantile(rel_p, 0.99)))
+        if dtype == torch.float64:
+            g = iv_out[str(dtype)]
+            check(g["finite_share"] > 0.9, f"implied vol finite share {g['finite_share']}")
+            check(g["sigma_rel_err_quantiles"][0.5] < 1e-14 and g["sigma_rel_err_quantiles"][0.99] < 1e-6,
+                  f"implied vol sigma errors {g['sigma_rel_err_quantiles']}")
+            check(g["price_round_trip_p99"] < 1e-10, f"implied vol round trip {g['price_round_trip_p99']}")
+            iv64 = iv
+    sub = slice(0, FA_IV_CPU_QUOTES)
+    iv_cpu = implied_vol_black76(*(torch.as_tensor(np.ascontiguousarray(a[sub]))
+                                   for a in (price, f, k, t, df, is_call))).numpy()
+    noise, edge = iv_noise(price[sub], f[sub], k[sub], df[sub], is_call[sub],
+                           iv_cpu * np.sqrt(t[sub]), np.finfo(np.float64).eps)
+    on_card = iv64[sub]
+    mask_diff = int(((np.isfinite(on_card) != np.isfinite(iv_cpu)) & ~edge).sum())
+    both = np.isfinite(on_card) & np.isfinite(iv_cpu) & ~edge
+    rel = np.abs(on_card[both] - iv_cpu[both]) / iv_cpu[both]
+    over = int((rel > np.maximum(1e-12, 16.0 * noise[both])).sum())
+    check(mask_diff == 0, f"implied vol card vs CPU: {mask_diff} NaN lanes differ off the band's edges")
+    check(over == 0, f"implied vol card vs CPU: {over} lanes beyond max(1e-12, 16 x noise)")
+    # d(sigma)/d(price) through the solver, by forward AD, against 1/vega
+    s0, k0, t0, r0, sig0 = 100.0, 110.0, 1.5, 0.05, 0.3
+    fwd0, df0 = s0 * math.exp(r0 * t0), math.exp(-r0 * t0)
+    p0 = generalized_bs_price(f64(s0), k0, sig0, t0, r0, r0, True)
+    _, dsig = torch.func.jvp(lambda p: implied_vol_black76(p, fwd0, k0, t0, df0, True),
+                             (p0,), (torch.ones_like(p0),))
+    d1 = (math.log(s0 / k0) + (r0 + 0.5 * sig0 ** 2) * t0) / (sig0 * math.sqrt(t0))
+    vega = s0 * math.sqrt(t0) * math.exp(-0.5 * d1 * d1) / math.sqrt(2 * math.pi)
+    jvp_err = abs(float(dsig) * vega - 1.0)
+    check(jvp_err <= 1e-6, f"implied vol jvp vs 1/vega {jvp_err:.3e}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        small = [a[: 1 << 16] for a in chains[torch.float64]]
+        with trace(os.path.join(tmp, "iv")) as logdir:
+            implied_vol_black76(*small)
+            torch.cuda.synchronize()
+        trace_files = sum(len(files) for _, _, files in os.walk(logdir))
+        trace_bytes = sum(os.path.getsize(os.path.join(d, x)) for d, _, fs in os.walk(logdir) for x in fs)
+    check(trace_files > 0 and trace_bytes > 0, "utils.profiling.trace wrote nothing")
+    emit("fa_implied_vol", quotes=FA_IV_QUOTES, by_dtype=iv_out, cpu_quotes=FA_IV_CPU_QUOTES,
+         card_vs_cpu=dict(max_rel=float(rel.max()), lanes_over=over, nan_mask_diff=mask_diff,
+                          edge_lanes=int(edge.sum())),
+         jvp_vs_inverse_vega=jvp_err, trace_files=trace_files, trace_bytes=trace_bytes, **card)
+    wall["21a implied vol"] = time.perf_counter() - t_phase
+
+    # 21b. the FIS stencil pricer ---------------------------------------------------
+    t_phase = time.perf_counter()
+    val, mat = dt.date(2025, 7, 28), dt.date(2025, 8, 28)
+    fis_mons = [val + dt.timedelta(days=7 * j) for j in range(1, 5)]
+
+    def fis(device, **kw):
+        base = dict(spot=229.74, strike=190.0, valuation_date=val, maturity_date=mat,
+                    volatility=0.2879, option_type="call", barrier_type="up-and-out",
+                    upper_barrier=260.0, monitoring_dates=fis_mons, flat_rate_nacc=0.0705)
+        return DiscreteBarrierFDMPricer2(**{**base, **kw}, device=device)
+
+    spectral.reset_graph_counts()
+    p_ko = fis(dev)
+    solve = lambda: p_ko._solve_grid_once()[1]
+    v_eager, eager_ms = host_ms(solve)
+    _, capture_ms = host_ms(solve)
+    v_replay, replay_ms = host_ms(solve)
+    prof = profile_call(solve, replay_ms)
+    solve_counts = dict(spectral.graph_counts)
+    replay_err = float(np.abs(v_replay - v_eager).max() / np.abs(v_eager).max())
+    check(solve_counts == {"eager": 1, "captures": 1, "replays": 3},
+          f"the FIS march's capture rule: {solve_counts}")
+    check(replay_err <= 1e-12, f"FIS replay vs eager {replay_err:.3e} > 1e-12")
+
+    def fis_outputs(device):
+        ko, ki = fis(device), fis(device, barrier_type="up-and-in")
+        van = fis(device, barrier_type="none", monitoring_dates=[])
+        return {"ko": ko.price(), "ki": ki.price(), "vanilla": van.price(), **ko.greeks()}
+
+    spectral.reset_graph_counts()
+    out_gpu, fis_ms = host_ms(lambda: fis_outputs(dev))
+    fis_graphs = dict(spectral.graph_counts)
+    t0 = time.perf_counter()
+    out_cpu = fis_outputs("cpu")
+    fis_cpu_s = time.perf_counter() - t0
+    parity = abs(out_gpu["ko"] + out_gpu["ki"] - out_gpu["vanilla"]) / abs(out_gpu["vanilla"])
+    first = [x for x in out_cpu if x != "gamma"]
+    scale = max(abs(out_cpu[x]) for x in first)
+    fis_err = max(abs(out_gpu[x] - out_cpu[x]) for x in first) / scale
+    gamma_err = abs(out_gpu["gamma"] - out_cpu["gamma"]) / max(abs(out_cpu["gamma"]), 1e-300)
+    emit("fa_fis_stencil", N=len(p_ko.S_nodes), steps=p_ko.num_time_steps, eager_ms=eager_ms,
+         capture_ms=capture_ms, replay_ms=replay_ms, replay_vs_eager=replay_err,
+         device_kernels_per_solve=prof["device_kernels"], replay_device_ms=prof["device_ms"],
+         replay_busy_share=prof["busy_share"], solve_graph_counts=solve_counts,
+         outputs=out_gpu, outputs_ms=fis_ms, outputs_graph_counts=fis_graphs,
+         cpu_s=fis_cpu_s, ko_plus_ki_vs_vanilla=parity, card_vs_cpu=fis_err,
+         gamma_card_vs_cpu=gamma_err, limits=dict(parity=1e-10, first=1e-10, gamma=1e-7), **card)
+    check(parity <= 1e-10, f"FIS KO + KI vs vanilla {parity:.3e}")
+    check(fis_err <= 1e-10, f"FIS card vs CPU {fis_err:.3e}")
+    check(gamma_err <= 1e-7, f"FIS gamma card vs CPU {gamma_err:.3e}")
+    wall["21b FIS stencil"] = time.perf_counter() - t_phase
+
+    # 21c. the BS and BGK runners, and the batched sweeps beside them --------------
+    t_phase = time.perf_counter()
+    am_mat = dt.date(2026, 7, 28)
+    rng = np.random.default_rng(7)
+    am_spots, am_sigmas = rng.uniform(80.0, 120.0, 4096)[:20], rng.uniform(0.15, 0.4, 4096)[:20]
+    disc = flat_naca_dataframe(math.exp(AM_RATE) - 1.0)
+    carry = flat_naca_dataframe(math.exp(AM_CARRY) - 1.0)
+
+    def bs_trades(spot_shocks, vol_shocks=(1.0,)):
+        return [dict(trade_name=f"bs{i}_s{a}_v{b}", option_type="call" if i < 10 else "put",
+                     S=s_ * (1.0 + ds), K=AM_STRIKE, sigma=v_ * dv, valuation_date=val,
+                     maturity_date=am_mat, discount_curve=disc, forward_curve=carry)
+                for i, (s_, v_) in enumerate(zip(am_spots, am_sigmas))
+                for a, ds in enumerate(spot_shocks) for b, dv in enumerate(vol_shocks)]
+
+    golden_mons = [val + dt.timedelta(days=d) for d in FA_MONITOR_DAYS]
+    fa_curve = flat_curve(FA_RATE, val)
+
+    def bgk_trades(spot_shocks, vol_shocks=(1.0,)):
+        return [dict(trade_name=f"{r[0]}_s{a}_v{b}", option_type=r[1], barrier_type=r[2],
+                     S=FA_SPOT * (1.0 + ds), K=r[3], sigma=r[4] * dv, lower_barrier=r[5],
+                     upper_barrier=r[6], valuation_date=val, maturity_date=mat,
+                     monitor_dates=golden_mons, discount_curve=fa_curve)
+                for r in FA_GOLDEN for a, ds in enumerate(spot_shocks) for b, dv in enumerate(vol_shocks)]
+
+    monthly = build_monitoring_dates(val, am_mat, "monthly")
+    mc_trades = [dict(trade_name=f"mc{i}", option_type="call", barrier_type="up-and-out",
+                      S=float(s_), K=AM_STRIKE, sigma=float(v_), upper_barrier=FA_MC_BARRIER,
+                      valuation_date=val, maturity_date=am_mat, monitor_dates=monthly,
+                      discount_curve=disc, forward_curve=carry)
+                 for i, (s_, v_) in enumerate(zip(am_spots, am_sigmas))]
+    tables = {"bs": (run_all_bs_scenarios, bs_trades(FA_BS_SPOT_SHOCKS)),
+              "bgk": (run_all_bgk_scenarios, bgk_trades(FA_BS_SPOT_SHOCKS)),
+              "bgk_mc": (run_all_bgk_scenarios, mc_trades)}
+    cols = ("model_price", "model_delta", "model_gamma", "model_vega")
+    runner_rows, table_out = {}, {}
+    for label, (run, trades) in tables.items():
+        run(trades[:2], device=dev)  # warm-up
+        rows, ms = host_ms(lambda: run(trades, device=dev))
+        n_cpu = FA_MC_CPU_ROWS if label == "bgk_mc" else FA_ANALYTIC_CPU_ROWS
+        rows_cpu, cpu_ms = host_ms(lambda: run(trades[:n_cpu], device="cpu"))
+        prof = profile_call(lambda: run(trades[:4], device=dev), ms * 4 / len(trades))
+        errs = [r.get("error") for r in rows + rows_cpu if "error" in r]
+        check(not errs, f"{label} runner error rows: {errs[:3]}")
+        check(all(math.isfinite(r[c]) for r in rows for c in cols), f"{label}: not finite")
+        diff = {}
+        for c in cols:
+            want = np.array([r[c] for r in rows_cpu])
+            got = np.array([r[c] for r in rows[:n_cpu]])
+            diff[c] = float(np.abs(got - want).max() / np.abs(want).max())
+        limits_c = {c: 1e-7 if c == "model_gamma" else 1e-10 for c in cols}
+        table_out[label] = dict(rows=len(rows), ms=ms, ms_per_row=ms / len(rows),
+                                rows_per_s=len(rows) / ms * 1e3, cpu_rows=n_cpu, cpu_ms=cpu_ms,
+                                cpu_ms_per_row=cpu_ms / n_cpu, cpu_rows_per_s=n_cpu / cpu_ms * 1e3,
+                                device_kernels_per_row=prof["device_kernels"] / 4,
+                                card_vs_cpu=diff, limits=limits_c,
+                                methods=sorted({r.get("pricing_method", "") for r in rows}))
+        for c in cols:
+            check(diff[c] <= limits_c[c], f"{label} card vs CPU {c}: {diff[c]:.3e} > {limits_c[c]}")
+        runner_rows[label] = rows
+    check(table_out["bgk"]["methods"] == ["BGK"] and table_out["bgk_mc"]["methods"] == ["MC"],
+          f"BGK routes {table_out['bgk']['methods']}, {table_out['bgk_mc']['methods']}")
+
+    # the batched sweeps on the stress shape, from the runners' resolved inputs
+    bs_pr = BjerksundStenslandForwardPricer(device=dev)
+
+    # a BS row's resolution (bs_forward's curve API): the same rates, tenors
+    # and carry growth for every trade of the set, F = S * growth
+    res = bs_pr._resolve_curve_inputs(1.0, val, am_mat, disc, carry, None, 0, 0, 0, "ACT/365")
+    growth = math.exp(res["carry_rate"] * res["T_carry"])
+    r_eff = res["disc_rate"] * res["T_disc"] / max(res["T_exp"], 1e-12)
+
+    def bs_inputs(trades):
+        s_ = np.array([tr["S"] for tr in trades])
+        return dict(s=s_, f=s_ * growth, t=res["T_exp"], r=r_eff,
+                    sigma=np.array([tr["sigma"] for tr in trades]),
+                    is_call=np.array([tr["option_type"] == "call" for tr in trades]))
+
+    def bgk_inputs(trades):
+        keys = ("s_eff", "strike", "forward", "mu", "sigma", "t", "df", "m", "lower", "upper",
+                "is_call", "is_in", "spot")
+        cols_ = {x: [] for x in keys}
+        for tr in trades:
+            p = DiscreteBarrierBGKPricer(
+                spot=tr["S"], strike=tr["K"], valuation_date=val, maturity_date=mat,
+                option_type=tr["option_type"], barrier_type=tr["barrier_type"],
+                lower_barrier=tr["lower_barrier"], upper_barrier=tr["upper_barrier"],
+                monitor_dates=golden_mons, discount_curve=fa_curve, volatility=tr["sigma"],
+                device=dev)
+            for x, v in (("s_eff", p.spot_price_eff), ("strike", p.strike_price),
+                         ("forward", p.forward_price), ("mu", p._mu()), ("sigma", p.sigma),
+                         ("t", p.tenor_years), ("df", math.exp(-p.discount_rate * p.discount_years)),
+                         ("m", p.m), ("lower", p.lower_barrier), ("upper", p.upper_barrier),
+                         ("is_call", p.option_type == "call"), ("is_in", "in" in p.barrier_type),
+                         ("spot", p.spot_price)):
+                cols_[x].append(v)
+        return {x: (v if x in ("lower", "upper") else np.asarray(v)) for x, v in cols_.items()}
+
+    sweeps = {"bs93_sweep": (lambda a: bs93_sweep(a["s"], a["f"], AM_STRIKE, a["t"], a["r"],
+                                                  a["sigma"], a["is_call"], device=dev),
+                             bs_inputs, bs_trades, "bs"),
+              "bgk_discrete_sweep": (lambda a: bgk_discrete_sweep(**a, device=dev), bgk_inputs,
+                                     bgk_trades, "bgk")}
+    sweep_out = {}
+    for name, (sweep, inputs, make, label) in sweeps.items():
+        big = inputs(make(FA_SPOT_SHOCKS, FA_VOL_SHOCKS))
+        sweep(big)
+        out, ms = host_ms(lambda: sweep(big))
+        ms_runs = [host_ms(lambda: sweep(big))[1] for _ in range(4)]
+        check(out.shape == (len(big["sigma"]),) and bool(torch.isfinite(out).all()), f"{name} output")
+        table = inputs(make(FA_BS_SPOT_SHOCKS))
+        got = sweep(table).cpu().numpy()
+        want = np.array([r["model_price"] for r in runner_rows[label]])
+        sweep_err = float(np.max(np.abs(got - want)) / np.abs(want).max())
+        sweep_out[name] = dict(rows=len(big["sigma"]), ms=[ms] + ms_runs,
+                               rows_per_s=len(big["sigma"]) / statistics.median([ms] + ms_runs) * 1e3,
+                               vs_runner_rows=len(want), vs_runner_max_rel=sweep_err, limit=1e-12,
+                               runner_rows_per_s=table_out[label]["rows_per_s"])
+        check(sweep_err <= 1e-12, f"{name} vs the {label} runner's prices {sweep_err:.3e} > 1e-12")
+    emit("fa_analytic_tables", tables=table_out, sweeps=sweep_out, **card)
+    wall["21c runners and sweeps"] = time.perf_counter() - t_phase
+
+    # 21d. the CLIs, the cross-check and the order tools ----------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fa_analytics_") as tmp:
+        bgk_cfg = os.path.join(tmp, "bgk.csv")
+        with open(bgk_cfg, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["trade_name", "option_type", "barrier_type", "S", "K", "sigma", "rate",
+                        "valuation", "maturity", "monitor_frequency", "upper_barrier",
+                        "lower_barrier", "rebate_amount", "pricing_method", "mc_n_paths"])
+            w.writerow(["D1", "call", "up-and-out", 100.0, 95.0, 0.3, 0.085, "2025-07-28",
+                        "2026-07-28", "daily", 130.0, "", 1.5, "", ""])
+            w.writerow(["M1", "put", "down-and-in", 100.0, 105.0, 0.28, 0.085, "2025-07-28",
+                        "2026-01-28", "weekly", "", 85.0, "", "mc", 20000])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+        jobs = {"bs_scenarios": ([], 4), "bgk_scenarios": ([bgk_cfg], 2)}
+        outs = {mod: os.path.join(tmp, f"{mod}_out.csv") for mod in jobs}
+        t_cli = time.perf_counter()
+        procs = {mod: subprocess.Popen(
+            [sys.executable, "-m", f"finite_difference_tpu_torch.runners.{mod}", *a, "-o", outs[mod]],
+            cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for mod, (a, _) in jobs.items()}
+        try:
+            errs_cli = {mod: proc.communicate(timeout=600)[1] for mod, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cli_ms = (time.perf_counter() - t_cli) * 1e3
+        cli = {}
+        for mod, (_, n_rows) in jobs.items():
+            rc = procs[mod].returncode
+            check(rc == 0, f"{mod} CLI exited {rc}: {errs_cli[mod][-2000:]}")
+            with open(outs[mod], newline="") as fh:
+                got_rows = list(csv.DictReader(fh))
+            check(len(got_rows) == n_rows and all(not r.get("error") and math.isfinite(float(r["model_price"]))
+                                                  for r in got_rows), f"{mod} CLI's CSV")
+            cli[mod] = dict(rc=rc, rows=len(got_rows))
+
+    co1 = FA_GOLDEN[0]
+
+    def crosscheck(device):
+        return QLDiscreteBarrierPricer(
+            MarketParams(spot=FA_SPOT, strike=co1[3], sigma=co1[4], rate_nacc=math.log1p(FA_RATE)),
+            is_call=True, barrier_type=co1[2], monitoring_dates=golden_mons, maturity_date=mat,
+            barrier=co1[6], valuation_date=val, grid_points=400, min_time_steps=400,
+            device=device).price_and_greeks()
+
+    xc_gpu, xc_ms = host_ms(lambda: crosscheck(dev))
+    xc_cpu = crosscheck("cpu")
+    prod = DiscreteBarrierFDMPricer(
+        spot=FA_SPOT, strike=co1[3], valuation_date=val, maturity_date=mat, sigma=co1[4],
+        option_type="call", barrier_type=co1[2], upper_barrier=co1[6], monitor_dates=golden_mons,
+        discount_curve=fa_curve, forward_curve=fa_curve, underlying_spot_days=0, option_days=0,
+        option_settlement_days=0, num_space_nodes=500, num_time_steps=500, device=dev).price_log2()
+    xc_vs_prod = abs(xc_gpu["price"] - prod) / abs(prod)
+    xc_card_cpu = abs(xc_gpu["price"] - xc_cpu["price"]) / abs(xc_cpu["price"])
+    check(xc_vs_prod <= 5e-2, f"cross-check vs the production pricer {xc_vs_prod:.3e} > 5e-2")
+    check(xc_card_cpu <= 1e-10, f"cross-check card vs CPU {xc_card_cpu:.3e} > 1e-10")
+    p_ref = fis(dev).price()
+    order, order_ms = host_ms(lambda: diagnose_order_of_accuracy(
+        lambda n: fis(dev, num_time_steps=n).price(), observed_difference=p_ref - prod,
+        n_ladder=FA_ORDER_LADDER, t_expiry=p_ko.tenor_years))
+    launches = dict(kernels.launch_counts)
+    check(not any(launches.values()), f"phase 21 launched a kernel of ours: {launches}")
+    emit("fa_analytic_tools", cli=cli, cli_ms=cli_ms, crosscheck=xc_gpu, crosscheck_ms=xc_ms,
+         production_price=prod, crosscheck_vs_production=xc_vs_prod, crosscheck_card_vs_cpu=xc_card_cpu,
+         order_of_accuracy={x: order[x] for x in ("n_ladder", "prices", "order", "reference_price",
+                                                  "predicted_truncation_error", "observed_difference",
+                                                  "verdict")},
+         order_ms=order_ms, **card)
+    wall["21d CLIs, cross-check, order"] = time.perf_counter() - t_phase
+    emit("fa_analytics_phase_wall_s", **wall, total=sum(wall.values()))
+
+
 def main() -> int:
     import torch
 
@@ -1975,6 +2425,11 @@ def main() -> int:
     for k in (k1, k1a, k2, k3, k4):
         k["fa_launches"] = fa_launches.get(k["name"], 0)
     wall["20 FA validation"] = time.perf_counter() - t1
+
+    # 21. the rest of the FA-validation layer -------------------------------------
+    t1 = time.perf_counter()
+    fa_analytics_phases(dev, card)
+    wall["21 FA analytics"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

@@ -1,8 +1,9 @@
 """Closed-form pricers on torch tensors (counterpart of ``finite_difference_tpu.models.analytic``).
 
-The modules the serving layer needs: Black–Scholes, Reiner–Rubinstein,
-the double barrier, BGK/Hörfelt, Bjerksund–Stensland 1993 and 2002, and
-the batched sweeps over trade tables.
+Black–Scholes, Reiner–Rubinstein, the double barrier, BGK/Hörfelt,
+Bjerksund–Stensland 1993 and 2002 and the batched sweeps over trade tables
+(the serving layer's), and the FA-validation tools: the date-driven BGK
+and Bjerksund–Stensland forward pricers and the implied-vol inverse.
 """
 from .black_scholes import (
     bs_price,
@@ -20,6 +21,8 @@ from .bjerksund_stensland import (
     american_put_bs93,
     american_price_bs93,
 )
+from .bgk_pricer import DiscreteBarrierBGKPricer
+from .bs_forward import BjerksundStenslandForwardPricer
 from .bjerksund_stensland_2002 import (
     BjerksundStensland2002Pricer,
     american_call_single_2002,
@@ -35,8 +38,11 @@ from .batch import (
     bs2002_sweep,
     monitoring_decision,
 )
+from .implied_vol import implied_vol_black76, implied_vol_bs
 
 __all__ = [
+    "implied_vol_black76",
+    "implied_vol_bs",
     "bs_price",
     "bs_greeks",
     "black76_price",
@@ -53,6 +59,8 @@ __all__ = [
     "american_call_bs93",
     "american_put_bs93",
     "american_price_bs93",
+    "DiscreteBarrierBGKPricer",
+    "BjerksundStenslandForwardPricer",
     "BjerksundStensland2002Pricer",
     "american_call_single_2002",
     "american_call_two_step_2002",

@@ -18,7 +18,10 @@
   scan over its sigma bumps: :mod:`.american` (``AmericanFDMPricer``),
   :mod:`.american_black76`, :mod:`.barrier` (``DiscreteBarrierFDMPricer``),
   :mod:`.vanilla_fis`, :mod:`.cn_log`, :mod:`.hybrid`, and :mod:`.risk`'s
-  spot-scenario functions.
+  spot-scenario functions;
+- the FA-validation tools: :mod:`.fis_stencil` (FIS's S-space stencil,
+  ``DiscreteBarrierFDMPricer2``), :mod:`.crosscheck` (the independent
+  engine) and :mod:`.order_accuracy` (convergence-order diagnostics).
 """
 from .stepper import BarrierSpec, CNDynamics, CNGrid, CNSchedule, cn_solve
 from .american import AmericanFDMPricer
@@ -26,10 +29,20 @@ from .american_black76 import AmericanFwdFDMPricer
 from .barrier import DiscreteBarrierFDMPricer
 from .cn_log import DiscreteBarrierCrankNicolsonLog
 from .hybrid import DiscreteBarrierFDMPricerAnalytic
+from .crosscheck import MarketParams, QLDiscreteBarrierPricer, fis_time_steps
+from .fis_stencil import DiscreteBarrierFDMPricer2
 from .vanilla_fis import VanillaOptionPricerFIS
 from .risk import front_arena_style_spot_curve, risk_reprice_spot, risk_spot_scenario
+from .order_accuracy import (
+    compute_empirical_order,
+    diagnose_order_of_accuracy,
+    greek_order_of_accuracy,
+    predict_truncation_error,
+)
+from .spectral import spectral_solve
 
 __all__ = [
+    "spectral_solve",
     "CNDynamics",
     "CNGrid",
     "CNSchedule",
@@ -40,8 +53,16 @@ __all__ = [
     "DiscreteBarrierFDMPricer",
     "DiscreteBarrierCrankNicolsonLog",
     "DiscreteBarrierFDMPricerAnalytic",
+    "MarketParams",
+    "QLDiscreteBarrierPricer",
+    "fis_time_steps",
+    "DiscreteBarrierFDMPricer2",
     "VanillaOptionPricerFIS",
     "front_arena_style_spot_curve",
     "risk_reprice_spot",
     "risk_spot_scenario",
+    "compute_empirical_order",
+    "diagnose_order_of_accuracy",
+    "greek_order_of_accuracy",
+    "predict_truncation_error",
 ]

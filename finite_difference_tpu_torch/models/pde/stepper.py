@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...device import DEFAULT_DEVICE, resolve_device
 from ...ops.interp import cubic_spline_eval, natural_cubic_spline
 from ...ops.tridiag import const_factor, const_solve
 
@@ -67,6 +68,15 @@ class BarrierSpec(NamedTuple):
     # rate used to PV a maturity-paid rebate back from expiry; the
     # reference discounts at the CARRY rate (discrete_barrier_fdm_pricer.py:424)
     rebate_rate: torch.Tensor
+
+    @staticmethod
+    def none(batch: int, dtype=torch.float64, device=DEFAULT_DEVICE) -> "BarrierSpec":
+        """No barrier for ``batch`` trades (JAX's ``BarrierSpec.none``,
+        one row per trade): zero levels and rebates, every flag False."""
+        dev = resolve_device(device)
+        z = torch.zeros(batch, dtype=dtype, device=dev)
+        f = torch.zeros(batch, dtype=torch.bool, device=dev)
+        return BarrierSpec(z, z, f, f, z, f, z)
 
 
 class CNSchedule(NamedTuple):

@@ -17,9 +17,18 @@ from .tridiag import thomas_solve_pscan
 
 
 def linear_interp(xq: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Row-wise piecewise-linear interpolation of y(x) at ``xq``, clamped to
-    the end values (``jnp.interp`` semantics): ``xq`` (B,), ``x`` and ``y``
-    (B, N) with ``x`` ascending along each row."""
+    """Piecewise-linear interpolation of y(x) at ``xq``, clamped to the end
+    values (``jnp.interp`` semantics), ``x`` ascending. Two forms: JAX's
+    1-D one, ``x`` and ``y`` (N,) with ``xq`` of any shape; and the row
+    form of the batch drivers, ``xq`` (B,), ``x`` and ``y`` (B, N), one
+    table per row."""
+    if x.dim() == 1:
+        n = x.shape[0]
+        i = torch.searchsorted(x, xq.contiguous(), right=True).clamp(1, n - 1)
+        x0, x1, f0, f1 = x[i - 1], x[i], y[i - 1], y[i]
+        f = f0 + ((xq - x0) / (x1 - x0)) * (f1 - f0)
+        f = torch.where(xq < x[0], y[0], f)
+        return torch.where(xq > x[-1], y[-1], f)
     n = x.shape[1]
     i = torch.searchsorted(x, xq[:, None], right=True).clamp(1, n - 1)
     x0, x1 = torch.gather(x, 1, i - 1)[:, 0], torch.gather(x, 1, i)[:, 0]

@@ -6,7 +6,9 @@ Counterparts of ``finite_difference_tpu.ops.tridiag``:
   halves ``const_factor`` / ``const_solve`` (the stepper factors each run of
   equal (theta, dt) steps once and solves every step of the run with it);
 - ``thomas_solve_pscan``, the general-coefficient solve behind the
-  natural cubic spline of the dividend jump (``ops.interp``);
+  natural cubic spline of the dividend jump (``ops.interp``), and its
+  factor ``thomas_factor`` (the FIS stencil pricer solves every step of
+  a run of equal coefficients with one factor);
 - ``thomas_solve``, JAX's general solve by name, computed by the same
   log-depth scan as ``thomas_solve_pscan``;
 - ``tridiag_matvec``.
@@ -90,9 +92,10 @@ def _affine_scan(alpha: torch.Tensor, beta: torch.Tensor, reverse: bool = False)
 
 
 class ConstFactor(NamedTuple):
-    """A constant-diagonal system factored for :func:`const_solve`: the
-    forward-elimination weights w_i = 1/D_i and the doubling scans'
-    multipliers of both sweeps."""
+    """A tridiagonal system factored for :func:`const_solve` (by
+    :func:`const_factor` or :func:`thomas_factor`): the forward-elimination
+    weights w_i = 1/D_i and the doubling scans' multipliers of both
+    sweeps."""
 
     w: torch.Tensor
     forward: List[torch.Tensor]
@@ -173,17 +176,17 @@ def _homography_scan(m00, m01, m10, m11):
     return m00, m01, m10, m11
 
 
-def thomas_solve_pscan(dl, d, du, rhs):
-    """General-coefficient Thomas solve of T x = rhs in O(log n) depth.
-
-    Shapes (..., n); dl[..., 0] and du[..., -1] are ignored. The forward
-    elimination's recurrence c'_i = du_i / (d_i - dl_i c'_{i-1}) is a
-    linear-fractional map of c'_{i-1}, so all c'_i come from the products
-    of the homographies M_i = [[0, du_i], [-dl_i, d_i]]; the forward and
-    backward sweeps are then affine scans. For diagonally dominant systems
-    (splines), where the recurrence is contractive.
+def thomas_factor(dl, d, du) -> ConstFactor:
+    """Factor the general tridiagonal systems (dl, d, du), shapes (..., n)
+    (dl[..., 0] and du[..., -1] are ignored), for :func:`const_solve`, in
+    O(log n) depth. The forward elimination's recurrence
+    c'_i = du_i / (d_i - dl_i c'_{i-1}) is a linear-fractional map of
+    c'_{i-1}, so all c'_i come from the products of the homographies
+    M_i = [[0, du_i], [-dl_i, d_i]]; the forward and backward sweeps are
+    then affine scans. For diagonally dominant systems (splines, the FIS
+    stencil's CN systems), where the recurrence is contractive.
     """
-    dl, d, du, rhs = torch.broadcast_tensors(dl, d, du, rhs)
+    dl, d, du = torch.broadcast_tensors(dl, d, du)
     zero = torch.zeros_like(d[..., :1])
     # zero the ignored corners so arbitrary caller values cannot overflow
     # the matrix products (they never affect the solution)
@@ -193,9 +196,16 @@ def thomas_solve_pscan(dl, d, du, rhs):
     # c'_i = (M_i ... M_0) applied to c'_{-1} = 0, i.e. column [0, 1]^T
     c_prime = c01 / c11
     cp_prev = torch.cat([zero, c_prime[..., :-1]], dim=-1)
-    denom = d - dl * cp_prev
-    d_prime = _affine_scan(-dl / denom, rhs / denom)
-    return _affine_scan(-c_prime, d_prime, reverse=True)
+    w = 1.0 / (d - dl * cp_prev)
+    return ConstFactor(w, _scan_multipliers(-dl * w), _scan_multipliers(-c_prime, reverse=True))
+
+
+def thomas_solve_pscan(dl, d, du, rhs):
+    """General-coefficient Thomas solve of T x = rhs in O(log n) depth
+    (:func:`thomas_factor`, then :func:`const_solve`). Shapes (..., n);
+    dl[..., 0] and du[..., -1] are ignored."""
+    dl, d, du, rhs = torch.broadcast_tensors(dl, d, du, rhs)
+    return const_solve(thomas_factor(dl, d, du), rhs)
 
 
 def thomas_solve(dl, d, du, rhs):

@@ -45,14 +45,16 @@ def read_rows(path: str) -> List[Row]:
 
 def write_rows(rows: Sequence[Row], path: str) -> None:
     """Write result rows as a CSV with a header, NaN and None as empty cells
-    (``DataFrame.to_csv``'s output for the same rows)."""
-    fields = list(rows[0]) if rows else []
+    (``DataFrame.to_csv``'s output for the same rows: the columns are every
+    row's keys in order of first appearance, a row without a column empty
+    there, as a runner's ``error`` row is)."""
+    fields = list(dict.fromkeys(k for r in rows for k in r))
     empty = lambda v: v is None or (isinstance(v, float) and math.isnan(v))
     with open(path, "w", newline="") as fh:
         w = csv.writer(fh)
         w.writerow(fields)
         for r in rows:
-            w.writerow(["" if empty(r[k]) else r[k] for k in fields])
+            w.writerow(["" if empty(r.get(k)) else r[k] for k in fields])
 
 
 def print_summary(rows: Sequence[Row], columns: Sequence[str] = (

@@ -17,7 +17,14 @@ the port on the CPU at float64 within 1e-12, and a float32 spectral call
 under TF32 raises rather than lose the sine reconstruction. On the
 FA-validation path, the scalar pricers on the card equal the port on the
 CPU within 1e-10, a replayed scan (a CUDA graph) equals its eager run
-within 1e-12, and the batched American runner at float64 launches K2.
+within 1e-12, and the batched American runner at float64 launches K2. The
+rest of that layer (no kernel of ours): the Bjerksund–Stensland forward
+pricer, the BGK pricer on its BGK and Monte Carlo routes and the FIS
+stencil pricer on the card equal the port on the CPU (prices, delta, vega
+within 1e-10 of max|value|, gamma 1e-7), implied vol within 1e-12
+relative (or 16 times a quote's rounding noise, as on the CPU against
+JAX), a replayed FIS march equals its eager run within 1e-12, and
+``utils.profiling.trace`` writes a non-empty trace.
 """
 import dataclasses
 
@@ -774,3 +781,130 @@ def test_american_batched_runner_launches_k2(cuda, tmp_path):
     for k in ("model_price", "model_delta", "model_gamma", "model_vega"):
         scale = max(abs(w[k]) for w in want)
         assert max(abs(g[k] - w[k]) for g, w in zip(got, want)) <= 1e-6 * scale, k
+
+
+def _fa_analytic_outputs(device):
+    """A curve-path BS row, BGK rows on both routes and the FIS stencil's
+    price and greeks, each a dict of floats."""
+    import datetime as dt
+
+    from finite_difference_tpu_torch.models.analytic import (
+        BjerksundStenslandForwardPricer,
+        DiscreteBarrierBGKPricer,
+    )
+    from finite_difference_tpu_torch.models.pde import DiscreteBarrierFDMPricer2
+    from finite_difference_tpu_torch.utils import flat_naca_dataframe
+    from finite_difference_tpu_torch.utils.calendars import build_monitoring_dates
+
+    val, mat = dt.date(2025, 7, 28), dt.date(2026, 7, 28)
+    curve = flat_naca_dataframe(0.0731)
+    bs = BjerksundStenslandForwardPricer(device=device).greeks_from_curves(
+        95.0, 100.0, val, mat, 0.3, "put", discount_curve=curve, underlying_spot_days=3)
+    out = {f"bs_{k}": v for k, v in bs.items()}
+    for route, freq in (("bgk", "daily"), ("mc", "monthly")):
+        pr = DiscreteBarrierBGKPricer(
+            spot=100.0, strike=100.0, valuation_date=val, maturity_date=mat, option_type="call",
+            barrier_type="up-and-out", upper_barrier=130.0, rebate_amount=1.0,
+            monitor_dates=build_monitoring_dates(val, mat, freq), discount_curve=curve,
+            volatility=0.25, mc_n_paths=20000, device=device)
+        assert pr._select_method() == route
+        out.update({f"{route}_price": pr.price(), **{f"{route}_{k}": v for k, v in pr.greeks().items()}})
+    fis = DiscreteBarrierFDMPricer2(
+        spot=229.74, strike=190.0, valuation_date=val, maturity_date=dt.date(2025, 8, 28),
+        volatility=0.2879, option_type="call", barrier_type="up-and-in", upper_barrier=260.0,
+        monitoring_dates=[val + dt.timedelta(days=7 * k) for k in range(1, 5)],
+        flat_rate_nacc=0.0705, num_space_nodes=200, num_time_steps=150, device=device)
+    out.update({"fis_price": fis.price(), **{f"fis_{k}": v for k, v in fis.greeks().items()}})
+    return out
+
+
+def test_fa_analytics_on_the_card_equal_the_cpu(cuda):
+    want = _fa_analytic_outputs("cpu")
+    got = _fa_analytic_outputs(cuda)
+    for prefix in ("bs", "bgk", "mc", "fis"):
+        keys = [k for k in want if k.startswith(prefix + "_")]
+        scale = max(abs(want[k]) for k in keys)
+        for k in keys:
+            limit = 1e-7 if k.endswith("gamma") else 1e-10
+            assert abs(got[k] - want[k]) <= limit * scale, k
+
+
+def test_implied_vol_on_the_card_equals_the_cpu(cuda):
+    """A chain like test_implied_vol.py's, inverted on both devices."""
+    from scipy.special import ndtr
+
+    from finite_difference_tpu_torch.models.analytic import generalized_bs_price, implied_vol_black76
+
+    rng = np.random.default_rng(5)
+    B = 4096
+    f = rng.uniform(50, 400, B)
+    k = f * np.exp(rng.uniform(-3.0, 3.0, B))
+    t = rng.uniform(0.02, 10.0, B)
+    sigma = rng.uniform(0.02, 1.5, B)
+    df = np.exp(-rng.uniform(0.0, 0.1, B) * t)
+    is_call = rng.integers(0, 2, B).astype(bool)
+    args = [torch.as_tensor(a) for a in (f, k, t, df, is_call)]
+    price = (args[3] * generalized_bs_price(args[0], args[1], torch.as_tensor(sigma), args[2],
+                                            0.0, 0.0, args[4])).numpy()
+    want = implied_vol_black76(torch.as_tensor(price), *args).numpy()
+    got = implied_vol_black76(torch.as_tensor(price, device=cuda), *(a.to(cuda) for a in args))
+    assert got.dtype == torch.float64 and got.device.type == cuda.type
+    got = got.cpu().numpy()
+    # the rounding noise of each normalized premium (test_torch_fa_analytic.iv_noise):
+    # quotes within it of the band's edges may fall either side; sigma may move by
+    # it over dc/dln(v)
+    eps = np.finfo(np.float64).eps
+    x = np.log(f / k)
+    xm, v = -np.abs(x), np.where(np.isfinite(want), want, sigma) * np.sqrt(t)
+    c_in = price / df / np.sqrt(f * k)
+    d1 = xm / v + 0.5 * v
+    itm = np.where(is_call, x > 0, x < 0)
+    noise_c = eps * (c_in + np.exp(0.5 * xm) * ndtr(d1) + np.exp(-0.5 * xm) * ndtr(d1 - v)
+                     + np.where(itm, np.exp(0.5 * x) + np.exp(-0.5 * x), 0.0))
+    intr = np.abs(np.exp(0.5 * x) - np.exp(-0.5 * x))
+    c_otm = c_in - np.where(itm, intr, 0.0)
+    floor = np.where(itm, 8.0 * eps * intr, 0.0)
+    edge = ((np.abs(c_otm - floor) <= 4 * noise_c) | (np.abs(np.exp(0.5 * xm) - c_otm) <= 4 * noise_c)
+            | (c_otm < 1e-290))
+    assert ((np.isnan(got) != np.isnan(want)) & ~edge).sum() == 0
+    with np.errstate(divide="ignore", over="ignore"):  # vega underflows in the far wings
+        noise = noise_c / (np.exp(0.5 * xm) * np.exp(-0.5 * d1 * d1) / np.sqrt(2 * np.pi) * v)
+    ok = np.isfinite(got) & np.isfinite(want) & ~edge
+    rel = np.abs(got[ok] - want[ok]) / want[ok]
+    assert (rel <= np.maximum(1e-12, 16.0 * noise[ok])).all()
+
+
+def test_fis_replay_equals_its_eager_run(cuda):
+    """The FIS march's first solve of a key runs eagerly, its second is
+    captured, the third replays: all three give the same grid (1e-12)."""
+    import datetime as dt
+
+    from finite_difference_tpu_torch.models.pde import DiscreteBarrierFDMPricer2, spectral
+
+    val = dt.date(2025, 7, 28)
+    pr = DiscreteBarrierFDMPricer2(
+        spot=229.74, strike=190.0, valuation_date=val, maturity_date=dt.date(2025, 8, 28),
+        volatility=0.2879, option_type="put", barrier_type="up-and-out", upper_barrier=260.0,
+        monitoring_dates=[val + dt.timedelta(days=7 * k) for k in range(1, 5)],
+        flat_rate_nacc=0.0705, num_space_nodes=230, num_time_steps=111, device=cuda)
+    spectral.reset_graph_counts()
+    grids = [pr._solve_grid_once()[1] for _ in range(3)]
+    assert spectral.graph_counts == {"eager": 1, "captures": 1, "replays": 2}
+    scale = np.abs(grids[0]).max()
+    for g in grids[1:]:
+        assert np.abs(g - grids[0]).max() <= 1e-12 * scale
+
+
+def test_trace_writes_a_trace(cuda, tmp_path):
+    import os
+
+    from finite_difference_tpu_torch.utils import throughput, trace
+
+    x = torch.ones(1 << 16, dtype=torch.float64, device=cuda)
+    with trace(str(tmp_path / "trace")) as logdir:
+        (x * 2.0).sum()
+        torch.cuda.synchronize()
+    files = [os.path.join(d, f) for d, _, fs in os.walk(logdir) for f in fs]
+    assert files and sum(os.path.getsize(f) for f in files) > 0
+    res = throughput(lambda: x * 2.0, items_per_call=1 << 16, iters=3)
+    assert res["items_per_sec"] > 0

@@ -193,7 +193,9 @@ def test_barrier_aware_delta_gamma_matches_jax(lower, upper, band, one_sided):
 
 
 def test_linear_interp_matches_jax():
-    """Inside, on nodes and beyond both ends (clamped)."""
+    """Inside, on nodes and beyond both ends (clamped): the row form of the
+    batch drivers, and JAX's own 1-D form (``x``, ``y`` (N,), ``xq`` of any
+    shape), which the port once refused with an IndexError."""
     rng, s, v = _grids(7)
     xq = np.concatenate([s[:, [0]] - 1.0, s[:, [5]], 0.5 * (s[:, [9]] + s[:, [10]]),
                          s[:, [-1]] + 2.0], axis=1)
@@ -202,6 +204,21 @@ def test_linear_interp_matches_jax():
                          for i in range(s.shape[0])])
         got = port_interp.linear_interp(T(np.ascontiguousarray(xq[:, j])), T(s), T(v)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
+    one_d = [
+        (np.array([-1.0, 0.0, 0.5, 1.0, 3.0, 4.0, 6.0]), np.array([0.0, 1.0, 2.0, 4.0]),
+         np.array([1.0, 3.0, 2.0, 5.0])),
+        (np.float64(2.5), s[0], v[0]),
+        (rng.uniform(s[1, 0] - 1.0, s[1, -1] + 1.0, (3, 5)), s[1], v[1]),
+        (np.concatenate([s[2], s[2] + 1e-3]), s[2], v[2]),
+    ]
+    for q, x, y in one_d:
+        want = np.asarray(jax_interp.linear_interp(q, x, y))
+        got = port_interp.linear_interp(T(q), T(x), T(y)).numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
+    np.testing.assert_array_equal(
+        port_interp.linear_interp(T(one_d[0][0]), T(one_d[0][1]), T(one_d[0][2])).numpy(),
+        [1.0, 1.0, 2.0, 3.0, 3.5, 5.0, 5.0])
 
 
 def _stepper_inputs(seed, B=6, N=66, n_steps=40):
