@@ -37,7 +37,13 @@ phase:
   implied vol on a 2^20-quote chain, the FIS stencil pricer, the
   Bjerksund–Stensland and BGK runners (BGK and Monte Carlo routes) beside
   the batched sweeps on the desk's stress shape, their CLIs, the
-  cross-check engine and the order-of-accuracy diagnostics.
+  cross-check engine and the order-of-accuracy diagnostics;
+- the Monte Carlo layer (phase 22, :func:`mc_phases`): the discrete-barrier
+  MC at ``MCConfig``'s defaults (200,000 paths) on a month and a year of
+  daily monitors, Longstaff–Schwartz at its defaults, the HW1F curve
+  simulator (10,000 paths x 120 monthly dates x 20 tenors), GBM and
+  Clewlow–Strickland, each against its closed form or CN counterpart and
+  against the port on the CPU, draw for draw.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -178,6 +184,23 @@ FA_ANALYTIC_CPU_ROWS = 32  # rows of each runner table priced on the CPU too
 FA_MC_CPU_ROWS = 8  # MC-route rows priced on the CPU too (about 0.37 s each there)
 FA_MC_BARRIER = 130.0  # the MC-route rows: one-year up-and-out calls, monthly monitors
 FA_ORDER_LADDER = (150, 300, 600)  # the FIS stencil's step counts for the order fit
+
+# the Monte Carlo layer (phase 22): MCConfig's defaults (200,000 paths,
+# antithetic, seed 42) on test_mc.py's trade (spot 229.74, K=190, sigma
+# 0.2879, a month of daily monitors, H=260) and on a one-year daily-monitored
+# up-and-out call with two cash dividends (about 250 event steps); LSM at its
+# defaults on test_lsm.py's trades; HW1F on ten years of monthly dates x 20
+# tenors; GBM at a year of 252 steps; Clewlow–Strickland at 120 steps x 24
+# monthly tenors
+MC_YEAR = dict(spot=100.0, strike=100.0, vol=0.25, level=140.0, naca=0.07, cash=1.5)
+MC_CPU_PATHS = 8192  # barrier and LSM paths held on the card against the CPU
+MC_HW1F_PATHS, MC_HW1F_DATES = 10_000, 120
+MC_HW1F_TENORS = (1 / 12, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0,
+                  12.0, 15.0, 20.0, 25.0, 30.0)
+MC_HW1F_CPU_PATHS = 512
+MC_GBM_SIMS, MC_GBM_STEPS = 100_000, 252
+MC_CS_SIMS, MC_CS_STEPS, MC_CS_TENORS = 10_000, 120, 24
+MC_PROFILE_WINDOW_MS = 25.0  # the least host time profiled per MC call (repeats of a short call)
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -2240,6 +2263,284 @@ def fa_analytics_phases(dev, card: dict) -> None:
     emit("fa_analytics_phase_wall_s", **wall, total=sum(wall.values()))
 
 
+def mc_call(fn) -> dict:
+    """A Monte Carlo call's figures: its first and warm ms (host clock, each
+    ending in a synchronisation), its peak device memory, and device ms,
+    kernels and busy share per call from ``profile_call`` over a window of
+    repeated warm calls of at least :data:`MC_PROFILE_WINDOW_MS` (a window
+    of one 2 ms call showed the profiler no device time)."""
+    import torch
+
+    _, first_ms = host_ms(fn)
+    torch.cuda.reset_peak_memory_stats()
+    out, warm_ms = host_ms(fn)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reps = max(1, math.ceil(MC_PROFILE_WINDOW_MS / warm_ms))
+
+    def window():
+        for _ in range(reps):
+            fn()
+
+    prof = profile_call(window, warm_ms * reps)
+    return out, dict(first_ms=first_ms, warm_ms=warm_ms, profiled_calls=reps,
+                     device_ms=prof["device_ms"] / reps, busy_share=prof["busy_share"],
+                     device_kernels=prof["device_kernels"] / reps, peak_memory_gb=peak_gb,
+                     top=prof["top"][:4])
+
+
+def threefry_timing(dev, shape) -> dict:
+    """One threefry float64 draw of ``shape``: ms (CUDA events), its output
+    bytes' rate against ``PEAK_BYTES`` (the least the draw must move: each
+    normal written once, the counters made in place), and the bound."""
+    import torch
+
+    from finite_difference_tpu_torch.models.mc.rng import prng_key, threefry_normals
+
+    key = prng_key(42)
+    ms = cuda_ms(lambda: threefry_normals(key, shape, torch.float64, device=dev), reps=5)
+    out_bytes = math.prod(shape) * 8
+    return dict(shape=list(shape), ms=ms, gb_per_s=out_bytes / ms / 1e6,
+                bound_ms=out_bytes / PEAK_BYTES * 1e3, bound_share=out_bytes / PEAK_BYTES * 1e3 / ms)
+
+
+def mc_phases(dev, card: dict) -> None:
+    """Phase 22, the Monte Carlo layer (``models.mc``), float64. No kernel
+    of ours runs here (checked): threefry, the path loops and the
+    regressions are plain PyTorch ops.
+
+    - 22a, ``price_discrete_barrier_mc`` at ``MCConfig``'s defaults on
+      test_mc.py's trade and on the one-year trade of :data:`MC_YEAR`
+      (cash dividends on 2025-11-14 and 2026-05-15): each vanilla within 4
+      stderr of ``generalized_bs_price``; KO + KI (no rebate) = the vanilla
+      on the same draws (1e-10 relative); the KO within 4 stderr + 1e-3
+      relative of the port's CN scalar pricer (``DiscreteBarrierFDMPricer``,
+      500 steps) on the same dates. The CN pricer models cash dividends as
+      an escrowed flat yield and the MC drops them on their dates, so the
+      dividend-free twin of the one-year trade takes the closed-form and CN
+      checks, and the dividend trade the parity check and the timing. On
+      :data:`MC_CPU_PATHS` paths of the dividend trade: the threefry bits on
+      the card equal the CPU's exactly and the price is within 1e-12.
+    - 22b, ``price_american_lsm`` at its defaults: test_lsm.py's q=0 call
+      within 4 stderr of Black–Scholes; its put within max(4 stderr, 5e-3
+      cn) of the port's ``price_american_batch`` (``solver="scan"``, the
+      route JAX's CPU test takes; no kernel of ours); the card against the
+      CPU on :data:`MC_CPU_PATHS` paths (1e-10).
+    - 22c, ``HW1FCurveSimulator`` at :data:`MC_HW1F_PATHS` x
+      :data:`MC_HW1F_DATES` monthly dates x :data:`MC_HW1F_TENORS`: the
+      state's mean against ``moments`` (1e-13 absolute, antithetic) and its
+      variance (5%); test_hw1f.py's discounted-bond martingale (weekly, a
+      year, 100,000 paths, 5e-4); the card against the CPU on
+      :data:`MC_HW1F_CPU_PATHS` paths (1e-12 of max|z|); the scenario cube.
+    - 22d, GBM at :data:`MC_GBM_SIMS` x :data:`MC_GBM_STEPS` and
+      Clewlow–Strickland at :data:`MC_CS_SIMS` x :data:`MC_CS_STEPS` x
+      :data:`MC_CS_TENORS`, with test_mc.py's checks (GBM mean 5e-3 and
+      log-std 1e-2 relative, the shocks' moments; CS risk-neutral means
+      within 4 standard errors, variance frozen after delivery 1e-9).
+
+    Each timed call gives its first and warm ms, device kernels, busy
+    share and peak memory (:func:`mc_call`); each threefry draw its ms and
+    rate against the card's memory bandwidth (:func:`threefry_timing`).
+    """
+    import datetime as dt
+
+    import torch
+
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.models.analytic import bs_price, generalized_bs_price
+    from finite_difference_tpu_torch.models.mc import (
+        CSForwardCurveSimulator,
+        CSParams,
+        GBMParams,
+        GBMSimulator,
+        HW1FCurveSimulator,
+        HW1FParams,
+        MCConfig,
+        price_american_lsm,
+        price_discrete_barrier_mc,
+    )
+    from finite_difference_tpu_torch.models.mc.discrete_barrier import BarrierSpec, build_event_grid
+    from finite_difference_tpu_torch.models.mc.rng import prng_key, threefry_bits, threefry_normals
+    from finite_difference_tpu_torch.models.pde import DiscreteBarrierFDMPricer
+    from finite_difference_tpu_torch.models.pde.batch import build_trade_batch, price_american_batch
+    from finite_difference_tpu_torch.utils.calendars import build_monitoring_dates
+    from finite_difference_tpu_torch.utils.curves import flat_curve, flat_naca_dataframe
+
+    wall = {}
+    kernels.reset_launch_counts()
+    f64 = lambda x: torch.tensor(x, dtype=torch.float64, device=dev)
+
+    # 22a. the discrete-barrier MC ------------------------------------------------
+    t_phase = time.perf_counter()
+    month = dict(spot=FA_SPOT, strike=190.0, vol=0.2879, level=260.0, naca=FA_RATE,
+                 val=dt.date(2025, 7, 28), mat=dt.date(2025, 8, 28), dividends=())
+    year = dict(MC_YEAR, val=dt.date(2025, 7, 28), mat=dt.date(2026, 7, 28), dividends=())
+    year_div = dict(year, dividends=((dt.date(2025, 11, 14), MC_YEAR["cash"]),
+                                     (dt.date(2026, 5, 15), MC_YEAR["cash"])))
+
+    def mc(case, barrier_type, device=dev, cfg=MCConfig()):
+        return price_discrete_barrier_mc(
+            spot=case["spot"], strike=case["strike"], vol=case["vol"], option_type="call",
+            valuation=case["val"], maturity=case["mat"],
+            discount_curve=flat_curve(case["naca"], case["val"]),
+            dividends=case["dividends"], monitor_dates=build_monitoring_dates(case["val"], case["mat"]),
+            barrier=BarrierSpec(barrier_type, case["level"]), cfg=cfg, device=device)
+
+    barrier_out = {}
+    for label, case in (("month", month), ("year", year), ("year_dividends", year_div)):
+        ko, call = mc_call(lambda: mc(case, "up-and-out"))
+        ki, van = mc(case, "up-and-in"), mc(case, "none")
+        parity = abs(ko["price"] + ki["price"] - van["price"]) / van["price"]
+        check(parity <= 1e-10, f"MC {label}: KO + KI vs vanilla {parity:.3e} > 1e-10")
+        row = dict(steps=ko["steps"], n_obs=ko["n_obs"], ko=ko["price"], ko_stderr=ko["stderr"],
+                   ki=ki["price"], vanilla=van["price"], vanilla_stderr=van["stderr"],
+                   ko_plus_ki_vs_vanilla=parity, ko_call=call)
+        if not case["dividends"]:
+            curve = flat_curve(case["naca"], case["val"])
+            t = curve.year_fraction(case["val"], case["mat"])
+            r = curve.get_forward_nacc_rate(case["val"], case["mat"])
+            bs = float(generalized_bs_price(f64(case["spot"]), case["strike"], case["vol"], t, r, r, True))
+            mons = build_monitoring_dates(case["val"], case["mat"])
+            cn, cn_ms = host_ms(lambda: DiscreteBarrierFDMPricer(
+                spot=case["spot"], strike=case["strike"], valuation_date=case["val"],
+                maturity_date=case["mat"], sigma=case["vol"], option_type="call",
+                barrier_type="up-and-out", upper_barrier=case["level"], monitor_dates=mons,
+                discount_curve=flat_naca_dataframe(case["naca"], case["val"], case["mat"]),
+                underlying_spot_days=0, num_time_steps=500, device=dev).price_log2())
+            row.update(black_scholes=bs, vanilla_vs_bs_in_stderr=(van["price"] - bs) / van["stderr"],
+                       cn_ko=cn, cn_ms=cn_ms, ko_vs_cn_in_stderr=(ko["price"] - cn) / ko["stderr"])
+            check(abs(van["price"] - bs) <= 4 * van["stderr"],
+                  f"MC {label}: vanilla {van['price']} vs Black–Scholes {bs}")
+            check(abs(ko["price"] - cn) <= 4 * ko["stderr"] + 1e-3 * abs(cn),
+                  f"MC {label}: KO {ko['price']} vs CN {cn}")
+        barrier_out[label] = row
+    # the card against the CPU on the dividend trade
+    small = MCConfig(n_paths=MC_CPU_PATHS)
+    on_card, on_cpu = mc(year_div, "up-and-out", cfg=small), mc(year_div, "up-and-out", "cpu", small)
+    card_vs_cpu = abs(on_card["price"] - on_cpu["price"]) / abs(on_cpu["price"])
+    shape = (MC_CPU_PATHS // 2, on_card["steps"])
+    bits_equal = bool(torch.equal(threefry_bits(prng_key(42), shape, device=dev).cpu(),
+                                  threefry_bits(prng_key(42), shape, device="cpu")))
+    check(bits_equal, f"threefry bits on the card differ from the CPU's at {shape}")
+    check(card_vs_cpu <= 1e-12, f"MC year_dividends card vs CPU {card_vs_cpu:.3e} > 1e-12")
+    grid = build_event_grid(year_div["val"], year_div["mat"], year_div["dividends"],
+                            build_monitoring_dates(year_div["val"], year_div["mat"]))[0]
+    draw = (MCConfig().n_paths // 2, len(grid) - 1)
+    emit("mc_barrier", cases=barrier_out, paths=MCConfig().n_paths, antithetic=True, seed=42,
+         shocks_gb=math.prod(draw) * 8 / 1e9, card_vs_cpu=dict(paths=MC_CPU_PATHS, price_rel=card_vs_cpu,
+                                                                bits_equal=bits_equal),
+         threefry=threefry_timing(dev, draw), **card)
+    wall["22a discrete-barrier MC"] = time.perf_counter() - t_phase
+
+    # 22b. Longstaff–Schwartz --------------------------------------------------------
+    t_phase = time.perf_counter()
+    (call_p, call_se), call_fig = mc_call(lambda: price_american_lsm(
+        100.0, 100.0, 0.25, 1.0, 0.05, 0.0, True, seed=1, device=dev))
+    euro = float(bs_price(f64(100.0), 100.0, 0.25, 1.0, 0.05, 0.0, True))
+    check(abs(call_p - euro) <= 4 * call_se, f"LSM call {call_p} vs Black–Scholes {euro}")
+    (put_p, put_se), put_fig = mc_call(lambda: price_american_lsm(
+        100.0, 100.0, 0.25, 1.0, 0.05, 0.0, False, seed=2, device=dev))
+    tb = build_trade_batch(spots=[100.0], strikes=[100.0], sigmas=[0.25], t_expiry=[1.0], r=[0.05],
+                           b=[0.05], is_call=[False], n_time_steps=800, monitor_times=[[]],
+                           num_space_nodes=799, device=dev)
+    cn_put, cn_ms = host_ms(lambda: float(price_american_batch(
+        tb, n_nodes=800, with_greeks=False, solver="scan", device=dev)["price"][0]))
+    check(abs(put_p - cn_put) < max(4 * put_se, 5e-3 * cn_put), f"LSM put {put_p} vs CN {cn_put}")
+    lsm_small = dict(n_paths=MC_CPU_PATHS, seed=2)
+    lsm_card = price_american_lsm(100.0, 100.0, 0.25, 1.0, 0.05, 0.0, False, **lsm_small, device=dev)
+    lsm_cpu = price_american_lsm(100.0, 100.0, 0.25, 1.0, 0.05, 0.0, False, **lsm_small, device="cpu")
+    lsm_card_cpu = max(abs(a - b) / abs(b) for a, b in zip(lsm_card, lsm_cpu))
+    check(lsm_card_cpu <= 1e-10, f"LSM card vs CPU {lsm_card_cpu:.3e} > 1e-10")
+    emit("mc_lsm", paths=200_000, steps=50, degree=3, call=call_p, call_stderr=call_se,
+         black_scholes=euro, call_vs_bs_in_stderr=(call_p - euro) / call_se, put=put_p,
+         put_stderr=put_se, cn_put=cn_put, cn_ms=cn_ms, put_vs_cn=(put_p - cn_put) / cn_put,
+         call_timing=call_fig, put_timing=put_fig, card_vs_cpu=dict(paths=MC_CPU_PATHS, rel=lsm_card_cpu),
+         threefry=threefry_timing(dev, (50, 100_000)), **card)
+    wall["22b LSM"] = time.perf_counter() - t_phase
+
+    # 22c. HW1F ------------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    tenors0 = np.array([0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 30.0])  # test_hw1f.py's curve
+    rates0 = np.array([0.070, 0.071, 0.072, 0.074, 0.077, 0.079, 0.080])
+    sim = lambda device: HW1FCurveSimulator(HW1FParams.flat(0.1, 0.012), tenors0, rates0, device=device)
+    t_grid = np.arange(1, MC_HW1F_DATES + 1) / 12.0
+    taus = np.array(MC_HW1F_TENORS)
+    cube, cube_fig = mc_call(lambda: sim(dev).simulate(t_grid, taus, MC_HW1F_PATHS, seed=7, as_jax=True))
+    check(tuple(cube.shape) == (MC_HW1F_DATES, MC_HW1F_PATHS, taus.size)
+          and bool(torch.isfinite(cube).all()), "HW1F cube shape or values")
+    xs = sim(dev).simulate_state(t_grid, MC_HW1F_PATHS, seed=7)
+    m_cl, y_cl = sim(dev).moments(t_grid)
+    mean_err = float(np.abs(xs.mean(axis=1) - m_cl).max())
+    var_err = float(np.abs(xs.var(axis=1) / y_cl - 1.0).max())
+    check(mean_err <= 1e-13, f"HW1F state mean vs moments {mean_err:.3e} > 1e-13")
+    check(var_err <= 0.05, f"HW1F state variance vs moments {var_err:.3e} > 5%")
+    # test_hw1f.py's martingale check: a weekly year, 100,000 paths
+    weekly, tau_T, n_mart, eps = np.linspace(1 / 52, 1.0, 52), 5.0, 100_000, 1e-4
+    out = sim(dev).simulate(weekly, [tau_T], n_paths=n_mart, seed=7)
+    r_path = sim(dev).simulate(weekly, [eps], n_paths=n_mart, seed=7)[:, :, 0]
+    dts = np.diff(np.concatenate([[0.0], weekly]))
+    r_prev = np.vstack([np.full((1, n_mart), np.interp(eps, tenors0, rates0)), r_path[:-1]])
+    integ = np.cumsum(0.5 * (r_path + r_prev) * dts[:, None], axis=0)
+    lhs = float((np.exp(-integ[-1]) * np.exp(-out[-1, :, 0] * tau_T)).mean())
+    T = weekly[-1] + tau_T
+    mart = abs(lhs / math.exp(-np.interp(T, tenors0, rates0) * T) - 1.0)
+    check(mart < 5e-4, f"HW1F discounted bond martingale {mart:.3e} >= 5e-4")
+    hw_card = sim(dev).simulate(t_grid, taus, MC_HW1F_CPU_PATHS, seed=7)
+    hw_cpu = sim("cpu").simulate(t_grid, taus, MC_HW1F_CPU_PATHS, seed=7)
+    hw_card_cpu = float(np.abs(hw_card - hw_cpu).max() / np.abs(hw_cpu).max())
+    check(hw_card_cpu <= 1e-12, f"HW1F card vs CPU {hw_card_cpu:.3e} > 1e-12")
+    sc, sc_ms = host_ms(lambda: sim(dev).to_scenario_cube(
+        dt.date(2025, 7, 28), [30 * i for i in range(1, 25)], tenors0, 256, seed=11))
+    check(sc.n_times == 25 and sc.n_paths == 256, "HW1F scenario cube shape")
+    emit("mc_hw1f", paths=MC_HW1F_PATHS, dates=MC_HW1F_DATES, tenors=int(taus.size),
+         cube_gb=cube.numel() * 8 / 1e9, cube_timing=cube_fig, state_mean_err=mean_err,
+         state_var_rel_err=var_err, martingale_rel_err=mart,
+         card_vs_cpu=dict(paths=MC_HW1F_CPU_PATHS, rel=hw_card_cpu), scenario_cube_ms=sc_ms,
+         threefry=threefry_timing(dev, (MC_HW1F_DATES, MC_HW1F_PATHS // 2)), **card)
+    del cube
+    wall["22c HW1F"] = time.perf_counter() - t_phase
+
+    # 22d. GBM and Clewlow–Strickland ---------------------------------------------------
+    t_phase = time.perf_counter()
+    gbm = GBMSimulator(GBMParams(mu=0.05, sigma=0.2), days_in_year=365.0, device=dev)
+    days = np.round(np.linspace(0.0, 365.0, MC_GBM_STEPS))
+    z = threefry_normals(prng_key(0), (MC_GBM_STEPS, MC_GBM_SIMS), device=dev)
+    paths, gbm_fig = mc_call(lambda: gbm.simulate(100.0, days, z))
+    t_end = days[-1] / 365.0
+    last = paths[-1]
+    gbm_mean = abs(float(last.mean()) / (100.0 * math.exp(0.05 * t_end)) - 1.0)
+    gbm_std = abs(float(torch.log(last).std(correction=0)) / (0.2 * math.sqrt(t_end)) - 1.0)
+    zd = GBMSimulator.sanity_check_z(z)
+    check(gbm_mean < 5e-3 and gbm_std < 1e-2, f"GBM mean {gbm_mean:.3e}, log-std {gbm_std:.3e}")
+    check(abs(zd["mean"]) < 0.01 and abs(zd["std"] - 1) < 0.01 and abs(zd["kurtosis"] - 3.0) < 0.1,
+          f"GBM shocks' moments {zd}")
+    del paths, z, last
+    cs = CSForwardCurveSimulator(CSParams(alpha=1.2, sigma=0.35, mu=0.08), 365.25, device=dev)
+    scen = 3.0 * np.arange(MC_CS_STEPS)
+    tenor_days = 30.0 * np.arange(1, MC_CS_TENORS + 1)
+    f0 = 50.0 + 0.5 * np.arange(MC_CS_TENORS)
+    zc = threefry_normals(prng_key(1), (MC_CS_STEPS, MC_CS_SIMS), device=dev)
+    fwd, cs_fig = mc_call(lambda: cs.simulate(f0, tenor_days, scen, zc, risk_neutral=True))
+    end = fwd[-1]
+    cs_z = ((end.mean(dim=1).cpu().numpy() - f0)
+            / (end.std(dim=1).cpu().numpy() / math.sqrt(MC_CS_SIMS)))
+    log_var = torch.log(fwd[:, 0, :]).var(dim=1).cpu().numpy()
+    delivered = int(np.searchsorted(scen, tenor_days[0]))  # the first tenor's delivery step
+    frozen = float(np.abs(log_var[delivered:] / log_var[delivered] - 1.0).max())
+    check(float(np.abs(cs_z).max()) <= 4.0, f"CS risk-neutral means off by {cs_z} standard errors")
+    check(frozen <= 1e-9, f"CS variance after delivery moved {frozen:.3e}")
+    emit("mc_gbm_cs", gbm=dict(sims=MC_GBM_SIMS, steps=MC_GBM_STEPS, mean_rel_err=gbm_mean,
+                               log_std_rel_err=gbm_std, shocks=zd, timing=gbm_fig),
+         cs=dict(sims=MC_CS_SIMS, steps=MC_CS_STEPS, tenors=MC_CS_TENORS,
+                 max_mean_err_in_stderr=float(np.abs(cs_z).max()), variance_after_delivery=frozen,
+                 cube_gb=fwd.numel() * 8 / 1e9, timing=cs_fig),
+         threefry=threefry_timing(dev, (MC_GBM_STEPS, MC_GBM_SIMS)), **card)
+    del fwd, zc, end
+    launches = dict(kernels.launch_counts)
+    check(not any(launches.values()), f"phase 22 launched a kernel of ours: {launches}")
+    wall["22d GBM and CS"] = time.perf_counter() - t_phase
+    emit("mc_phase_wall_s", **wall, total=sum(wall.values()))
+
+
 def main() -> int:
     import torch
 
@@ -2430,6 +2731,11 @@ def main() -> int:
     t1 = time.perf_counter()
     fa_analytics_phases(dev, card)
     wall["21 FA analytics"] = time.perf_counter() - t1
+
+    # 22. the Monte Carlo layer ----------------------------------------------------
+    t1 = time.perf_counter()
+    mc_phases(dev, card)
+    wall["22 Monte Carlo"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

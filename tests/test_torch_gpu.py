@@ -24,7 +24,11 @@ stencil pricer on the card equal the port on the CPU (prices, delta, vega
 within 1e-10 of max|value|, gamma 1e-7), implied vol within 1e-12
 relative (or 16 times a quote's rounding noise, as on the CPU against
 JAX), a replayed FIS march equals its eager run within 1e-12, and
-``utils.profiling.trace`` writes a non-empty trace.
+``utils.profiling.trace`` writes a non-empty trace. The Monte Carlo layer
+(no kernel of ours): threefry's bits and uniforms on the card equal the
+CPU's exactly (normals within the two erfinvs' rounding, as against JAX),
+and the discrete-barrier MC (1e-12), LSM (1e-10), GBM and CS paths (1e-13)
+and the HW1F cube (1e-12 of max|z|) equal the port on the CPU.
 """
 import dataclasses
 
@@ -908,3 +912,88 @@ def test_trace_writes_a_trace(cuda, tmp_path):
     assert files and sum(os.path.getsize(f) for f in files) > 0
     res = throughput(lambda: x * 2.0, items_per_call=1 << 16, iters=3)
     assert res["items_per_sec"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the Monte Carlo layer (no kernel of ours): the card against the CPU
+
+
+@pytest.mark.parametrize("shape", [(7,), (300, 70), (4097, 3)])
+def test_mc_threefry_on_the_card_equals_the_cpu(cuda, shape):
+    """threefry bits and uniforms bit for bit; normals within the two
+    erfinvs' rounding (1e-13 relative at float64, 5e-5 absolute at float32)."""
+    from finite_difference_tpu_torch.models.mc import rng
+
+    key = rng.prng_key(2**31 + 7)
+    for bits in (32, 64):
+        assert torch.equal(rng.threefry_bits(key, shape, bits, device=cuda).cpu(),
+                           rng.threefry_bits(key, shape, bits, device="cpu"))
+    for dtype, rtol, atol in ((torch.float64, 1e-13, 0.0), (torch.float32, 0.0, 5e-5)):
+        assert torch.equal(rng._uniforms(key, rng._counts(shape, cuda), dtype, 0.0, 1.0).cpu(),
+                           rng._uniforms(key, rng._counts(shape, "cpu"), dtype, 0.0, 1.0))
+        torch.testing.assert_close(rng.threefry_normals(key, shape, dtype, device=cuda).cpu(),
+                                   rng.threefry_normals(key, shape, dtype, device="cpu"),
+                                   rtol=rtol, atol=atol)
+    assert torch.equal(rng.sobol_uniforms(512, 5, 40, device=cuda).cpu(),
+                       rng.sobol_uniforms(512, 5, 40, device="cpu"))
+
+
+@pytest.mark.parametrize("barrier_type, level", [("up-and-out", 250.0), ("down-and-in", 215.0)])
+def test_mc_discrete_barrier_on_the_card_equals_the_cpu(cuda, barrier_type, level):
+    import datetime as dt
+
+    from finite_difference_tpu_torch.models.mc import discrete_barrier as db
+    from finite_difference_tpu_torch.utils.calendars import build_monitoring_dates
+    from finite_difference_tpu_torch.utils.curves import flat_curve
+
+    val, mat = dt.date(2025, 7, 28), dt.date(2025, 8, 28)
+    kw = dict(spot=229.74, strike=190.0, vol=0.2879, option_type="call", valuation=val,
+              maturity=mat, discount_curve=flat_curve(0.073, val),
+              monitor_dates=build_monitoring_dates(val, mat, "daily"),
+              dividends=[(dt.date(2025, 8, 14), 3.0)], barrier=db.BarrierSpec(barrier_type, level),
+              rebate=db.RebateSpec(2.0, True), cfg=db.MCConfig(n_paths=8192, seed=42))
+    got, want = db.price_discrete_barrier_mc(device=cuda, **kw), db.price_discrete_barrier_mc(device="cpu", **kw)
+    for k in ("price", "stderr"):
+        assert abs(got[k] - want[k]) <= 1e-12 * abs(want[k])
+
+
+def test_mc_lsm_gbm_cs_on_the_card_equal_the_cpu(cuda):
+    import numpy as np
+
+    from finite_difference_tpu_torch.models.mc import (
+        CSForwardCurveSimulator, CSParams, GBMParams, GBMSimulator, price_american_lsm)
+
+    args = (100.0, 105.0, 0.25, 1.0, 0.05, 0.02, False)
+    got = price_american_lsm(*args, n_paths=8192, n_steps=50, seed=2, device=cuda)
+    want = price_american_lsm(*args, n_paths=8192, n_steps=50, seed=2, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    z = np.random.default_rng(0).standard_normal((12, 1000))
+    days = np.arange(0, 360, 30)
+    gbm = lambda dev: GBMSimulator(GBMParams(0.05, 0.2), device=dev).simulate(100.0, days, z).cpu()
+    torch.testing.assert_close(gbm(cuda), gbm("cpu"), rtol=1e-13, atol=0.0)
+    cs = lambda dev: CSForwardCurveSimulator(CSParams(1.2, 0.35, 0.08), 365.25, device=dev).simulate(
+        np.array([50.0, 52.0, 55.0]), np.array([30.0, 180.0, 365.0]), days, z).cpu()
+    torch.testing.assert_close(cs(cuda), cs("cpu"), rtol=1e-13, atol=0.0)
+
+
+def test_mc_hw1f_on_the_card_equals_the_cpu(cuda):
+    import datetime as dt
+
+    import numpy as np
+
+    from finite_difference_tpu_torch.models.mc import HW1FCurveSimulator, HW1FParams
+
+    tenors0 = np.array([0.25, 0.5, 1.0, 2.0, 5.0, 10.0, 30.0])
+    rates0 = np.array([0.070, 0.071, 0.072, 0.074, 0.077, 0.079, 0.080])
+    sim = lambda dev: HW1FCurveSimulator(HW1FParams(0.3, np.array([0.0, 1.0]), np.array([0.02, 0.005])),
+                                         tenors0, rates0, device=dev)
+    t_grid = np.linspace(1 / 12, 10.0, 120)
+    got = sim(cuda).simulate(t_grid, tenors0, 513, seed=7, as_jax=True)
+    assert got.device.type == "cuda"
+    want = sim("cpu").simulate(t_grid, tenors0, 513, seed=7)
+    assert np.abs(got.cpu().numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    cube = sim(cuda).to_scenario_cube(dt.date(2025, 7, 28), [30 * i for i in range(1, 13)], tenors0, 64)
+    ref = sim("cpu").to_scenario_cube(dt.date(2025, 7, 28), [30 * i for i in range(1, 13)], tenors0, 64)
+    name = "InterestRate.ZAR-SWAP"
+    assert np.abs(cube.factor_array(name) - ref.factor_array(name)).max() <= 1e-12 * np.abs(
+        ref.factor_array(name)).max()

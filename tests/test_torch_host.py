@@ -240,7 +240,17 @@ class TestPortBoundary:
                 "finite_difference_tpu_torch/runners/bgk_scenarios.py",
                 "finite_difference_tpu_torch/utils/zero_curve.py",
                 "finite_difference_tpu_torch/utils/profiling.py",
-                "finite_difference_tpu_torch/utils/plotting.py"} <= names
+                "finite_difference_tpu_torch/utils/plotting.py",
+                "finite_difference_tpu_torch/models/mc/__init__.py",
+                "finite_difference_tpu_torch/models/mc/rng.py",
+                "finite_difference_tpu_torch/models/mc/gbm.py",
+                "finite_difference_tpu_torch/models/mc/clewlow_strickland.py",
+                "finite_difference_tpu_torch/models/mc/discrete_barrier.py",
+                "finite_difference_tpu_torch/models/mc/lsm.py",
+                "finite_difference_tpu_torch/models/mc/hw1f.py",
+                "finite_difference_tpu_torch/market_data/__init__.py",
+                "finite_difference_tpu_torch/market_data/risk_factor.py",
+                "finite_difference_tpu_torch/market_data/scenario_cube.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -250,13 +260,17 @@ class TestPortBoundary:
         assert not bad, bad
 
     # names the JAX package exports that wait for later slices of the port
-    # (the IR swap and XVA runners), and the port's own additions of earlier
-    # slices
-    LATER = {"runners": {"run_asset", "IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"}}
+    # (the IR swap and XVA runners; the yield-curve and CPI market data), and
+    # the port's own additions of earlier slices
+    LATER = {"runners": {"run_asset", "IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"},
+             "market_data": {"YieldCurve", "hermite_rt_interp", "linear_interp", "BondHistoricalCPI",
+                             "CPIPublication", "HistoricalCPI", "besa_bracket", "first_of_month",
+                             "shift_months", "CPITermStructure"}}
     PORT_ONLY = {"models.analytic": {"generalized_bs_greeks"}, "utils": {"build_monitoring_dates"},
                  "runners": {"run_all_american_scenarios_batched"}}
 
-    @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils"])
+    @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils", "models.mc",
+                                         "market_data"])
     def test_exports_what_jax_exports(self, package):
         import importlib
 
@@ -276,7 +290,8 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.ops.interp, finite_difference_tpu_torch.ops.special, "
             "finite_difference_tpu_torch.models.analytic, finite_difference_tpu_torch.serving, "
             "finite_difference_tpu_torch.serving.__main__, finite_difference_tpu_torch.utils, "
-            "finite_difference_tpu_torch.models.pde, finite_difference_tpu_torch.runners; "
+            "finite_difference_tpu_torch.models.pde, finite_difference_tpu_torch.runners, "
+            "finite_difference_tpu_torch.models.mc, finite_difference_tpu_torch.market_data; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"
