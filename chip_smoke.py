@@ -43,7 +43,14 @@ phase:
   daily monitors, Longstaff–Schwartz at its defaults, the HW1F curve
   simulator (10,000 paths x 120 monthly dates x 20 tenors), GBM and
   Clewlow–Strickland, each against its closed form or CN counterpart and
-  against the port on the CPU, draw for draw.
+  against the port on the CPU, draw for draw;
+- the XVA exposure path (phase 23, :func:`xva_phases`):
+  ``hw1f_cva_pipeline`` on examples/device_cva_pipeline.py's ten swaps at
+  50,000 paths x 63 dates x 8 tenors (and once at float32), the exotic
+  netting set of examples/exotic_xva.py (an up-and-out call, an American
+  put and a swap) through the generic and the device exposure engines,
+  its barrier surfaces also through K2 (``solver="spike"``), and the CSA
+  cases, each held against the generic engine and the CPU.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -201,6 +208,16 @@ MC_HW1F_CPU_PATHS = 512
 MC_GBM_SIMS, MC_GBM_STEPS = 100_000, 252
 MC_CS_SIMS, MC_CS_STEPS, MC_CS_TENORS = 10_000, 120, 24
 MC_PROFILE_WINDOW_MS = 25.0  # the least host time profiled per MC call (repeats of a short call)
+
+# phase 23, the XVA exposure path: examples/device_cva_pipeline.py's shape (23a,
+# 23c) and examples/exotic_xva.py's netting set (23b)
+XVA_TENORS = (0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0)
+XVA_PATHS = 50_000
+XVA_SCEN_DAYS = tuple(range(30, 1890, 30))  # 62 dates, and today: 63
+XVA_SWAPS = 10  # five-year quarterly float-vs-fixed, fixed 7.0% ... 8.8%
+XVA_CPU_PATHS = 2_000  # paths held against the CPU and against the generic engine
+XVA_EXOTIC_PATHS, XVA_EXOTIC_DATES = 10_000, 28  # fortnightly dates
+XVA_EXOTIC_TENORS = (0.25, 0.5, 1.0, 2.0, 5.0)
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -2541,6 +2558,289 @@ def mc_phases(dev, card: dict) -> None:
     emit("mc_phase_wall_s", **wall, total=sum(wall.values()))
 
 
+def xva_swaps(instruments, n: int, notional: float = 1_000_000.0):
+    """examples/device_cva_pipeline.py's netting set: five-year quarterly
+    float-vs-fixed swaps on one curve, fixed 7.0% + 0.2% k."""
+    import datetime as dt
+
+    return [
+        instruments.IRSwap(
+            name=f"irs{k}", effective_date=dt.date(2025, 7, 28),
+            maturity_date=dt.date(2030, 7, 28), notional=notional,
+            receive_leg=instruments.SwapLeg(instruments.LegType.FLOATING, frequency=3,
+                                            curve_name="ZAR-SWAP"),
+            pay_leg=instruments.SwapLeg(instruments.LegType.FIXED, frequency=3,
+                                        fixed_rate=0.07 + 0.002 * k),
+            discount_curve_name="ZAR-SWAP",
+        )
+        for k in range(n)
+    ]
+
+
+def xva_phases(dev, card: dict) -> dict:
+    """Phase 23, the XVA exposure path (``instruments``, ``portfolio``,
+    ``xva``), float64 unless stated. Returns the launch counts of the
+    path's own calls (23a's pipeline, 23b's engines and surface builds),
+    each read with the counts zeroed just before it: kernels of ours run
+    there only where ``auto`` routes the barrier surfaces to the SPIKE
+    march. The forced SPIKE check of 23b is counted apart
+    (``k2_forced_launches``).
+
+    - 23a, ``hw1f_cva_pipeline`` in examples/device_cva_pipeline.py's
+      shape: HW1F flat (alpha 0.05, sigma 0.01) on a flat 7.5% curve,
+      :data:`XVA_PATHS` paths x 63 dates x :data:`XVA_TENORS`, the ten
+      swaps of :func:`xva_swaps`, hazard 2%, recovery 40%, flat discount
+      7.5%. Checks: the card against the CPU on :data:`XVA_CPU_PATHS` paths
+      at the same seed (MTM within 1e-10 of max|MTM|, CVA 1e-10 relative);
+      the device MTM against the port's generic ``ExposureEngine`` on the
+      same host cube (rtol 1e-9, atol 1e-5, as in TestHW1FPipeline);
+      CVA > 0, PFE >= 0, peak PFE >= peak EE. One float32 call of the same
+      cube: finite, EE within 1e-3 relative of float64 at the EE peak.
+    - 23b, examples/exotic_xva.py's netting set (an up-and-out call at its
+      defaults, 512 nodes, 256 steps, 11 monthly monitors; an American put;
+      a swap) on :data:`XVA_EXOTIC_PATHS` x 28 fortnightly dates x
+      :data:`XVA_EXOTIC_TENORS`: the generic engine against
+      ``DeviceExposureEngine.mtm`` (rtol 1e-10, atol 1e-8, as in
+      TestDeviceSurfaceExotics); the KO surfaces of ``auto`` against the
+      same batch through ``solver="spike"`` (K2, 1e-9 of max|V|, K2 launches
+      > 0); the surfaces on the card against the CPU (1e-10 of max|V|).
+    - 23c, the CSA on 23a's cube at :data:`XVA_CPU_PATHS` paths: VM
+      thresholds with a 10-day MPOR, FIXED and SCHEDULE IM, FORWARD
+      close-out with a risky curve by name and by currency (half the
+      swaps in USD, converted by an FX factor): the device engine's MTM,
+      collateral and exposure against the generic engine's, within 1e-10
+      of the largest |value| (JAX's tests hold one swap without FX at rtol
+      1e-10 with an atol of 1e-8; here ten swaps and an FX rate near 18
+      put the engines' last-bit MTM differences above that atol).
+    """
+    import datetime as dt
+
+    import torch
+
+    from finite_difference_tpu_torch import instruments, kernels
+    from finite_difference_tpu_torch.market_data import ScenarioCube
+    from finite_difference_tpu_torch.models.mc import HW1FCurveSimulator, HW1FParams
+    from finite_difference_tpu_torch.models.pde import batch as pbatch
+    from finite_difference_tpu_torch.portfolio import (
+        CSA, CloseOutMethod, InitialMarginMethod, NettingSet, Trade)
+    from finite_difference_tpu_torch.xva import (
+        DeviceExposureEngine, ExposureEngine, hw1f_cva_pipeline)
+    from finite_difference_tpu_torch.xva import device_exposure
+    from finite_difference_tpu_torch.xva.cva import exposure_profile
+
+    wall = {}
+    val = dt.date(2025, 7, 28)
+    tenors = np.asarray(XVA_TENORS)
+    scen_days = list(XVA_SCEN_DAYS)
+    dates = [val] + [val + dt.timedelta(days=d) for d in scen_days]
+    times_days = np.array([0.0] + [float(d) for d in scen_days])
+    df0 = np.exp(-0.075 * times_days / 365.25)
+    swaps = xva_swaps(instruments, XVA_SWAPS)
+    params = HW1FParams.flat(alpha=0.05, sigma=0.01)
+    sim = HW1FCurveSimulator(params, tenors, np.full(tenors.size, 0.075), device=dev)
+    sim_cpu = HW1FCurveSimulator(params, tenors, np.full(tenors.size, 0.075), device="cpu")
+    pipe = dict(hazard_rate=0.02, recovery=0.4, flat_discount_rate=0.075)
+
+    # 23a. the HW1F CVA pipeline ---------------------------------------------------
+    t_phase = time.perf_counter()
+    run = lambda: hw1f_cva_pipeline(sim, val, scen_days, tenors, XVA_PATHS, swaps, **pipe)
+    kernels.reset_launch_counts()
+    _, first_ms = host_ms(run)
+    device_exposure._LEG_CACHE.clear()
+    _, legs_ms = host_ms(lambda: DeviceExposureEngine(dates, {}, tenors, device=dev)._prepare(swaps))
+    # the call's own peak: what it allocates above the tensors already held
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out, warm_ms = host_ms(run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pipeline_launches = dict(kernels.launch_counts)
+    prof = profile_call(run, warm_ms)
+    ee, pfe = out["profile"].ee, out["profile"].pfe
+    check(np.isfinite(ee).all() and np.isfinite(pfe).all() and math.isfinite(out["cva"]),
+          "the pipeline's profile or CVA is not finite")
+    check(out["cva"] > 0 and (pfe >= 0).all() and pfe.max() >= ee.max(),
+          f"CVA {out['cva']:.6g}, min PFE {pfe.min():.6g}, peak PFE {pfe.max():.6g} vs EE {ee.max():.6g}")
+    npvs = XVA_PATHS * len(dates) * XVA_SWAPS
+
+    small = {d: hw1f_cva_pipeline(s, val, scen_days, tenors, XVA_CPU_PATHS, swaps, **pipe)
+             for d, s in (("card", sim), ("cpu", sim_cpu))}
+    m_card, m_cpu = small["card"]["mtm"].cpu().numpy(), small["cpu"]["mtm"].numpy()
+    card_vs_cpu = dict(mtm=float(np.abs(m_card - m_cpu).max() / np.abs(m_cpu).max()),
+                       cva=abs(small["card"]["cva"] - small["cpu"]["cva"]) / abs(small["cpu"]["cva"]))
+    check(card_vs_cpu["mtm"] <= 1e-10 and card_vs_cpu["cva"] <= 1e-10,
+          f"pipeline card vs CPU at {XVA_CPU_PATHS} paths: {card_vs_cpu}")
+    # the same host cube through the generic engine
+    rates = sim.simulate(np.asarray(scen_days) / 365.25, tenors, XVA_CPU_PATHS, seed=42, as_jax=True)
+    cube = sim.values_with_today(rates, tenors, XVA_CPU_PATHS, as_jax=True)
+    cube_np = cube.cpu().numpy()
+    host_cube = ScenarioCube(dates, {"ZAR-SWAP": ("curve", cube_np, tenors)})
+    ns = NettingSet("NS", [Trade(s, f"T{i}") for i, s in enumerate(swaps)])
+    generic, generic_ms = host_ms(lambda: ExposureEngine(host_cube).compute(ns))
+    check(np.allclose(m_card, generic.mtm, rtol=1e-9, atol=1e-5),
+          "pipeline MTM vs the generic engine (rtol 1e-9, atol 1e-5)")
+    dev_vs_generic = float(np.abs(m_card - generic.mtm).max() / np.abs(generic.mtm).max())
+
+    # one float32 call of the full cube (TF32 is off: main() turns it off)
+    full = sim.values_with_today(
+        sim.simulate(np.asarray(scen_days) / 365.25, tenors, XVA_PATHS, seed=42, as_jax=True),
+        tenors, XVA_PATHS, as_jax=True)
+    f64_mtm = lambda: DeviceExposureEngine(dates, {"ZAR-SWAP": full}, tenors, device=dev).mtm(swaps)
+    f32_mtm = lambda: DeviceExposureEngine(dates, {"ZAR-SWAP": full.float()}, tenors, device=dev).mtm(swaps)
+    f64_mtm(), f32_mtm()
+    m64, mtm64_ms = host_ms(f64_mtm)
+    m32, mtm32_ms = host_ms(f32_mtm)
+    check(m32.dtype == torch.float32 and bool(torch.isfinite(m32).all()), "float32 MTM not finite")
+    ee64 = exposure_profile(times_days, m64.T, df0=df0).ee
+    ee32 = exposure_profile(times_days, m32.T, df0=df0).ee
+    k = int(np.argmax(ee64))
+    f32_gap = abs(float(ee32[k]) - ee64[k]) / ee64[k]
+    check(f32_gap <= 1e-3, f"float32 EE at the peak vs float64: {f32_gap:.3e} > 1e-3")
+    del full, m64, m32
+    emit("xva_hw1f_pipeline", paths=XVA_PATHS, dates=len(dates), tenors=tenors.size, swaps=XVA_SWAPS,
+         cube_gb=XVA_PATHS * len(dates) * tenors.size * 8 / 1e9, first_ms=first_ms,
+         legs_build_ms=legs_ms, warm_ms=warm_ms, npvs_per_s=npvs / (warm_ms / 1e3),
+         device_ms=prof["device_ms"], busy_share=prof["busy_share"],
+         device_kernels=prof["device_kernels"], bmm_ms=prof["matmul_ms"],
+         bmm_share_of_device=prof["matmul_ms"] / prof["device_ms"], top=prof["top"][:5],
+         call_peak_gb=peak_gb - held_gb, held_before_gb=held_gb, peak_allocated_gb=peak_gb,
+         launches=pipeline_launches, cva=out["cva"], peak_ee=float(ee.max()), peak_pfe=float(pfe.max()),
+         card_vs_cpu=card_vs_cpu, cpu_paths=XVA_CPU_PATHS, device_vs_generic=dev_vs_generic,
+         generic_ms=generic_ms, mtm_only_f64_ms=mtm64_ms, mtm_only_f32_ms=mtm32_ms,
+         f32_ee_peak_rel_gap=f32_gap, limits={"card_vs_cpu": 1e-10, "f32_ee_peak": 1e-3,
+                                                "device_vs_generic": [1e-9, 1e-5]}, **card)
+    wall["23a HW1F pipeline"] = time.perf_counter() - t_phase
+
+    # 23b. the exotic netting set ----------------------------------------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(7)
+    ex_dates = [val + dt.timedelta(days=14 * i) for i in range(XVA_EXOTIC_DATES)]
+    ex_tenors = np.asarray(XVA_EXOTIC_TENORS)
+    eq = 100.0 * np.exp(rng.normal(0.0005, 0.035, (XVA_EXOTIC_DATES, XVA_EXOTIC_PATHS)).cumsum(axis=0))
+    ex_rates = 0.07 + rng.normal(0, 0.002, (XVA_EXOTIC_DATES, XVA_EXOTIC_PATHS, ex_tenors.size)).cumsum(axis=0)
+    mat = dt.date(2026, 7, 28)
+    monitors = [val + dt.timedelta(days=30 * k) for k in range(1, 12)]
+
+    def exotics(device):
+        barrier = instruments.EquityBarrierOption(
+            "uoc", "EQ.SPOT", strike=100.0, maturity_date=mat, sigma=0.3, rate=0.07,
+            monitor_dates=monitors, barrier_type="up-and-out", upper_barrier=135.0, rebate=1.0,
+            quantity=5_000.0, device=device)
+        american = instruments.AmericanOptionPosition(
+            "amp", "EQ.SPOT", strike=95.0, maturity_date=mat, sigma=0.3, rate=0.07,
+            option_type="put", quantity=5_000.0, device=device)
+        swap = instruments.IRSwap(
+            name="irs", effective_date=val, maturity_date=mat, notional=500_000,
+            receive_leg=instruments.SwapLeg(instruments.LegType.FLOATING, frequency=3,
+                                            curve_name="ZAR-SWAP"),
+            pay_leg=instruments.SwapLeg(instruments.LegType.FIXED, frequency=3, fixed_rate=0.075),
+            discount_curve_name="ZAR-SWAP")
+        return barrier, american, swap
+
+    barrier, american, swap = exotics(dev)
+    ex_cube = ScenarioCube(ex_dates, {"EQ.SPOT": ("scalar", eq), "ZAR-SWAP": ("curve", ex_rates, ex_tenors)})
+    spot0 = float(np.mean(eq[0]))
+    eng = DeviceExposureEngine(
+        ex_dates, {"ZAR-SWAP": torch.as_tensor(ex_rates, device=dev)}, ex_tenors,
+        scalars={"EQ.SPOT": torch.as_tensor(eq, device=dev)}, device=dev)
+    trades = [barrier, american, swap]
+    kernels.reset_launch_counts()
+    generic, ex_generic_ms = host_ms(lambda: ExposureEngine(ex_cube).compute(
+        NettingSet("NS-EXOTIC", [Trade(barrier, "T1"), Trade(american, "T2"), Trade(swap, "T3")])))
+    _, surfaces_ms = host_ms(lambda: (barrier.build_surfaces(spot0, ex_dates),
+                                      american.build_surfaces(spot0, ex_dates)))
+    _, dev_first_ms = host_ms(lambda: eng.mtm(trades))
+    mtm, dev_warm_ms = host_ms(lambda: eng.mtm(trades))
+    torch.cuda.synchronize()
+    exotic_launches = dict(kernels.launch_counts)
+    mtm = mtm.cpu().numpy()
+    # the route auto took for the knock-out surfaces, from the same decision
+    # solve_value_surfaces makes, and checked against the path's counts
+    live = [d for d in ex_dates if d < mat]
+    ko_batch, _ = barrier._surface_batches(spot0, live)
+    n_ko = barrier.num_space_nodes + 1
+    route = pbatch._surface_route(ko_batch, n_ko, "auto", False, None, dev)[1]
+    check((exotic_launches["spike_march_f64"] > 0) == (route == "spike"),
+          f"auto's surface route {route!r} vs the path's counts {exotic_launches}")
+    check(not any(v for k, v in exotic_launches.items() if k != "spike_march_f64"),
+          f"the exotic path launched a kernel besides the f64 SPIKE march: {exotic_launches}")
+    check(np.allclose(mtm, generic.mtm, rtol=1e-10, atol=1e-8),
+          "exotic netting set: device engine vs generic (rtol 1e-10, atol 1e-8)")
+    ex_dev_vs_generic = float(np.abs(mtm - generic.mtm).max() / np.abs(generic.mtm).max())
+
+    # K2: the same knock-out batch through the forced SPIKE route
+    kernels.reset_launch_counts()
+    v_spike, _ = pbatch.solve_value_surfaces(ko_batch, n_ko, solver="spike", device=dev)
+    torch.cuda.synchronize()
+    k2_forced = kernels.launch_counts["spike_march_f64"]
+    check(k2_forced > 0, "the forced spike surfaces launched no K2")
+    v_auto = barrier._v_ko
+    spike_vs_auto = float((v_spike - v_auto).abs().max() / v_auto.abs().max())
+    check(spike_vs_auto <= 1e-9, f"K2 surfaces vs auto's ({route}): {spike_vs_auto:.3e} > 1e-9")
+    _, spike_ms = host_ms(lambda: pbatch.solve_value_surfaces(ko_batch, n_ko, solver="spike", device=dev))
+    _, auto_ms = host_ms(lambda: pbatch.solve_value_surfaces(ko_batch, n_ko, device=dev))
+
+    # the surfaces on the card against the CPU
+    cpu_barrier, cpu_american, _ = exotics("cpu")
+    cpu_barrier.build_surfaces(spot0, ex_dates)
+    cpu_american.build_surfaces(spot0, ex_dates)
+    surf_vs_cpu = {
+        name: float((card_v.cpu() - cpu_v).abs().max() / cpu_v.abs().max())
+        for name, card_v, cpu_v in (("barrier_ko", barrier._v_ko, cpu_barrier._v_ko),
+                                    ("american", american._v, cpu_american._v))
+    }
+    check(max(surf_vs_cpu.values()) <= 1e-10, f"surfaces card vs CPU: {surf_vs_cpu}")
+    emit("xva_exotics", paths=XVA_EXOTIC_PATHS, dates=XVA_EXOTIC_DATES, tenors=ex_tenors.size,
+         surface_rows=len(live), barrier_nodes=n_ko, barrier_steps=barrier.n_time_steps,
+         american_nodes=american.num_space_nodes + 1, auto_route=route,
+         launches=exotic_launches, generic_ms=ex_generic_ms, surfaces_build_ms=surfaces_ms,
+         device_first_ms=dev_first_ms, device_warm_ms=dev_warm_ms,
+         device_vs_generic=ex_dev_vs_generic, k2_forced_launches=k2_forced,
+         k2_surfaces_ms=spike_ms, auto_surfaces_ms=auto_ms, k2_vs_auto=spike_vs_auto,
+         surfaces_card_vs_cpu=surf_vs_cpu,
+         limits={"device_vs_generic": [1e-10, 1e-8], "k2_vs_auto": 1e-9, "card_vs_cpu": 1e-10},
+         **card)
+    wall["23b exotics"] = time.perf_counter() - t_phase
+
+    # 23c. the CSA on 23a's cube -------------------------------------------------------
+    t_phase = time.perf_counter()
+    fx = 18.0 * np.exp(np.random.default_rng(11).normal(0, 0.01, (len(dates), XVA_CPU_PATHS)).cumsum(axis=0))
+    curves = {"ZAR-SWAP": cube, "RISKY-ZAR": cube + 0.02, "RISKY-USD": cube + 0.035}
+    csa_cube = ScenarioCube(dates, {**{k: ("curve", v.cpu().numpy(), tenors) for k, v in curves.items()},
+                                    "USDZAR": ("scalar", fx)})
+    ccys = ["ZAR", "USD"] * (XVA_SWAPS // 2)
+    fxs = [None if c == "ZAR" else "USDZAR" for c in ccys]
+    vm = dict(mpor_days=10, vm_threshold=5e4, vm_threshold_post=8e4)
+    cases = {
+        "vm": CSA(**vm),
+        "fixed_im": CSA(**vm, im_method=InitialMarginMethod.FIXED, im_amount=2.5e5),
+        "schedule_im": CSA(**vm, im_method=InitialMarginMethod.SCHEDULE),
+        "forward_string": CSA(close_out_method=CloseOutMethod.FORWARD, risky_curve_name="RISKY-ZAR"),
+        "forward_dict": CSA(close_out_method=CloseOutMethod.FORWARD,
+                            risky_curve_name={"ZAR": "RISKY-ZAR", "USD": "RISKY-USD"}),
+    }
+    eng = DeviceExposureEngine(dates, curves, tenors, scalars={"USDZAR": torch.as_tensor(fx, device=dev)},
+                               device=dev)
+    csa_gaps = {}
+    for name, csa in cases.items():
+        kw = dict(fx_factors=fxs, currencies=ccys) if name == "forward_dict" else {}
+        gen = ExposureEngine(csa_cube).compute(NettingSet(
+            "NS", [Trade(s, f"T{i}", currency=ccys[i] if kw else "ZAR",
+                         fx_rate_factor=fxs[i] if kw else None) for i, s in enumerate(swaps)], csa=csa))
+        got = eng.compute(swaps, csa=csa, **kw)
+        csa_gaps[name] = {}
+        for field in ("mtm", "collateral", "exposure"):
+            g, w = getattr(got, field), getattr(gen, field)
+            csa_gaps[name][field] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+            check(csa_gaps[name][field] <= 1e-10,
+                  f"CSA {name}: device {field} vs generic {csa_gaps[name][field]:.3e} > 1e-10")
+        check(name.startswith("forward") or np.abs(got.collateral).max() > 0, f"CSA {name}: no collateral")
+    emit("xva_csa", paths=XVA_CPU_PATHS, dates=len(dates), swaps=XVA_SWAPS, device_vs_generic=csa_gaps,
+         limit_of_max_abs=1e-10, **card)
+    wall["23c CSA"] = time.perf_counter() - t_phase
+    emit("xva_phase_wall_s", **wall, total=sum(wall.values()))
+    return {k: pipeline_launches[k] + exotic_launches[k] for k in pipeline_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2736,6 +3036,13 @@ def main() -> int:
     t1 = time.perf_counter()
     mc_phases(dev, card)
     wall["22 Monte Carlo"] = time.perf_counter() - t1
+
+    # 23. the XVA exposure path -----------------------------------------------------
+    t1 = time.perf_counter()
+    xva_launches = xva_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["xva_launches"] = xva_launches.get(k["name"], 0)
+    wall["23 XVA exposure"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

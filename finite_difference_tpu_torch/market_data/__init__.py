@@ -1,9 +1,10 @@
 """Market-data layer of the port (counterpart of
-``finite_difference_tpu.market_data``): the risk-factor slices and the
-scenario cube, host numpy, copied. The yield-curve and CPI modules come
-with the XVA and host-only slices."""
+``finite_difference_tpu.market_data``): the risk-factor slices, the
+scenario cube and the pathwise yield curve, host numpy, copied. The CPI
+modules come with ROADMAP.md queue 1 item 4b."""
 from .risk_factor import CurveSlice, RiskFactorSlice, ScalarSlice, SurfaceSlice
 from .scenario_cube import ScenarioCube, StaticMarketData
+from .yield_curve import YieldCurve, hermite_rt_interp, linear_interp
 
 __all__ = [
     "CurveSlice",
@@ -12,4 +13,7 @@ __all__ = [
     "SurfaceSlice",
     "ScenarioCube",
     "StaticMarketData",
+    "YieldCurve",
+    "hermite_rt_interp",
+    "linear_interp",
 ]

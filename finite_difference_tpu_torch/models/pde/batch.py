@@ -1130,6 +1130,24 @@ def _with_dividends(batch: BarrierTradeBatch, sched) -> bool:
     return bool((batch.div_amount != 0).any())
 
 
+def _surface_route(batch: BarrierTradeBatch, n_nodes: int, solver: str, american: bool,
+                   dtype, device):
+    """The route of :func:`solve_value_surfaces`: ``(batch, solver,
+    spike_segments, spike_preps)``, with ``"auto"`` resolved to the route
+    it takes (the SPIKE march only where the interface guard passed)."""
+    if american and solver not in ("auto", "scan"):
+        raise ValueError("the American surface is the scan's; use solver='auto' or 'scan'")
+    batch, _, solver, sched = _route(
+        batch, n_nodes, None, dtype, "scan" if american else solver, device, american=american,
+    )
+    preps = None
+    if solver == "auto":
+        preps = _guarded_spike_preps(batch, n_nodes, sched, False, [batch.sigma])
+        solver = auto_solver(batch.x_min.device.type, sched, preps is not None,
+                             **_auto_inputs(batch, False, False, "bump"))
+    return batch, solver, sched, preps
+
+
 def solve_value_surfaces(
     batch: BarrierTradeBatch,
     n_nodes: int,
@@ -1152,16 +1170,7 @@ def solve_value_surfaces(
     batch's dtype (``"spectral_mixed"``'s float32 state excepted, as in the
     JAX package).
     """
-    if american and solver not in ("auto", "scan"):
-        raise ValueError("the American surface is the scan's; use solver='auto' or 'scan'")
-    batch, _, solver, sched = _route(
-        batch, n_nodes, None, dtype, "scan" if american else solver, device, american=american,
-    )
-    preps = None
-    if solver == "auto":
-        preps = _guarded_spike_preps(batch, n_nodes, sched, False, [batch.sigma])
-        solver = auto_solver(batch.x_min.device.type, sched, preps is not None,
-                             **_auto_inputs(batch, False, False, "bump"))
+    batch, solver, sched, preps = _surface_route(batch, n_nodes, solver, american, dtype, device)
     with_div = american and bool((batch.div_amount != 0).any())
     v = _solve_values(batch, n_nodes, solver, american, [batch.sigma], sched, preps, with_div)[0]
     i = torch.arange(n_nodes, dtype=batch.x_min.dtype, device=batch.x_min.device)

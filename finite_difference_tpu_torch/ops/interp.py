@@ -20,8 +20,9 @@ def linear_interp(xq: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.T
     """Piecewise-linear interpolation of y(x) at ``xq``, clamped to the end
     values (``jnp.interp`` semantics), ``x`` ascending. Two forms: JAX's
     1-D one, ``x`` and ``y`` (N,) with ``xq`` of any shape; and the row
-    form of the batch drivers, ``xq`` (B,), ``x`` and ``y`` (B, N), one
-    table per row."""
+    form (``jax.vmap(jnp.interp)``), ``x`` and ``y`` (B, N), one table per
+    row, with ``xq`` (B,), one query per row (each trade's price),
+    or (B, M), M queries per row (the exposure engine's paths)."""
     if x.dim() == 1:
         n = x.shape[0]
         i = torch.searchsorted(x, xq.contiguous(), right=True).clamp(1, n - 1)
@@ -30,12 +31,14 @@ def linear_interp(xq: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.T
         f = torch.where(xq < x[0], y[0], f)
         return torch.where(xq > x[-1], y[-1], f)
     n = x.shape[1]
-    i = torch.searchsorted(x, xq[:, None], right=True).clamp(1, n - 1)
-    x0, x1 = torch.gather(x, 1, i - 1)[:, 0], torch.gather(x, 1, i)[:, 0]
-    f0, f1 = torch.gather(y, 1, i - 1)[:, 0], torch.gather(y, 1, i)[:, 0]
-    f = f0 + ((xq - x0) / (x1 - x0)) * (f1 - f0)
-    f = torch.where(xq < x[:, 0], y[:, 0], f)
-    return torch.where(xq > x[:, -1], y[:, -1], f)
+    q = xq[:, None] if xq.dim() == 1 else xq
+    i = torch.searchsorted(x, q.contiguous(), right=True).clamp(1, n - 1)
+    x0, x1 = torch.gather(x, 1, i - 1), torch.gather(x, 1, i)
+    f0, f1 = torch.gather(y, 1, i - 1), torch.gather(y, 1, i)
+    f = f0 + ((q - x0) / (x1 - x0)) * (f1 - f0)
+    f = torch.where(q < x[:, :1], y[:, :1], f)
+    f = torch.where(q > x[:, -1:], y[:, -1:], f)
+    return f[:, 0] if xq.dim() == 1 else f
 
 
 class SplineCoeffs(NamedTuple):

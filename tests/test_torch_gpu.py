@@ -28,7 +28,13 @@ JAX), a replayed FIS march equals its eager run within 1e-12, and
 (no kernel of ours): threefry's bits and uniforms on the card equal the
 CPU's exactly (normals within the two erfinvs' rounding, as against JAX),
 and the discrete-barrier MC (1e-12), LSM (1e-10), GBM and CS paths (1e-13)
-and the HW1F cube (1e-12 of max|z|) equal the port on the CPU.
+and the HW1F cube (1e-12 of max|z|) equal the port on the CPU. The XVA
+exposure path (no kernel of ours unless a surface takes K2):
+``hw1f_cva_pipeline`` (MTM 1e-10 of max|MTM|, CVA 1e-10 relative), the
+device engine's MTM of a netting set with a knock-out barrier, an
+American put and a swap (1e-10 of max|MTM|), and ``exposure_profile``
+(1e-13 relative) equal the port on the CPU; a float32 exposure call under
+TF32 raises.
 """
 import dataclasses
 
@@ -997,3 +1003,95 @@ def test_mc_hw1f_on_the_card_equals_the_cpu(cuda):
     name = "InterestRate.ZAR-SWAP"
     assert np.abs(cube.factor_array(name) - ref.factor_array(name)).max() <= 1e-12 * np.abs(
         ref.factor_array(name)).max()
+
+
+def _xva_swaps(n, pkg_inst):
+    import datetime as dt
+
+    val = dt.date(2025, 7, 28)
+    return [pkg_inst.IRSwap(
+        name=f"irs{k}", effective_date=val, maturity_date=dt.date(2027, 7, 28), notional=1_000_000,
+        receive_leg=pkg_inst.SwapLeg(pkg_inst.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP"),
+        pay_leg=pkg_inst.SwapLeg(pkg_inst.LegType.FIXED, frequency=3, fixed_rate=0.07 + 0.002 * k),
+        discount_curve_name="ZAR-SWAP") for k in range(n)]
+
+
+def test_xva_hw1f_pipeline_on_the_card_equals_the_cpu(cuda):
+    import datetime as dt
+
+    from finite_difference_tpu_torch import instruments
+    from finite_difference_tpu_torch.models.mc import HW1FCurveSimulator, HW1FParams
+    from finite_difference_tpu_torch.xva import hw1f_cva_pipeline
+
+    tenors = np.array([0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0])
+    def run(dev):
+        sim = HW1FCurveSimulator(HW1FParams.flat(0.05, 0.01), tenors, np.full(8, 0.075), device=dev)
+        return hw1f_cva_pipeline(sim, dt.date(2025, 7, 28), list(range(30, 780, 30)), tenors,
+                                 1000, _xva_swaps(3, instruments), flat_discount_rate=0.075)
+
+    got, want = run(cuda), run("cpu")
+    assert got["mtm"].device.type == "cuda"
+    m, w = got["mtm"].cpu().numpy(), want["mtm"].numpy()
+    assert np.abs(m - w).max() <= 1e-10 * np.abs(w).max()
+    assert abs(got["cva"] - want["cva"]) <= 1e-10 * abs(want["cva"])
+
+
+def test_xva_device_engine_with_surfaces_on_the_card_equals_the_cpu(cuda):
+    import datetime as dt
+
+    from finite_difference_tpu_torch import instruments
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine
+
+    val = dt.date(2025, 7, 28)
+    rng = np.random.default_rng(7)
+    dates = [val + dt.timedelta(days=14 * i) for i in range(12)]
+    eq = 100.0 * np.exp(rng.normal(0.0, 0.035, (12, 500)).cumsum(axis=0))
+    rates = 0.07 + rng.normal(0, 0.002, (12, 500, 5)).cumsum(axis=0)
+    tenors = np.array([0.25, 0.5, 1.0, 2.0, 5.0])
+    def run(dev):
+        mat = dates[-1]
+        ko = instruments.EquityBarrierOption(
+            "uoc", "EQ.SPOT", 100.0, mat, 0.3, 0.07, monitor_dates=dates[2::2],
+            upper_barrier=135.0, rebate=1.0, quantity=50.0, n_time_steps=64, num_space_nodes=255,
+            device=dev)
+        am = instruments.AmericanOptionPosition("amp", "EQ.SPOT", 95.0, mat, 0.3, 0.07, quantity=50.0,
+                                                n_time_steps=64, num_space_nodes=200, device=dev)
+        eng = DeviceExposureEngine(dates, {"ZAR-SWAP": rates}, tenors, scalars={"EQ.SPOT": eq}, device=dev)
+        return eng.mtm([ko, am, _xva_swaps(1, instruments)[0]])
+
+    got, want = run(cuda), run("cpu")
+    assert got.device.type == "cuda"
+    m, w = got.cpu().numpy(), want.numpy()
+    assert np.abs(m - w).max() <= 1e-10 * np.abs(w).max()
+
+
+def test_xva_exposure_profile_on_the_card_equals_the_cpu(cuda):
+    from finite_difference_tpu_torch.xva.cva import exposure_profile
+
+    mtm = np.random.default_rng(3).normal(0.1, 1.0, (61, 200_000)) * 1e5
+    times = np.arange(61) * 30.0
+    df0 = np.exp(-0.075 * times / 365.25)
+    got = exposure_profile(times, torch.as_tensor(mtm, device=cuda), df0=df0)
+    want = exposure_profile(times, mtm, df0=df0)
+    np.testing.assert_allclose(got.ee, want.ee, rtol=1e-13)
+    np.testing.assert_allclose(got.pfe, want.pfe, rtol=1e-13)
+
+
+def test_xva_float32_under_tf32_raises(cuda):
+    import datetime as dt
+
+    from finite_difference_tpu_torch import instruments
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine
+
+    dates = [dt.date(2025, 7, 28) + dt.timedelta(days=30 * i) for i in range(4)]
+    cube = torch.full((4, 8, 8), 0.07, dtype=torch.float32)
+    eng = DeviceExposureEngine(dates, {"ZAR-SWAP": cube}, np.array([0.25, 0.5, 1, 2, 3, 5, 7, 10.0]),
+                               device=cuda)
+    swap = _xva_swaps(1, instruments)[0]
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(ValueError, match="TF32"):
+            eng.mtm([swap])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

@@ -250,7 +250,23 @@ class TestPortBoundary:
                 "finite_difference_tpu_torch/models/mc/hw1f.py",
                 "finite_difference_tpu_torch/market_data/__init__.py",
                 "finite_difference_tpu_torch/market_data/risk_factor.py",
-                "finite_difference_tpu_torch/market_data/scenario_cube.py"} <= names
+                "finite_difference_tpu_torch/market_data/scenario_cube.py",
+                "finite_difference_tpu_torch/market_data/yield_curve.py",
+                "finite_difference_tpu_torch/instruments/__init__.py",
+                "finite_difference_tpu_torch/instruments/instrument.py",
+                "finite_difference_tpu_torch/instruments/schedule.py",
+                "finite_difference_tpu_torch/instruments/cashflow.py",
+                "finite_difference_tpu_torch/instruments/ir_swap.py",
+                "finite_difference_tpu_torch/instruments/equity_barrier.py",
+                "finite_difference_tpu_torch/instruments/american_option.py",
+                "finite_difference_tpu_torch/portfolio/__init__.py",
+                "finite_difference_tpu_torch/portfolio/csa.py",
+                "finite_difference_tpu_torch/portfolio/netting_set.py",
+                "finite_difference_tpu_torch/xva/__init__.py",
+                "finite_difference_tpu_torch/xva/config.py",
+                "finite_difference_tpu_torch/xva/cva.py",
+                "finite_difference_tpu_torch/xva/exposure_engine.py",
+                "finite_difference_tpu_torch/xva/device_exposure.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -260,17 +276,24 @@ class TestPortBoundary:
         assert not bad, bad
 
     # names the JAX package exports that wait for later slices of the port
-    # (the IR swap and XVA runners; the yield-curve and CPI market data), and
-    # the port's own additions of earlier slices
+    # (the IR swap and XVA runners; ROADMAP.md queue 1 item 4b's CPI market
+    # data, TRS, ILS, inflation and commodity instruments, SIMM and the
+    # commodity CVA stack), and the port's own additions of earlier slices
     LATER = {"runners": {"run_asset", "IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"},
-             "market_data": {"YieldCurve", "hermite_rt_interp", "linear_interp", "BondHistoricalCPI",
-                             "CPIPublication", "HistoricalCPI", "besa_bracket", "first_of_month",
-                             "shift_months", "CPITermStructure"}}
+             "market_data": {"BondHistoricalCPI", "CPIPublication", "HistoricalCPI", "besa_bracket",
+                             "first_of_month", "shift_months", "CPITermStructure"},
+             "instruments": {"InflationLeg", "get_cpi_level", "inflation_leg_pv", "IndexLinkedSwap",
+                             "compute_period_year_fractions", "equity_forward_price",
+                             "filter_future_periods", "trs_return_leg_pv", "EquityTRS",
+                             "CommodityAverageForwardInstrument", "CommodityForwardInstrument"},
+             "portfolio": {"SimmConfig", "SimmParams", "simm_im"},
+             "xva": {"TimeGrid", "FixingSchedule", "ReferencePrice", "CommodityForward",
+                     "CommodityXvaEngine", "RunResult"}}
     PORT_ONLY = {"models.analytic": {"generalized_bs_greeks"}, "utils": {"build_monitoring_dates"},
                  "runners": {"run_all_american_scenarios_batched"}}
 
     @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils", "models.mc",
-                                         "market_data"])
+                                         "market_data", "instruments", "portfolio", "xva"])
     def test_exports_what_jax_exports(self, package):
         import importlib
 
@@ -291,7 +314,9 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.models.analytic, finite_difference_tpu_torch.serving, "
             "finite_difference_tpu_torch.serving.__main__, finite_difference_tpu_torch.utils, "
             "finite_difference_tpu_torch.models.pde, finite_difference_tpu_torch.runners, "
-            "finite_difference_tpu_torch.models.mc, finite_difference_tpu_torch.market_data; "
+            "finite_difference_tpu_torch.models.mc, finite_difference_tpu_torch.market_data, "
+            "finite_difference_tpu_torch.instruments, finite_difference_tpu_torch.portfolio, "
+            "finite_difference_tpu_torch.xva; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"
