@@ -50,7 +50,14 @@ phase:
   netting set of examples/exotic_xva.py (an up-and-out call, an American
   put and a swap) through the generic and the device exposure engines,
   its barrier surfaces also through K2 (``solver="spike"``), and the CSA
-  cases, each held against the generic engine and the CPU.
+  cases, each held against the generic engine and the CPU;
+- the rest of the XVA engine (phase 24, :func:`xva_rest_phases`): the
+  seven trades of examples/exposure_bench.py (swaps, equity TRS and
+  index-linked swaps) at 50,000 paths x 62 dates on the device exposure
+  engine (and once at float32), a SIMM CSA on its base netting set, the
+  commodity forwards, and examples/xva_commodity_forward.py's assets
+  through ``run_asset`` at ``SimulationConfig()``'s defaults, each held
+  against the generic engine and the CPU.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -74,6 +81,7 @@ is false or when the port is not beside it; any failed check raises.
 It imports no JAX and nothing of the JAX package.
 """
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -218,6 +226,19 @@ XVA_SWAPS = 10  # five-year quarterly float-vs-fixed, fixed 7.0% ... 8.8%
 XVA_CPU_PATHS = 2_000  # paths held against the CPU and against the generic engine
 XVA_EXOTIC_PATHS, XVA_EXOTIC_DATES = 10_000, 28  # fortnightly dates
 XVA_EXOTIC_TENORS = (0.25, 0.5, 1.0, 2.0, 5.0)
+
+# phase 24, the rest of XVA: examples/exposure_bench.py's cube and netting set
+# (24a, 24b), TestDeviceCommodity's market and examples/xva_commodity_forward.py's
+# assets (24c)
+XVA_VAL = datetime.date(2025, 7, 28)
+XVA_BENCH_PATHS, XVA_BENCH_DATES = 50_000, 62
+XVA_SIMM_CHECK_PATHS = 64  # paths of the generic engine's per-date SIMM loop
+XVA_COMMODITY_DATES = 28  # fortnightly
+XVA_CS_CPU_SIMS = 2_000  # run_asset's sims held against the CPU
+XVA_ASSETS = {  # initial curve, tenor days, CS (alpha, sigma, mu)
+    "BRENT": ((78.0, 79.5, 80.2, 81.0, 81.5), (30.0, 90.0, 180.0, 270.0, 365.0), (1.1, 0.35, 0.0)),
+    "GOLD": ((2400.0, 2410.0, 2425.0, 2450.0), (90.0, 180.0, 270.0, 365.0), (0.4, 0.14, 0.0)),
+}
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -2841,6 +2862,304 @@ def xva_phases(dev, card: dict) -> dict:
     return {k: pipeline_launches[k] + exotic_launches[k] for k in pipeline_launches}
 
 
+def xva_bench_cube(n_paths: int, n_times: int = XVA_BENCH_DATES, seed: int = 0):
+    """examples/exposure_bench.py's ``build_cube`` as arrays (dates, curves,
+    scalars): a monthly swap curve with drift, an inflation curve, a flat
+    2% dividend curve and a CPI level curve, with CPI and equity spots."""
+    import datetime as dt
+
+    rng = np.random.default_rng(seed)
+    tenors = np.asarray(XVA_TENORS)
+    dates = [XVA_VAL + dt.timedelta(days=30 * i) for i in range(n_times)]
+    t = np.arange(n_times)[:, None, None]
+    z = rng.normal(0.0, 0.002, (n_times, n_paths, tenors.size)).cumsum(axis=0)
+    swap = 0.075 + 0.0005 * t + z
+    infl = 0.05 + 0.0003 * t + rng.normal(0.0, 0.001, z.shape).cumsum(axis=0)
+    cpi = 100.0 * np.exp(0.004 * np.arange(n_times)[:, None]
+                         + rng.normal(0, 0.002, (n_times, n_paths)).cumsum(axis=0))
+    eq = 100.0 * np.exp(rng.normal(0.002, 0.05, (n_times, n_paths)).cumsum(axis=0))
+    curves = {"ZAR-SWAP": swap, "INFL.ZA": infl, "EQ.DIV": np.full(z.shape, 0.02),
+              "CPI.CURVE": cpi[:, :, None] * np.exp(0.05 * tenors)[None, None, :]}
+    return dates, curves, {"CPI.ZA": cpi, "EQ.SPOT": eq}
+
+
+def xva_bench_trades(I, md):
+    """examples/exposure_bench.py's ``build_netting_set`` (a five-year IRS, a
+    two-year TRS and a three-year RiskFlow-mode ILS) and ``build_wide_extras``
+    (an OIS swap, a compounded-reset swap, a price-scaled TRS and a legacy
+    CPI-curve ILS), in the port: (base, extras)."""
+    import datetime as dt
+
+    val = XVA_VAL
+    hist = {md.shift_months(md.first_of_month(val), -k): 100.0 for k in range(0, 8)}
+    float_leg = lambda **kw: I.SwapLeg(I.LegType.FLOATING, curve_name="ZAR-SWAP", **kw)
+    fixed_leg = lambda freq, rate: I.SwapLeg(I.LegType.FIXED, frequency=freq, fixed_rate=rate)
+    trs = lambda name, **kw: I.EquityTRS(
+        name=name, effective_date=val, maturity_date=dt.date(2027, 7, 28), quantity=1000.0,
+        notional=100_000.0, interest_leg=float_leg(frequency=3, spread=0.01), spot_name="EQ.SPOT",
+        carry_curve_name="ZAR-SWAP", dividend_curve_name="EQ.DIV", discount_curve_name="ZAR-SWAP",
+        initial_price=100.0, **kw)
+    ils = lambda name, cpi, rate_curve: I.IndexLinkedSwap(
+        name=name, effective_date=val, maturity_date=dt.date(2028, 7, 28), notional=1_000_000,
+        inflation_leg=I.InflationLeg(real_rate=0.025, base_cpi=100.0, cpi_curve_name=cpi, frequency=6,
+                                     inflation_rate_curve_name=rate_curve),
+        nominal_leg=fixed_leg(6, 0.08), discount_curve_name="ZAR-SWAP", inflation_index=hist)
+    base = [
+        I.IRSwap(name="irs-5y", effective_date=val, maturity_date=dt.date(2030, 7, 28), notional=1_000_000,
+                 receive_leg=float_leg(frequency=3), pay_leg=fixed_leg(3, 0.08),
+                 discount_curve_name="ZAR-SWAP"),
+        trs("trs-2y"),
+        ils("ils-3y", "CPI.ZA", "INFL.ZA"),
+    ]
+    extras = [
+        I.IRSwap(name="ois-2y", effective_date=val, maturity_date=dt.date(2027, 7, 28), notional=1_000_000,
+                 receive_leg=float_leg(frequency=3, overnight_compounding=True), pay_leg=fixed_leg(3, 0.078),
+                 discount_curve_name="ZAR-SWAP"),
+        I.IRSwap(name="cmp-3y", effective_date=val, maturity_date=dt.date(2028, 7, 28), notional=1_000_000,
+                 receive_leg=float_leg(frequency=6, reset_frequency_months=3), pay_leg=fixed_leg(6, 0.08),
+                 discount_curve_name="ZAR-SWAP"),
+        trs("trs-price-2y", interest_nominal_scaling="Price"),
+        ils("ils-legacy-3y", "CPI.CURVE", ""),
+    ]
+    return base, extras
+
+
+def xva_commodity_market(n_paths: int, n_times: int = XVA_COMMODITY_DATES, seed: int = 11):
+    """tests/test_device_exposure.py TestDeviceCommodity's market: a swap
+    curve and a Brent forward curve on fortnightly dates."""
+    import datetime as dt
+
+    rng = np.random.default_rng(seed)
+    k = len(XVA_TENORS)
+    dates = [XVA_VAL + dt.timedelta(days=14 * i) for i in range(n_times)]
+    swap = 0.07 + rng.normal(0, 0.002, (n_times, n_paths, k)).cumsum(axis=0)
+    fwd = 70.0 * np.exp(rng.normal(0.001, 0.02, (n_times, n_paths, k)).cumsum(axis=0))
+    return dates, {"ZAR-SWAP": swap, "BRENT": fwd}
+
+
+def xva_commodity_trades(I):
+    """TestDeviceCommodity's forward and average forward, and a one-year swap."""
+    import datetime as dt
+
+    val = XVA_VAL
+    return [
+        I.CommodityForwardInstrument(
+            "cf", delivery_date=val + dt.timedelta(days=180), strike=72.0, notional=1000.0,
+            forward_curve_name="BRENT", discount_curve_name="ZAR-SWAP", pricing_lag_days=2),
+        I.CommodityAverageForwardInstrument(
+            "caf", averaging_dates=[val + dt.timedelta(days=30 * k) for k in range(1, 7)],
+            payment_date=val + dt.timedelta(days=200), strike=71.0, notional=500.0,
+            forward_curve_name="BRENT", discount_curve_name="ZAR-SWAP", pricing_lag_days=1),
+        I.IRSwap(name="irs-1y", effective_date=val, maturity_date=dt.date(2026, 7, 28), notional=1_000_000,
+                 receive_leg=I.SwapLeg(I.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP"),
+                 pay_leg=I.SwapLeg(I.LegType.FIXED, frequency=3, fixed_rate=0.08),
+                 discount_curve_name="ZAR-SWAP"),
+    ]
+
+
+def xva_rest_phases(dev, card: dict) -> dict:
+    """Phase 24, the rest of the XVA engine (the TRS, ILS and commodity
+    families on the device engine, SIMM initial margin, the commodity CVA
+    stack and ``run_asset``), float64 unless stated. Returns the launch
+    counts of 24a-24c, each read with the counts zeroed just before it: the
+    path is plain torch ops, so every count should be 0.
+
+    - 24a, examples/exposure_bench.py's seven trades (:func:`xva_bench_trades`:
+      IRS, TRS, RiskFlow ILS, OIS, compounded-reset swap, price-scaled TRS,
+      legacy CPI-curve ILS) on its cube (:func:`xva_bench_cube`, seed 0) at
+      :data:`XVA_BENCH_PATHS` paths x 62 monthly dates x 8 tenors, through
+      ``DeviceExposureEngine.mtm``, and once at float32. Checks: the card
+      against the CPU at :data:`XVA_CPU_PATHS` paths (MTM within 1e-10 of
+      max|MTM|); the device engine against the generic one there under the
+      example's CSA (MTM, collateral and exposure within 1e-10 of the
+      largest |value|); the float32 EE at its peak within 1e-3 of float64.
+    - 24b, the base set (IRS, TRS, ILS) under ``CSA(mpor_days=10,
+      im_method=SIMM)`` through ``DeviceExposureEngine.compute`` at full
+      width. Checks: its first :data:`XVA_SIMM_CHECK_PATHS` paths' collateral
+      against the generic engine's SIMM on those paths (JAX's gate, rtol
+      1e-7, atol 1e-8); a plain MTM after the SIMM call equal to the one
+      before it bit for bit.
+    - 24c, TestDeviceCommodity's forward, average forward and a one-year
+      swap on its market (seed 11) at :data:`XVA_BENCH_PATHS` paths x 28
+      fortnightly dates (device = generic at :data:`XVA_CPU_PATHS` paths
+      within 1e-10 of max|MTM|); then examples/xva_commodity_forward.py's
+      BRENT and GOLD through ``run_asset`` at ``SimulationConfig()``'s
+      defaults (50,000 sims, daily steps, 365 days), threefry twice (first
+      and warm) and ``sobol_device`` once; the card against the CPU at
+      :data:`XVA_CS_CPU_SIMS` sims (CVA within 1e-12 relative).
+    """
+    import torch
+
+    from finite_difference_tpu_torch import instruments, kernels, market_data
+    from finite_difference_tpu_torch.market_data import ScenarioCube
+    from finite_difference_tpu_torch.models.mc import CSParams
+    from finite_difference_tpu_torch.portfolio import CSA, InitialMarginMethod, NettingSet, Trade
+    from finite_difference_tpu_torch.runners import run_asset
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine, ExposureEngine, SimulationConfig
+    from finite_difference_tpu_torch.xva import device_exposure
+    from finite_difference_tpu_torch.xva.cva import exposure_profile
+
+    wall, launches = {}, {}
+    tenors = np.asarray(XVA_TENORS)
+    on_dev = lambda arrays, dtype=torch.float64: {k: torch.as_tensor(v, device=dev, dtype=dtype)
+                                                  for k, v in arrays.items()}
+
+    def rel_gap(got, want):
+        return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+    def host_cube(dates, curves, scalars, n=None):
+        cut = (lambda a: a[:, :n]) if n else (lambda a: a)
+        return ScenarioCube(dates, {**{k: ("curve", cut(v), tenors) for k, v in curves.items()},
+                                    **{k: ("scalar", cut(v)) for k, v in scalars.items()}})
+
+    def netting_set(trades, csa):
+        return NettingSet("NS", [Trade(t, f"T{i}") for i, t in enumerate(trades)], csa=csa)
+
+    # 24a. the TRS, ILS and swap families --------------------------------------------
+    t_phase = time.perf_counter()
+    base, extras = xva_bench_trades(instruments, market_data)
+    trades = base + extras
+    dates, curves_np, scalars_np = xva_bench_cube(XVA_BENCH_PATHS)
+    curves, scalars = on_dev(curves_np), on_dev(scalars_np)
+    eng = DeviceExposureEngine(dates, curves, tenors, scalars=scalars, device=dev)
+    device_exposure._LEG_CACHE.clear()
+    kernels.reset_launch_counts()
+    _, first_ms = host_ms(lambda: eng.mtm(trades))
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    mtm, warm_ms = host_ms(lambda: eng.mtm(trades))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["24a"] = dict(kernels.launch_counts)
+    prof = profile_call(lambda: eng.mtm(trades), warm_ms)
+    check(tuple(mtm.shape) == (XVA_BENCH_PATHS, len(dates)) and bool(torch.isfinite(mtm).all()),
+          f"24a MTM shape {tuple(mtm.shape)} or not finite")
+    npvs = XVA_BENCH_PATHS * len(dates) * len(trades)
+    times_days = np.array([float((d - dates[0]).days) for d in dates])
+    eng32 = DeviceExposureEngine(dates, on_dev(curves_np, torch.float32), tenors,
+                                 scalars=on_dev(scalars_np, torch.float32), device=dev)
+    eng32.mtm(trades)
+    m32, f32_ms = host_ms(lambda: eng32.mtm(trades))
+    check(m32.dtype == torch.float32 and bool(torch.isfinite(m32).all()), "24a float32 MTM not finite")
+    ee64 = exposure_profile(times_days, mtm.T).ee
+    ee32 = exposure_profile(times_days, m32.T).ee
+    k = int(np.argmax(ee64))
+    f32_gap = abs(float(ee32[k]) - ee64[k]) / ee64[k]
+    check(f32_gap <= 1e-3, f"24a float32 EE at the peak vs float64: {f32_gap:.3e} > 1e-3")
+    del m32, eng32
+
+    s_dates, s_curves, s_scalars = xva_bench_cube(XVA_CPU_PATHS)
+    small = {d: DeviceExposureEngine(s_dates, on_dev(s_curves) if d == "card" else s_curves, tenors,
+                                     scalars=on_dev(s_scalars) if d == "card" else s_scalars,
+                                     device=dev if d == "card" else "cpu").mtm(trades).cpu().numpy()
+             for d in ("card", "cpu")}
+    card_vs_cpu = rel_gap(small["card"], small["cpu"])
+    check(card_vs_cpu <= 1e-10, f"24a card vs CPU at {XVA_CPU_PATHS} paths: {card_vs_cpu:.3e}")
+    bench_csa = CSA(mpor_days=10, vm_threshold=0.0, vm_threshold_post=0.0, im_method=InitialMarginMethod.NONE)
+    gen, generic_ms = host_ms(lambda: ExposureEngine(host_cube(s_dates, s_curves, s_scalars)).compute(
+        netting_set(trades, bench_csa)))
+    got = DeviceExposureEngine(s_dates, on_dev(s_curves), tenors, scalars=on_dev(s_scalars),
+                               device=dev).compute(trades, csa=bench_csa)
+    dev_vs_generic = {f: rel_gap(getattr(got, f), getattr(gen, f)) for f in ("mtm", "collateral", "exposure")}
+    check(max(dev_vs_generic.values()) <= 1e-10, f"24a device vs generic: {dev_vs_generic}")
+    emit("xva_families", paths=XVA_BENCH_PATHS, dates=len(dates), tenors=tenors.size,
+         trades=[t.name for t in trades], npvs_per_call=npvs, first_ms=first_ms, warm_ms=warm_ms,
+         npvs_per_s=npvs / (warm_ms / 1e3), device_ms=prof["device_ms"], busy_share=prof["busy_share"],
+         device_kernels=prof["device_kernels"], bmm_ms=prof["matmul_ms"],
+         bmm_share_of_device=prof["matmul_ms"] / prof["device_ms"], top=prof["top"][:5],
+         call_peak_gb=peak_gb - held_gb, held_before_gb=held_gb, peak_allocated_gb=peak_gb,
+         f32_ms=f32_ms, f32_ee_peak_rel_gap=f32_gap, launches=launches["24a"], card_vs_cpu=card_vs_cpu,
+         cpu_paths=XVA_CPU_PATHS, device_vs_generic=dev_vs_generic, generic_ms=generic_ms,
+         limits={"card_vs_cpu": 1e-10, "device_vs_generic": 1e-10, "f32_ee_peak": 1e-3}, **card)
+    wall["24a families"] = time.perf_counter() - t_phase
+
+    # 24b. SIMM on the base set --------------------------------------------------------
+    t_phase = time.perf_counter()
+    simm = CSA(mpor_days=10, im_method=InitialMarginMethod.SIMM)
+    eng = DeviceExposureEngine(dates, curves, tenors, scalars=scalars, device=dev)
+    before = eng.mtm(base)
+    vm_only = eng.compute(base, csa=CSA(mpor_days=10))
+    eng.compute(base, csa=simm)  # warm-up
+    kernels.reset_launch_counts()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    prof_simm, simm_ms = host_ms(lambda: eng.compute(base, csa=simm))
+    simm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches["24b"] = dict(kernels.launch_counts)
+    runs = eng.simm_runs
+    check(torch.equal(eng.mtm(base), before), "24b: the plain MTM after the SIMM call moved")
+    im = prof_simm.collateral - vm_only.collateral
+    check(np.isfinite(prof_simm.collateral).all() and im.max() > 0, "24b: SIMM IM not finite or zero")
+    n = XVA_SIMM_CHECK_PATHS
+    gen, generic_simm_ms = host_ms(lambda: ExposureEngine(host_cube(dates, curves_np, scalars_np, n)).compute(
+        netting_set(base, simm)))
+    simm_gap = rel_gap(prof_simm.collateral[:n], gen.collateral)
+    check(np.allclose(prof_simm.collateral[:n], gen.collateral, rtol=1e-7, atol=1e-8),
+          f"24b device SIMM vs generic on {n} paths: {simm_gap:.3e} of max|collateral|")
+    emit("xva_simm", paths=XVA_BENCH_PATHS, dates=len(dates), trades=[t.name for t in base], ms=simm_ms,
+         netting_runs=runs, peak_im=float(im.max()), mean_im=float(im.mean()),
+         call_peak_gb=simm_peak_gb - held_gb, held_before_gb=held_gb, launches=launches["24b"],
+         generic_paths=n, generic_ms=generic_simm_ms, device_vs_generic_collateral=simm_gap,
+         plain_mtm_unchanged=True, limits={"device_vs_generic": [1e-7, 1e-8]}, **card)
+    del eng, curves, scalars, before, mtm, prof_simm, vm_only
+    wall["24b SIMM"] = time.perf_counter() - t_phase
+
+    # 24c. commodities ----------------------------------------------------------------
+    t_phase = time.perf_counter()
+    com_trades = xva_commodity_trades(instruments)
+    c_dates, c_curves = xva_commodity_market(XVA_BENCH_PATHS)
+    eng = DeviceExposureEngine(c_dates, on_dev(c_curves), tenors, device=dev)
+    kernels.reset_launch_counts()
+    _, com_first_ms = host_ms(lambda: eng.mtm(com_trades))
+    com_mtm, com_warm_ms = host_ms(lambda: eng.mtm(com_trades))
+    check(bool(torch.isfinite(com_mtm).all()), "24c commodity MTM not finite")
+    s_dates, s_curves = xva_commodity_market(XVA_CPU_PATHS)
+    gen = ExposureEngine(host_cube(s_dates, s_curves, {})).compute(netting_set(com_trades, None))
+    got = DeviceExposureEngine(s_dates, on_dev(s_curves), tenors, device=dev).mtm(com_trades).cpu().numpy()
+    com_gap = rel_gap(got, gen.mtm)
+    check(com_gap <= 1e-10, f"24c commodity device vs generic: {com_gap:.3e}")
+
+    assets = {}
+    for code, spec in XVA_ASSETS.items():
+        spec = dict(initial_curve=np.asarray(spec[0]), tenor_days=np.asarray(spec[1]), cs_params=CSParams(*spec[2]))
+        run = lambda backend, cfg=SimulationConfig(), device=dev: run_asset(
+            code, sim_cfg=cfg, discount_rate=0.05, hazard_rate=0.02, recovery=0.4, rng_backend=backend,
+            device=device, **spec)
+        out, first = host_ms(lambda: run("threefry"))
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out, warm = host_ms(lambda: run("threefry"))
+        peak = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        p = profile_call(lambda: run("threefry"), warm)
+        sob, sob_ms = host_ms(lambda: run("sobol_device"))
+        for o in (out, sob):
+            check(math.isfinite(o["cva"]) and o["cva"] > 0 and o["peak_pfe"] >= o["peak_ee"] > 0,
+                  f"24c {code}: CVA {o['cva']}, peak EE {o['peak_ee']}, peak PFE {o['peak_pfe']}")
+        cpu_cfg = SimulationConfig(num_sims=XVA_CS_CPU_SIMS)
+        gaps = {}
+        for backend in ("threefry", "sobol_device"):
+            c, w = run(backend, cpu_cfg), run(backend, cpu_cfg, "cpu")
+            gaps[backend] = abs(c["cva"] - w["cva"]) / abs(w["cva"])
+            check(gaps[backend] <= 1e-12, f"24c {code} {backend}: CVA card vs CPU {gaps[backend]:.3e} > 1e-12")
+        assets[code] = dict(first_ms=first, warm_ms=warm, device_ms=p["device_ms"], busy_share=p["busy_share"],
+                            device_kernels=p["device_kernels"], top=p["top"][:3], call_peak_gb=peak,
+                            cva=out["cva"], peak_ee=out["peak_ee"], peak_pfe=out["peak_pfe"],
+                            sobol_device_ms=sob_ms, sobol_device_cva=sob["cva"],
+                            cva_card_vs_cpu=gaps, strike=out["strike"], maturity_day=out["maturity_day"])
+    torch.cuda.synchronize()
+    launches["24c"] = dict(kernels.launch_counts)
+    emit("xva_commodity", paths=XVA_BENCH_PATHS, dates=len(c_dates), trades=[t.name for t in com_trades],
+         first_ms=com_first_ms, warm_ms=com_warm_ms, device_vs_generic=com_gap, cpu_paths=XVA_CPU_PATHS,
+         sims=SimulationConfig().num_sims, steps=SimulationConfig().time_grid().n_steps, assets=assets,
+         cpu_sims=XVA_CS_CPU_SIMS, launches=launches["24c"],
+         limits={"device_vs_generic": 1e-10, "cva_card_vs_cpu": 1e-12}, **card)
+    wall["24c commodities"] = time.perf_counter() - t_phase
+
+    for name, counts in launches.items():
+        check(not any(counts.values()), f"phase {name} launched a kernel of ours: {counts}")
+    emit("xva_rest_phase_wall_s", **wall, total=sum(wall.values()))
+    return {k: sum(c[k] for c in launches.values()) for k in launches["24a"]}
+
+
 def main() -> int:
     import torch
 
@@ -3043,6 +3362,13 @@ def main() -> int:
     for k in (k1, k1a, k2, k3, k4):
         k["xva_launches"] = xva_launches.get(k["name"], 0)
     wall["23 XVA exposure"] = time.perf_counter() - t1
+
+    # 24. the rest of the XVA engine ---------------------------------------------------
+    t1 = time.perf_counter()
+    xva_rest_launches = xva_rest_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["xva_rest_launches"] = xva_rest_launches.get(k["name"], 0)
+    wall["24 rest of XVA"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Portfolio layer: netting sets, trades, CSA terms (the port of
-``finite_difference_tpu.portfolio``, host). SIMM (``portfolio.simm``)
-comes with ROADMAP.md queue 1 item 4b.
+"""Portfolio layer: netting sets, trades, CSA terms (host) and the SIMM
+delta-margin aggregation (torch tensors), the port of
+``finite_difference_tpu.portfolio``.
 """
 from .csa import CSA, CloseOutMethod, InitialMarginMethod
 from .netting_set import NettingSet, Trade
+from .simm import SimmConfig, SimmParams, simm_im
 
 __all__ = [
     "CSA",
@@ -11,4 +12,7 @@ __all__ = [
     "InitialMarginMethod",
     "NettingSet",
     "Trade",
+    "SimmConfig",
+    "SimmParams",
+    "simm_im",
 ]

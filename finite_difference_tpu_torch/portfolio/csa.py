@@ -5,20 +5,13 @@ Reconstruction of the absent ``portfolio/csa.py`` from
 exposure_engine.py:573-648: MPOR lookback, VM thresholds in both
 directions, IM methods (NONE / FIXED / SCHEDULE supported; SIMM declared),
 close-out method with optional risky-curve substitution (a single name or a
-per-currency dict). SIMM itself (``portfolio.simm``) is not ported yet:
-both exposure engines raise :data:`SIMM_NOT_PORTED` for it.
+per-currency dict).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from enum import Enum
 from typing import Dict, Optional, Union
-
-
-SIMM_NOT_PORTED = (
-    "InitialMarginMethod.SIMM is not ported yet (portfolio.simm and the "
-    "engines' SIMM passes wait for ROADMAP.md queue 1 item 4b)"
-)
 
 
 class CloseOutMethod(Enum):

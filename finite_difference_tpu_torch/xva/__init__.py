@@ -1,8 +1,7 @@
 """XVA / exposure layer (the port of ``finite_difference_tpu.xva``): the
-netting-set exposure engines (the generic host engine and the device
-engine), EE/PFE/CVA, and the HW1F CVA pipeline. The commodity CVA stack
-(time grid, reference price, commodity forward, its engine) comes with
-ROADMAP.md queue 1 item 4b.
+commodity CVA stack (config -> time grid -> reference price -> forward
+MTM -> EE/PFE/CVA), the netting-set exposure engines (the generic host
+engine and the device engine), and the HW1F CVA pipeline.
 """
 from .config import (
     CounterpartyConfig,
@@ -10,7 +9,11 @@ from .config import (
     SamplingConvention,
     SimulationConfig,
 )
+from .time_grid import TimeGrid
+from .reference_price import FixingSchedule, ReferencePrice
+from .commodity_forward import CommodityForward
 from .cva import ExposureProfile, XvaCalculator
+from .engine import CommodityXvaEngine, RunResult
 from .exposure_engine import ExposureEngine, ExposureProfile as NettingExposureProfile
 from .device_exposure import DeviceExposureEngine, hw1f_cva_pipeline
 
@@ -19,8 +22,14 @@ __all__ = [
     "DiscountingConfig",
     "SamplingConvention",
     "SimulationConfig",
+    "TimeGrid",
+    "FixingSchedule",
+    "ReferencePrice",
+    "CommodityForward",
     "ExposureProfile",
     "XvaCalculator",
+    "CommodityXvaEngine",
+    "RunResult",
     "ExposureEngine",
     "DeviceExposureEngine",
     "hw1f_cva_pipeline",

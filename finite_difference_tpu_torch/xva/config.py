@@ -47,11 +47,10 @@ class SimulationConfig:
     days_in_year: float = 365.0
 
     def time_grid(self):
-        """The scenario ``TimeGrid`` of the commodity CVA stack, which the
-        port does not have yet (ROADMAP.md queue 1 item 4b)."""
-        raise NotImplementedError(
-            "xva.time_grid is not ported yet (ROADMAP.md queue 1 item 4b)"
-        )
+        """The scenario :class:`~finite_difference_tpu_torch.xva.time_grid.TimeGrid`."""
+        from .time_grid import TimeGrid
+
+        return TimeGrid.regular(self.dt_days, self.horizon_days)
 
 
 @dataclass(frozen=True)

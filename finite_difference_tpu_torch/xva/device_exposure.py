@@ -1,6 +1,7 @@
 """Device-resident exposure fast path (the port of
-``finite_difference_tpu.xva.device_exposure``: rates swaps, PDE-surface
-exotics, FX conversion and the CSA).
+``finite_difference_tpu.xva.device_exposure``: rates swaps, equity TRS,
+index-linked swaps, commodity forwards, PDE-surface exotics, FX
+conversion and the CSA, SIMM initial margin included).
 
 The generic :class:`~finite_difference_tpu_torch.xva.exposure_engine.ExposureEngine`
 is host-orchestrated per date x trade (faithful to the reference's
@@ -16,7 +17,9 @@ host from the tenor grid and the schedule alone (interpolation is linear
 in the node values — see market_data/yield_curve.py). Forward fixings
 frozen at reset follow the engine's convention exactly: the curve
 snapshot is the nearest-prior scenario row (an ``index_select`` on the
-device), with year-fractions measured from the reset date. PDE-surface
+device), with year-fractions measured from the reset date. The TRS return
+leg, the inflation leg and the commodity references are the same
+contractions plus two-row gathers of the stamped fixings. PDE-surface
 exotics (EquityBarrierOption, AmericanOptionPosition) read their per-date
 value surfaces, which stay on the device, with one row-wise linear
 interpolation of the simulated spots.
@@ -26,23 +29,27 @@ caller passes ``"cpu"``), in the dtype of the factor cubes; no kernel of
 the port's own runs here. The leg tensors are built on the host once per
 (instruments, dates, tenors) and cached together with their device copies
 per (device, dtype), so a steady call moves no weight tensor to the card.
-The TRS, ILS and commodity families are not ported yet (ROADMAP.md queue
-1 item 4b): the engine raises NotImplementedError for them, and for SIMM.
+Under a SIMM CSA the bumped netting runs and the margin aggregation stay
+on the device; only the (n_paths, n_times) IM comes back to the host.
 """
 from __future__ import annotations
 
+import calendar as _cal
 import dataclasses
 import datetime as dt
 import warnings
 from bisect import bisect_left, bisect_right
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..instruments.cashflow import LegType, SwapLeg
+from ..instruments.commodity import CommodityAverageForwardInstrument, CommodityForwardInstrument
+from ..instruments.equity_trs import EquityTRS
+from ..instruments.index_linked_swap import IndexLinkedSwap
 from ..instruments.ir_swap import IRSwap
 from ..instruments.schedule import (
     ScheduleConfig,
@@ -50,9 +57,12 @@ from ..instruments.schedule import (
     adjust,
     generate_sub_periods,
 )
-from ..market_data.yield_curve import _hermite_rt_weights, _tangent_matrix
+from ..market_data.cpi import besa_bracket
+from ..market_data.yield_curve import _hermite_rt_weights, _interp_weight_matrix, _tangent_matrix
 from ..ops.interp import linear_interp
-from ..portfolio.csa import SIMM_NOT_PORTED, CloseOutMethod, InitialMarginMethod
+from ..portfolio.csa import CloseOutMethod, InitialMarginMethod
+from ..portfolio.simm import IR_TENORS, SimmConfig, assign_ir_buckets, simm_im, weight_ir_sensitivities
+from ..utils.daycount import year_fraction
 from .exposure_engine import ExposureProfile, compute_im, simulate_collateral
 
 
@@ -107,8 +117,7 @@ class DeviceLegTensors:
     # equity-forward pathwise notionals (EquityTRS 'Price' interest
     # scaling, equity_trs.py:287-316): started periods use the stamped
     # spot (clamped two-row lerp at p_start), future periods
-    # spot * exp((rc - rd)(t_s) * t_s); notional = quantity * that. The
-    # TRS tensors that fill them come with the TRS family.
+    # spot * exp((rc - rd)(t_s) * t_s); notional = quantity * that
     eq_quantity: Optional[float] = None
     eq_stamped: Optional[np.ndarray] = None  # (n_times, m) p_start <= d
     eq_row0: Optional[np.ndarray] = None     # (m,) int
@@ -582,6 +591,53 @@ def hw1f_cva_pipeline(
     }
 
 
+@dataclass
+class DeviceTRSTensors:
+    """Host-precomputed tensors for an EquityTRS return leg.
+
+    Mirrors instruments.equity_pv.trs_return_leg_pv period cases on the
+    (n_times, m) grid: future periods use cost-of-carry forwards
+    F = spot * exp((rc_q t_q - rc_0 t_0) - (rd_q t_q - rd_0 t_0)); started
+    periods use the engine-stamped spot (linear state interpolation to the
+    reset date = a two-row gather + lerp on device).
+    """
+
+    spot_name: str
+    carry_name: str
+    div_name: str
+    discount_name: str
+    sign: float                      # +receiver / -payer (return leg sign)
+    quantity: float
+    notional_fixed: float
+    price_scaling: bool              # True: quantity*(Fe-Fs); False: N*(Fe/Fs-1)
+    live: np.ndarray                 # (n_times, m)
+    first_live: np.ndarray           # (n_times, m) one-hot first outstanding
+    start_future: np.ndarray         # (n_times, m) settled start > d
+    end_future: np.ndarray           # (n_times, m)
+    t_pay: np.ndarray                # (n_times, m)
+    W_disc: np.ndarray               # (n_times, n_tenors, m)
+    # forward queries (anchor t0 = settle lag from each date)
+    q_start: np.ndarray              # (n_times, m) query yf incl. settle
+    q_end: np.ndarray                # (n_times, m)
+    t0: np.ndarray                   # (n_times,) settle anchor yf
+    Wc_start: np.ndarray             # (n_times, n_tenors, m) carry @ q_start
+    Wc_end: np.ndarray
+    Wd_start: np.ndarray             # dividend @ q_start
+    Wd_end: np.ndarray
+    Wc_t0: np.ndarray                # (n_times, n_tenors, 1) anchors
+    Wd_t0: np.ndarray
+    # stamped spot gathers: rows i0/i1 + lerp alpha per period start/end
+    s_row0: np.ndarray               # (m,) int
+    s_row1: np.ndarray
+    s_alpha: np.ndarray              # (m,)
+    e_row0: np.ndarray
+    e_row1: np.ndarray
+    e_alpha: np.ndarray
+    # stamped start/end spots keep the base scalar under SIMM bumps
+    # ("" = spot_name)
+    frozen_spot_name: str = ""
+
+
 def _interp_rows(dates, d):
     """(i0, i1, alpha) reproducing _interp_scenario_state at date d."""
     i0 = max(0, bisect_right(dates, d) - 1)
@@ -591,6 +647,446 @@ def _interp_rows(dates, d):
     span = (dates[i1] - dates[i0]).days
     alpha = (d - dates[i0]).days / span if span else 0.0
     return i0, i1, float(min(max(alpha, 0.0), 1.0))
+
+
+def build_trs_tensors(trs, scenario_dates: Sequence[dt.date], tenors: np.ndarray):
+    """[return-leg DeviceTRSTensors, interest-leg DeviceLegTensors]."""
+    sc = trs.schedule_config
+    dates = list(scenario_dates)
+    n_times = len(dates)
+    schedule = trs.return_schedule
+    m = len(schedule)
+    Tm = _tangent_matrix(tenors) if tenors.size > 1 else None
+    direction = 1.0 if trs.is_receiver else -1.0
+
+    live = np.zeros((n_times, m), dtype=bool)
+    t_pay = np.zeros((n_times, m))
+    start_future = np.zeros((n_times, m), dtype=bool)
+    end_future = np.zeros((n_times, m), dtype=bool)
+    q_start = np.zeros((n_times, m))
+    q_end = np.zeros((n_times, m))
+    t0 = np.zeros(n_times)
+
+    settled = [(trs._settled(st), trs._settled(en)) for st, en, _, _ in schedule]
+    for t_idx, d in enumerate(dates):
+        if d > trs._effective_maturity:
+            continue  # scenario_npvs returns 0 past the last payment
+        if trs.spot_lag > 0:
+            vs = sc.cal.add_working_days(d, trs.spot_lag)
+            t0[t_idx] = sc.curve_year_fraction(d, vs)
+        include_on_val = (
+            trs.include_sim_date_cashflows or d == trs._effective_maturity
+        )
+        for i, ((st, en, pay, acc), (st_s, en_s)) in enumerate(zip(schedule, settled)):
+            live[t_idx, i] = pay > d or (pay == d and include_on_val)
+            t_pay[t_idx, i] = max(0.0, sc.curve_year_fraction(d, pay))
+            ts = (1 if st_s >= d else -1) * sc.curve_year_fraction(
+                min(st_s, d), max(st_s, d)
+            )
+            te = (1 if en_s >= d else -1) * sc.curve_year_fraction(
+                min(en_s, d), max(en_s, d)
+            )
+            start_future[t_idx, i] = ts > 0
+            end_future[t_idx, i] = te > 0
+            q_start[t_idx, i] = max(ts + t0[t_idx], t0[t_idx], 0.0)
+            q_end[t_idx, i] = max(te + t0[t_idx], t0[t_idx], 0.0)
+
+    first_live = np.zeros_like(live)
+    for t_idx in range(n_times):
+        idx = np.argmax(live[t_idx]) if live[t_idx].any() else None
+        if idx is not None:
+            first_live[t_idx, idx] = True
+
+    stack_w = lambda tq: np.stack(
+        [_weights_for(tenors, tq[t], Tm) for t in range(n_times)]
+    )
+    W_disc = stack_w(t_pay)
+    Wc_start = stack_w(q_start)
+    Wc_end = stack_w(q_end)
+    Wt0 = np.stack(
+        [_weights_for(tenors, np.array([t0[t]]), Tm) for t in range(n_times)]
+    )
+
+    s_row0 = np.zeros(m, dtype=np.int64)
+    s_row1 = np.zeros(m, dtype=np.int64)
+    s_alpha = np.zeros(m)
+    e_row0 = np.zeros(m, dtype=np.int64)
+    e_row1 = np.zeros(m, dtype=np.int64)
+    e_alpha = np.zeros(m)
+    for i, (st, en, _, _) in enumerate(schedule):
+        s_row0[i], s_row1[i], s_alpha[i] = _interp_rows(dates, st)
+        e_row0[i], e_row1[i], e_alpha[i] = _interp_rows(dates, en)
+
+    ret = DeviceTRSTensors(
+        spot_name=trs.spot_name,
+        carry_name=trs.carry_curve_name,
+        div_name=trs.dividend_curve_name,
+        discount_name=trs.discount_curve_name,
+        sign=direction,
+        quantity=float(trs.quantity),
+        notional_fixed=float(trs.notional),
+        price_scaling=trs.return_nominal_scaling == "Price",
+        live=live, first_live=first_live,
+        start_future=start_future, end_future=end_future,
+        t_pay=t_pay, W_disc=W_disc,
+        q_start=q_start, q_end=q_end, t0=t0,
+        Wc_start=Wc_start, Wc_end=Wc_end,
+        Wd_start=Wc_start, Wd_end=Wc_end,  # same query times; dims via curve
+        Wc_t0=Wt0, Wd_t0=Wt0,
+        s_row0=s_row0, s_row1=s_row1, s_alpha=s_alpha,
+        e_row0=e_row0, e_row1=e_row1, e_alpha=e_alpha,
+    )
+
+    # interest leg: fixed notional ("Initial Price" scaling) or pathwise
+    # equity-forward notionals ("Price"); due-today flows count on the
+    # terminal (last-payment) date like the host path
+    price_scaled = trs.interest_nominal_scaling == "Price"
+    interest = build_leg_tensors(
+        trs.interest_schedule, trs.interest_leg, -direction,
+        scenario_dates, tenors,
+        sc=sc, notional=1.0 if price_scaled else trs.notional,
+        discount_name=trs.discount_curve_name,
+        include_on=lambda d: (
+            trs.include_sim_date_cashflows or d == trs._effective_maturity
+        ),
+    )
+    if price_scaled:
+        mi = len(trs.interest_schedule)
+        eq_stamped = np.zeros((n_times, mi), dtype=bool)
+        eq_t_s = np.zeros((n_times, mi))
+        eq_row0 = np.zeros(mi, dtype=np.int64)
+        eq_row1 = np.zeros(mi, dtype=np.int64)
+        eq_alpha = np.zeros(mi)
+        for i, (p_start, _, _, _) in enumerate(trs.interest_schedule):
+            eq_row0[i], eq_row1[i], eq_alpha[i] = _interp_rows(dates, p_start)
+            for t_idx, d in enumerate(dates):
+                eq_stamped[t_idx, i] = p_start <= d
+                eq_t_s[t_idx, i] = sc.curve_year_fraction(d, max(p_start, d))
+        interest.eq_quantity = float(trs.quantity)
+        interest.eq_stamped = eq_stamped
+        interest.eq_row0 = eq_row0
+        interest.eq_row1 = eq_row1
+        interest.eq_alpha = eq_alpha
+        interest.eq_t_s = eq_t_s
+        interest.W_eq = np.stack(
+            [_weights_for(tenors, eq_t_s[t], Tm) for t in range(n_times)]
+        )
+        interest.eq_spot_name = trs.spot_name
+        interest.eq_carry_name = trs.carry_curve_name
+        interest.eq_div_name = (
+            trs.dividend_curve_name if trs.dividend_curve_name else ""
+        )
+    # zero the interest leg past the last payment to match scenario_npvs
+    mat_mask = np.array(
+        [d <= trs._effective_maturity for d in dates], dtype=bool
+    )
+    interest.live = interest.live & mat_mask[:, None]
+    return [ret, interest]
+
+
+def _trs_mtm(trs_t: DeviceTRSTensors, curves, scalars):
+    """(n_times, n_paths) return-leg MTM on its tensors' device."""
+    spot = scalars[trs_t.spot_name]              # (n_times, n_paths)
+    carry = curves[trs_t.carry_name]             # (n_times, n_paths, n_tenors)
+    div = curves.get(trs_t.div_name)
+    disc = curves[trs_t.discount_name]
+
+    r_pay = torch.bmm(disc, trs_t.W_disc)
+    df_pay = torch.exp(r_pay * -trs_t.t_pay[:, None, :])
+
+    def log_growth(cube, W_q, q, W_0):
+        r_q = torch.bmm(cube, W_q)
+        r_0 = torch.bmm(cube, W_0)[:, :, :1]
+        return r_q * q[:, None, :] - r_0 * trs_t.t0[:, None, None]
+
+    g_start = log_growth(carry, trs_t.Wc_start, trs_t.q_start, trs_t.Wc_t0)
+    g_end = log_growth(carry, trs_t.Wc_end, trs_t.q_end, trs_t.Wc_t0)
+    if div is not None:
+        g_start = g_start - log_growth(div, trs_t.Wd_start, trs_t.q_start, trs_t.Wd_t0)
+        g_end = g_end - log_growth(div, trs_t.Wd_end, trs_t.q_end, trs_t.Wd_t0)
+    f_start_fwd = spot[:, :, None] * torch.exp(g_start)
+    f_end_fwd = spot[:, :, None] * torch.exp(g_end)
+
+    # stamped reset spots are historical fixings -> base scalar
+    spot_fz = scalars[trs_t.frozen_spot_name or trs_t.spot_name]
+
+    def stamped(rows0, rows1, alpha):
+        s0 = spot_fz.index_select(0, rows0)      # (m, n_paths)
+        s1 = spot_fz.index_select(0, rows1)
+        a = alpha[:, None]
+        return ((1.0 - a) * s0 + a * s1).T       # (n_paths, m)
+
+    stamped_start = stamped(trs_t.s_row0, trs_t.s_row1, trs_t.s_alpha)
+    stamped_end = stamped(trs_t.e_row0, trs_t.e_row1, trs_t.e_alpha)
+
+    # first outstanding started period: the engine-stamped spot at the
+    # raw start (linear state interp, CLAMPED to the first cube row for
+    # pre-window starts — _build_equity_fixings stamps every reset <=
+    # sim date, and equity_trs.scenario_npvs lets the stamp win over the
+    # contractual initial_price). Other started periods: today's spot
+    # (trs_return_leg_pv:140-150).
+    started_start = torch.where(
+        trs_t.first_live[:, None, :], stamped_start[None, :, :], spot[:, :, None]
+    )
+    f_start = torch.where(trs_t.start_future[:, None, :], f_start_fwd, started_start)
+    f_end = torch.where(trs_t.end_future[:, None, :], f_end_fwd, stamped_end[None, :, :])
+
+    if trs_t.price_scaling:
+        payoff = trs_t.quantity * (f_end - f_start)
+    else:
+        safe = torch.where(f_start == 0.0, 1.0, f_start)
+        payoff = trs_t.notional_fixed * (f_end / safe - 1.0)
+
+    live = trs_t.live[:, None, :]
+    return torch.where(live, df_pay * payoff, 0.0).sum(dim=2) * trs_t.sign
+
+
+@dataclass
+class DeviceILSTensors:
+    """Host-precomputed tensors for an IndexLinkedSwap inflation leg
+    (RiskFlow mode: PriceIndex scalar + InflationRate curve).
+
+    The engine's CPI stamping collapses to a per-reference-date rule: a
+    non-historical ref k is stamped ONCE, either by the T_last_pub
+    pre-seed (spot CPI at the first row d* >= k, when last_pub(d*) == k)
+    or by due-stamping (state linearly interpolated to k) — both are a
+    two-row gather + lerp of the CPI scalar cube. Unpublished refs project
+    anchor_CPI(t) / DF_infl^t(yf(anchor(t), k)) with anchor(t) =
+    T_last_pub(t), itself one of the stamped refs.
+    """
+
+    cpi_name: str
+    infl_name: str
+    discount_name: str
+    sign: float
+    notional: float
+    real_rate: float
+    base_cpi: float
+    pay_notional_at_maturity: bool
+    live: np.ndarray                 # (n_times, m)
+    is_last_pay: np.ndarray          # (m,)
+    accrual: np.ndarray              # (m,)
+    t_pay: np.ndarray                # (n_times, m)
+    W_disc: np.ndarray               # (n_times, n_tenors, m)
+    # unique refs (brackets + anchors), K of them
+    ref_row0: np.ndarray             # (K,) stamped-value gather rows
+    ref_row1: np.ndarray
+    ref_alpha: np.ndarray            # (K,)
+    ref_hist: np.ndarray             # (K,) bool: value from hist_map
+    ref_hist_val: np.ndarray         # (K,)
+    pub_mask: np.ndarray             # (n_times, K) ref published/stamped at t
+    anchor_idx: np.ndarray           # (n_times,) index into K of anchor(t)
+    W_infl: np.ndarray               # (n_times, n_tenors, K) proj queries
+    #   (RiskFlow: InflationRate DF queries; legacy: LINEAR CPI-level
+    #    term-structure weights at yf(d_t, k) for unstamped refs)
+    t_proj: np.ndarray               # (n_times, K) yf(anchor(t), k)
+    j_idx: np.ndarray                # (m,) bracket j index into K
+    j1_idx: np.ndarray               # (m,)
+    frac: np.ndarray                 # (m,) intramonth weight
+    legacy: bool = False             # CPI factor is a level term structure
+    # stamped CPI refs keep the base factor under SIMM bumps
+    # ("" = cpi_name; scalars namespace, or curves when legacy)
+    frozen_cpi_name: str = ""
+
+
+def build_ils_tensors(ils, scenario_dates: Sequence[dt.date], tenors: np.ndarray):
+    """[inflation-leg DeviceILSTensors, nominal-leg DeviceLegTensors]."""
+    leg = ils.inflation_leg
+    legacy = not leg.inflation_rate_curve_name
+    sc = ils.schedule_config
+    dates = list(scenario_dates)
+    n_times = len(dates)
+    schedule = ils.inflation_schedule
+    m = len(schedule)
+    Tm = _tangent_matrix(tenors) if tenors.size > 1 else None
+    sign = 1.0 if ils.inflation_receiver else -1.0
+    hist = ils._historical_cpi_map
+
+    live = np.zeros((n_times, m), dtype=bool)
+    t_pay = np.zeros((n_times, m))
+    last_pay = max(p for _, _, p, _ in schedule)
+    is_last_pay = np.array([p == last_pay for _, _, p, _ in schedule])
+    accrual = np.array([a for _, _, _, a in schedule])
+
+    for t_idx, d in enumerate(dates):
+        if d > ils._effective_maturity:
+            continue
+        for i, (p_start, p_end, pay, acc) in enumerate(schedule):
+            live[t_idx, i] = pay > d or (
+                pay == d and ils.include_sim_date_cashflows
+            )
+            t_pay[t_idx, i] = max(0.0, sc.curve_year_fraction(d, pay))
+    W_disc = np.stack(
+        [_weights_for(tenors, t_pay[t], Tm) for t in range(n_times)]
+    )
+
+    # unique refs: bracket dates + every anchor T_last_pub(t)
+    anchors = [ils.get_cpi_last_pub_date(d) for d in dates]
+    brackets = []
+    frac = np.zeros(m)
+    for i, (_, p_end, _, _) in enumerate(schedule):
+        j, j1 = besa_bracket(p_end, leg.lag_months)
+        brackets.append((j, j1))
+        frac[i] = (p_end.day - 1) / _cal.monthrange(p_end.year, p_end.month)[1]
+    bracket_refs = {k for j, j1 in brackets for k in (j, j1)}
+    refs = sorted(bracket_refs | set(anchors))
+    K = len(refs)
+    ref_pos = {k: idx for idx, k in enumerate(refs)}
+
+    # stamping rule per non-historical ref (mirrors _build_cpi_fixings'
+    # per-date order: T_last_pub PRE-SEED first — spot at the stamping
+    # row — then due-stamping of bracket refs with the state linearly
+    # interpolated to the ref date). A ref is stamped exactly once, by
+    # whichever fires at the EARLIER row (pre-seed wins same-row ties);
+    # anchor-only refs are never in the due list, so only the pre-seed
+    # applies to them.
+    ref_row0 = np.zeros(K, dtype=np.int64)
+    ref_row1 = np.zeros(K, dtype=np.int64)
+    ref_alpha = np.zeros(K)
+    ref_hist = np.zeros(K, dtype=bool)
+    ref_hist_val = np.zeros(K)
+    stamp_row = np.full(K, n_times, dtype=np.int64)  # sentinel: never stamped
+    for idx, k in enumerate(refs):
+        if k in hist:
+            ref_hist[idx] = True
+            ref_hist_val[idx] = hist[k]
+            continue
+        d_pre = next(
+            (r for r, a in enumerate(anchors) if a == k), None
+        )
+        if k in bracket_refs:
+            j = bisect_right(dates, k) - 1
+            d_due = j if (0 <= j < n_times and dates[j] >= k) else j + 1
+            d_due = min(max(d_due, 0), n_times - 1)
+            due_eff = bisect_left(dates, k)  # unclamped: first row >= k
+        else:
+            d_due = None
+            due_eff = n_times
+        stamp_row[idx] = min(
+            d_pre if d_pre is not None else n_times, due_eff
+        )
+        if d_pre is not None and (d_due is None or d_pre <= d_due):
+            ref_row0[idx] = ref_row1[idx] = d_pre  # pre-seed: spot, no interp
+            ref_alpha[idx] = 0.0
+        else:
+            ref_row0[idx], ref_row1[idx], ref_alpha[idx] = _interp_rows(dates, k)
+
+    anchor_idx = np.zeros(n_times, dtype=np.int64)
+    t_proj = np.zeros((n_times, K))
+    if legacy:
+        # fixing exists from its stamping row on; hist refs resolve from
+        # the static map at every t (get_cpi_level legacy order). Future
+        # refs read the pathwise CPI-level term structure LINEARLY at
+        # yf(d_t, k) (inflation_pv.py cpi_interp).
+        pub_mask = (
+            np.arange(n_times)[:, None] >= stamp_row[None, :]
+        ) | ref_hist[None, :]
+        for t_idx, d in enumerate(dates):
+            for idx, k in enumerate(refs):
+                if not pub_mask[t_idx, idx]:
+                    t_proj[t_idx, idx] = _yf(d, k, sc.curve_day_count)
+        W_infl = np.stack(
+            [
+                _interp_weight_matrix(tenors, t_proj[t], hermite=False)
+                for t in range(n_times)
+            ]
+        )
+    else:
+        pub_mask = np.zeros((n_times, K), dtype=bool)
+        for t_idx, d in enumerate(dates):
+            a = anchors[t_idx]
+            anchor_idx[t_idx] = ref_pos[a]
+            for idx, k in enumerate(refs):
+                pub_mask[t_idx, idx] = k <= a
+                if k > a:
+                    t_proj[t_idx, idx] = _yf(a, k, sc.curve_day_count)
+        W_infl = np.stack(
+            [_weights_for(tenors, t_proj[t], Tm) for t in range(n_times)]
+        )
+
+    j_idx = np.array([ref_pos[j] for j, _ in brackets], dtype=np.int64)
+    j1_idx = np.array([ref_pos[j1] for _, j1 in brackets], dtype=np.int64)
+
+    infl = DeviceILSTensors(
+        cpi_name=leg.cpi_curve_name,
+        infl_name=leg.inflation_rate_curve_name or "",
+        legacy=legacy,
+        discount_name=ils.discount_curve_name,
+        sign=sign,
+        notional=float(ils.notional),
+        real_rate=float(leg.real_rate),
+        base_cpi=float(leg.base_cpi),
+        pay_notional_at_maturity=bool(leg.pay_notional_at_maturity),
+        live=live, is_last_pay=is_last_pay, accrual=accrual,
+        t_pay=t_pay, W_disc=W_disc,
+        ref_row0=ref_row0, ref_row1=ref_row1, ref_alpha=ref_alpha,
+        ref_hist=ref_hist, ref_hist_val=ref_hist_val,
+        pub_mask=pub_mask, anchor_idx=anchor_idx,
+        W_infl=W_infl, t_proj=t_proj,
+        j_idx=j_idx, j1_idx=j1_idx, frac=frac,
+    )
+
+    nominal = build_leg_tensors(
+        ils.nominal_schedule, ils.nominal_leg, -sign,
+        scenario_dates, tenors,
+        sc=sc, notional=ils.notional, discount_name=ils.discount_curve_name,
+        include_on=lambda d: ils.include_sim_date_cashflows,
+    )
+    mat_mask = np.array([d <= ils._effective_maturity for d in dates])
+    nominal.live = nominal.live & mat_mask[:, None]
+    return [infl, nominal]
+
+
+def _yf(d0, d1, convention):
+    return year_fraction(d0, d1, convention)
+
+
+def _ils_mtm(ils_t: DeviceILSTensors, curves, scalars):
+    """(n_times, n_paths) inflation-leg MTM on its tensors' device."""
+    disc = curves[ils_t.discount_name]
+
+    def published_refs(cpi):
+        """(K, n_paths) stamped or historical CPI per reference month:
+        a two-row gather + lerp of the (t, p) CPI fixings."""
+        c0 = cpi.index_select(0, ils_t.ref_row0)
+        c1 = cpi.index_select(0, ils_t.ref_row1)
+        a = ils_t.ref_alpha[:, None]
+        stamped = (1.0 - a) * c0 + a * c1
+        return torch.where(ils_t.ref_hist[:, None], ils_t.ref_hist_val[:, None], stamped)
+
+    if ils_t.legacy:
+        # CPI factor IS a pathwise level term structure; stamped fixings
+        # take its FIRST column (the spot level) at the stamping rows,
+        # unstamped refs interpolate the sim-date curve linearly.
+        cpi_cube = curves[ils_t.cpi_name]         # (n_times, n_paths, n_ten)
+        # stamped fixings are historical -> base factor under SIMM bumps
+        published = published_refs(curves[ils_t.frozen_cpi_name or ils_t.cpi_name][:, :, 0])
+        future = torch.bmm(cpi_cube, ils_t.W_infl)                     # (t, p, K)
+        cpi_tk = torch.where(ils_t.pub_mask[:, None, :], published.T[None, :, :], future)
+    else:
+        # stamped refs are historical fixings -> base scalar under bumps
+        published = published_refs(scalars[ils_t.frozen_cpi_name or ils_t.cpi_name])
+        infl = curves[ils_t.infl_name]            # (n_times, n_paths, n_ten)
+        # projection: anchor CPI / DF_infl with the sim-date curve
+        r_proj = torch.bmm(infl, ils_t.W_infl)
+        df_infl = torch.exp(r_proj * -ils_t.t_proj[:, None, :])
+        anchor_val = published.index_select(0, ils_t.anchor_idx)      # (t, n_paths)
+        projected = anchor_val[:, :, None] / df_infl                   # (t, p, K)
+        cpi_tk = torch.where(ils_t.pub_mask[:, None, :], published.T[None, :, :], projected)
+
+    cpi_j = cpi_tk.index_select(2, ils_t.j_idx)
+    cpi_j1 = cpi_tk.index_select(2, ils_t.j1_idx)
+    fr = ils_t.frac[None, None, :]
+    index_ratio = (cpi_j + fr * (cpi_j1 - cpi_j)) / ils_t.base_cpi
+
+    coupon = ils_t.accrual * ils_t.real_rate                           # (m,)
+    if ils_t.pay_notional_at_maturity:
+        coupon = coupon + ils_t.is_last_pay.to(coupon.dtype)
+    cf = ils_t.notional * index_ratio * coupon[None, None, :]
+    r_pay = torch.bmm(disc, ils_t.W_disc)
+    df_pay = torch.exp(r_pay * -ils_t.t_pay[:, None, :])
+    live = ils_t.live[:, None, :]
+    return torch.where(live, df_pay * cf, 0.0).sum(dim=2) * ils_t.sign
 
 
 @dataclass
@@ -634,7 +1130,6 @@ def build_surface_tensors(inst, scenario_dates: Sequence[dt.date], tenors):
     AmericanOptionPosition. Surfaces must already exist (the engine calls
     ``build_surfaces`` before tensorizing)."""
     from ..instruments.equity_barrier import _IN_TYPES
-    from ..utils.daycount import year_fraction as _yfd
 
     if getattr(inst, "_surfaces", None) is None:
         raise RuntimeError(
@@ -650,7 +1145,7 @@ def build_surface_tensors(inst, scenario_dates: Sequence[dt.date], tenors):
         if not is_live[t_idx]:
             continue
         live_idx[t_idx] = inst._surfaces[d]
-        tau[t_idx] = _yfd(d, inst.maturity_date, inst.day_count)
+        tau[t_idx] = year_fraction(d, inst.maturity_date, inst.day_count)
 
     is_american = not hasattr(inst, "barrier_type")
     if is_american:
@@ -744,6 +1239,99 @@ def _surface_mtm(st: DeviceSurfaceTensors, curves, scalars):
     return st.quantity * val * st.is_live.to(val.dtype)[:, None]
 
 
+@dataclass
+class DeviceCommodityTensors:
+    """Commodity (average-)forward tensors (instruments/commodity.py on
+    device): each averaging ref is a stamped fixing once its pricing date
+    passes (linear forward-curve interp at the FIXED tenor yf(pricing,
+    avg), state lerped to the pricing date) or a live linear interp at
+    yf(d_t, avg); NPV = DF(t_pay) * N * (mean_ref - K)."""
+
+    fwd_name: str
+    discount_name: str
+    notional: float
+    strike: float
+    live: np.ndarray        # (n_times,) d <= payment
+    t_pay: np.ndarray       # (n_times,)
+    W_disc: np.ndarray      # (n_times, n_tenors) hermite-rt at t_pay
+    stamped: np.ndarray     # (n_times, m) pricing_j <= d
+    fix_row0: np.ndarray    # (m,) int
+    fix_row1: np.ndarray
+    fix_alpha: np.ndarray   # (m,)
+    Wfz: np.ndarray         # (n_tenors, m) linear at yf(pricing_j, avg_j)
+    W_fwd: np.ndarray       # (n_times, n_tenors, m) linear at yf(d, avg_j)
+    frozen_fwd_name: str = ""  # base curve for stamped refs (close-out)
+
+
+def build_commodity_tensors(inst, scenario_dates: Sequence[dt.date], tenors):
+    """[DeviceCommodityTensors] for CommodityForwardInstrument /
+    CommodityAverageForwardInstrument."""
+    dates = list(scenario_dates)
+    n_times = len(dates)
+    Tm = _tangent_matrix(tenors) if tenors.size > 1 else None
+    schedule = inst.get_commodity_fixing_schedule()
+    m = len(schedule)
+    pay = getattr(inst, "payment_date", None) or inst.delivery_date
+    dc = inst.day_count
+
+    live = np.array([d <= pay for d in dates])
+    t_pay = np.array(
+        [max(0.0, year_fraction(d, pay, dc)) for d in dates]
+    )
+    W_disc = np.stack(
+        [_weights_for(tenors, np.array([t_pay[t]]), Tm)[:, 0]
+         for t in range(n_times)]
+    )
+
+    stamped = np.zeros((n_times, m), dtype=bool)
+    t_fwd = np.zeros((n_times, m))
+    fix_row0 = np.zeros(m, dtype=np.int64)
+    fix_row1 = np.zeros(m, dtype=np.int64)
+    fix_alpha = np.zeros(m)
+    tz = np.zeros(m)
+    for j, (avg, pricing, _fx) in enumerate(schedule):
+        fix_row0[j], fix_row1[j], fix_alpha[j] = _interp_rows(dates, pricing)
+        tz[j] = year_fraction(pricing, avg, dc)
+        for t_idx, d in enumerate(dates):
+            stamped[t_idx, j] = pricing <= d
+            t_fwd[t_idx, j] = year_fraction(d, avg, dc)
+    Wfz = _interp_weight_matrix(tenors, tz, hermite=False)
+    W_fwd = np.stack(
+        [_interp_weight_matrix(tenors, t_fwd[t], hermite=False)
+         for t in range(n_times)]
+    )
+    return [
+        DeviceCommodityTensors(
+            fwd_name=inst.forward_curve_name,
+            discount_name=inst.discount_curve_name,
+            notional=float(inst.notional),
+            strike=float(inst.strike),
+            live=live, t_pay=t_pay, W_disc=W_disc,
+            stamped=stamped, fix_row0=fix_row0, fix_row1=fix_row1,
+            fix_alpha=fix_alpha, Wfz=Wfz, W_fwd=W_fwd,
+        )
+    ]
+
+
+def _commodity_mtm(ct: DeviceCommodityTensors, curves, scalars):
+    """(n_times, n_paths) commodity (average-)forward MTM on its tensors'
+    device."""
+    fwd = curves[ct.fwd_name]                     # (t, p, n)
+    frozen = curves[ct.frozen_fwd_name or ct.fwd_name]
+    disc = curves[ct.discount_name]
+    # stamped refs: lerp the pricing-date rows, fixed-tenor linear interp
+    # (STAMPED -> base curve under FORWARD close-out)
+    s0 = torch.einsum("mpn,nm->pm", frozen.index_select(0, ct.fix_row0), ct.Wfz)
+    s1 = torch.einsum("mpn,nm->pm", frozen.index_select(0, ct.fix_row1), ct.Wfz)
+    a = ct.fix_alpha[None, :]
+    fixed = (1.0 - a) * s0 + a * s1               # (p, m)
+    livefwd = torch.bmm(fwd, ct.W_fwd)            # (t, p, m)
+    ref = torch.where(ct.stamped[:, None, :], fixed[None, :, :], livefwd).mean(dim=2)  # (t, p)
+    r_pay = torch.bmm(disc, ct.W_disc[:, :, None])[:, :, 0]
+    df = torch.exp(r_pay * -ct.t_pay[:, None])
+    return df * ct.notional * (ref - ct.strike) * ct.live.to(df.dtype)[:, None]
+
+
 def _on_device(leg, device: torch.device, dtype: torch.dtype):
     """``leg`` with every array field a tensor on ``device``: floating
     fields in ``dtype``, masks bool, row indices int64 (for
@@ -763,15 +1351,75 @@ def _on_device(leg, device: torch.device, dtype: torch.dtype):
     return dataclasses.replace(leg, **kw)
 
 
+def _pin_frozen_sources(legs):
+    """Pin every stamped-fixing read onto a ``<name>#base`` alias.
+
+    The generic engine's SIMM pass re-prices the netting set under a
+    bumped market state while historical fixings stay stamped from the
+    UNBUMPED states (exposure_engine.py:224-241: ``price_all`` closes
+    over fixings built once from ``all_states``). On the device path the
+    stamped reads gather from the factor cubes themselves, so a bump of
+    a live cube would (wrongly) move the history too. Redirecting each
+    leg's ``frozen_*`` field to an alias entry that always holds the base
+    cube makes bumps hit only the live reads.
+
+    The pinned legs are ``dataclasses.replace`` copies: the cached legs
+    (:func:`_legs_for`) are never changed, so a plain call after a SIMM
+    call prices exactly as before it. Returns ``(pinned_legs,
+    curve_aliases, scalar_aliases)`` where the alias dicts map
+    ``<name>#base`` -> ``<name>`` for the caller to mirror into its curves
+    / scalars dicts.
+    """
+    curve_alias: Dict[str, str] = {}
+    scalar_alias: Dict[str, str] = {}
+
+    def _curve(name: str) -> str:
+        alias = name + "#base"
+        curve_alias[alias] = name
+        return alias
+
+    def _scalar(name: str) -> str:
+        alias = name + "#base"
+        scalar_alias[alias] = name
+        return alias
+
+    pinned = []
+    for leg in legs:
+        kw = {}
+        if isinstance(leg, DeviceTRSTensors):
+            kw["frozen_spot_name"] = _scalar(leg.frozen_spot_name or leg.spot_name)
+        elif isinstance(leg, DeviceILSTensors):
+            tgt = leg.frozen_cpi_name or leg.cpi_name
+            kw["frozen_cpi_name"] = _curve(tgt) if leg.legacy else _scalar(tgt)
+        elif isinstance(leg, DeviceCommodityTensors):
+            kw["frozen_fwd_name"] = _curve(leg.frozen_fwd_name or leg.fwd_name)
+        elif isinstance(leg, DeviceSurfaceTensors):
+            if leg.mon_row0 is not None:
+                kw["frozen_spot_name"] = _scalar(leg.frozen_spot_name or leg.spot_name)
+        else:  # DeviceLegTensors
+            if not leg.is_fixed and leg.curve_name:
+                kw["frozen_curve_name"] = _curve(leg.frozen_curve_name or leg.curve_name)
+            if leg.eq_spot_name:
+                kw["frozen_eq_spot_name"] = _scalar(leg.frozen_eq_spot_name or leg.eq_spot_name)
+        pinned.append(dataclasses.replace(leg, **kw) if kw else leg)
+    return tuple(pinned), curve_alias, scalar_alias
+
+
+_MTM_OF = {
+    DeviceTRSTensors: _trs_mtm,
+    DeviceILSTensors: _ils_mtm,
+    DeviceCommodityTensors: _commodity_mtm,
+    DeviceSurfaceTensors: _surface_mtm,
+    DeviceLegTensors: _leg_mtm,
+}
+
+
 def _netting_mtm(curves, scalars, legs, scales, fx_names):
     """(n_paths, n_times) netting-set MTM: the sum over legs of each leg's
     MTM times its notional scale, converted by its FX factor."""
     total = None
     for leg_t, scale, fx in zip(legs, scales, fx_names):
-        if isinstance(leg_t, DeviceSurfaceTensors):
-            piece = _surface_mtm(leg_t, curves, scalars) * scale
-        else:
-            piece = _leg_mtm(leg_t, curves, scalars) * scale
+        piece = _MTM_OF[type(leg_t)](leg_t, curves, scalars) * scale
         if fx is not None:
             piece = piece * scalars[fx]  # (n_times, n_paths) FX conversion
         total = piece if total is None else total + piece
@@ -813,11 +1461,18 @@ def _legs_for(instruments, dates, tenors, device: torch.device, dtype: torch.dty
 
 
 def _build_instrument_tensors(inst, dates, tenors):
+    # the families before the surface and swap tests: an EquityTRS carries
+    # an interest leg, and the order is JAX's
+    if isinstance(inst, EquityTRS):
+        return build_trs_tensors(inst, dates, tenors)
+    if isinstance(inst, IndexLinkedSwap):
+        return build_ils_tensors(inst, dates, tenors)
+    if isinstance(inst, (CommodityForwardInstrument, CommodityAverageForwardInstrument)):
+        return build_commodity_tensors(inst, dates, tenors)
     if hasattr(inst, "build_surfaces"):
         return build_surface_tensors(inst, dates, tenors)
     if isinstance(inst, IRSwap):
         return build_irswap_tensors(inst, dates, tenors)
-    # the TRS, ILS and commodity families wait for ROADMAP.md queue 1 item 4b
     raise NotImplementedError(
         f"device exposure path does not support {type(inst).__name__}; "
         "use the generic ExposureEngine"
@@ -832,7 +1487,9 @@ class DeviceExposureEngine:
     ``tenors``: shared tenor grid. The exposure runs on ``device`` (``cuda``
     unless the caller passes ``"cpu"``; without a card the default raises)
     in the cubes' dtype (float64 unless every cube is float32); factors
-    are moved there on each call.
+    are moved there on each call. After a SIMM :meth:`compute`,
+    ``simm_runs`` holds the number of netting runs it made (the base run
+    and one per bump).
     """
 
     def __init__(
@@ -848,6 +1505,7 @@ class DeviceExposureEngine:
         self.scalars = scalars or {}
         self.tenors = np.asarray(tenors, dtype=np.float64)
         self.device = resolve_device(device)
+        self.simm_runs = 0
 
     def _factors(self):
         """(curves, scalars, dtype): the factor cubes as tensors on the
@@ -927,14 +1585,19 @@ class DeviceExposureEngine:
                     kw = {
                         f: risky
                         for f in (
-                            "curve_name", "discount_name", "eq_carry_name",
-                            "eq_div_name",
+                            "curve_name", "discount_name", "carry_name",
+                            "div_name", "infl_name", "fwd_name", "cpi_name",
+                            "eq_carry_name", "eq_div_name",
                         )
                         if getattr(leg_t, f, None) == disc
                     }
                     # stamped/realized quantities keep the base curve
-                    if "curve_name" in kw:
+                    if "curve_name" in kw and hasattr(leg_t, "frozen_curve_name"):
                         kw["frozen_curve_name"] = leg_t.frozen_curve_name or disc
+                    if "fwd_name" in kw and hasattr(leg_t, "frozen_fwd_name"):
+                        kw["frozen_fwd_name"] = leg_t.frozen_fwd_name or disc
+                    if "cpi_name" in kw and hasattr(leg_t, "frozen_cpi_name"):
+                        kw["frozen_cpi_name"] = leg_t.frozen_cpi_name or disc
                     swapped.append(
                         dataclasses.replace(leg_t, **kw) if kw else leg_t
                     )
@@ -992,12 +1655,11 @@ class DeviceExposureEngine:
         generic engine's per-trade resolution
         (exposure_engine._pricing_market_state; ref
         exposure_engine.py:552-587). The collateral simulation runs on the
-        host on the (n_paths, n_times) MTM, shared with the generic engine.
+        host on the (n_paths, n_times) MTM, shared with the generic engine;
+        under a SIMM CSA the pathwise IM comes from :meth:`_simm_im_paths`.
         """
         from types import SimpleNamespace
 
-        if csa is not None and csa.im_method is InitialMarginMethod.SIMM:
-            raise NotImplementedError(SIMM_NOT_PORTED)
         risky = None
         if csa is not None:
             if csa.close_out_method is CloseOutMethod.FORWARD and (
@@ -1042,12 +1704,22 @@ class DeviceExposureEngine:
                         "riskless curve",
                         stacklevel=2,
                     )
-        mtm = self.mtm(
-            instruments, notional_scales, fx_factors, risky_curve=risky
-        ).cpu().numpy()
+        is_simm = csa is not None and csa.im_method is InitialMarginMethod.SIMM
         im_fn = None
+        if is_simm:
+            # the SIMM base run IS the profile MTM: reuse it
+            im_paths, mtm = self._simm_im_paths(
+                instruments, notional_scales, fx_factors, csa, risky
+            )
+            date_idx = {d: i for i, d in enumerate(self.dates)}
+            im_fn = lambda n, d: im_paths[:, date_idx[d]]
+        else:
+            mtm = self.mtm(
+                instruments, notional_scales, fx_factors, risky_curve=risky
+            ).cpu().numpy()
         if (
             csa is not None
+            and not is_simm
             and csa.im_method is not None
             and csa.im_method is not InitialMarginMethod.NONE
         ):
@@ -1074,3 +1746,89 @@ class DeviceExposureEngine:
             neg_exposure=np.minimum(net, 0.0),
             currency=currency,
         )
+
+    def _simm_im_paths(
+        self, instruments, notional_scales, fx_factors, csa, risky_curve,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """((n_paths, n_times) pathwise SIMM delta margin, base MTM), both
+        host arrays.
+
+        Mirrors ``ExposureEngine._simm_im_paths``: every curve cube a leg
+        reads live gets +1bp-per-SIMM-bucket bumps, every such scalar
+        factor a +1%% relative bump, and the finite-difference netting-set
+        sensitivities aggregate through ``portfolio.simm``. Historical
+        fixings stay at base through the :func:`_pin_frozen_sources`
+        aliases, and each output column t of the netting MTM reads live
+        factors only at row t, so bumping the WHOLE cube gives the per-date
+        sensitivities of every simulation date in one netting run:
+        (n_buckets + n_scalars) runs in all instead of n_times x that. The
+        bumped differences and the aggregation stay on the engine's
+        device; the IM and the base MTM come back to the host once each.
+        """
+        cfg = csa.simm_config or SimmConfig()
+        p = cfg.params
+        curves, scalars, dtype = self._factors()
+        legs, scales, fx_names = self._prepare(
+            instruments, notional_scales, fx_factors, risky_curve, dtype
+        )
+        legs, curve_alias, scalar_alias = _pin_frozen_sources(legs)
+        for alias, live in curve_alias.items():
+            curves[alias] = curves[live]
+        for alias, live in scalar_alias.items():
+            scalars[alias] = scalars[live]
+
+        def run():
+            return _netting_mtm(curves, scalars, legs, scales, fx_names)
+
+        base = run()                                  # (n_paths, n_times)
+        n_paths, n_times = base.shape
+        self.simm_runs = 1
+
+        # only bump factors some leg reads LIVE (the plain-name string
+        # fields after pinning; '#base' aliases are frozen reads a bump
+        # cannot move; tensor fields are no names) plus FX conversion
+        # factors — an engine holding extra cubes (risky close-out curves,
+        # unused currencies) would otherwise pay a run per bucket of every
+        # unreferenced curve for sensitivities that are zero
+        referenced = {f for f in fx_names if f}
+        for leg_t in legs:
+            for v in vars(leg_t).values():
+                if isinstance(v, str) and not v.endswith("#base"):
+                    referenced.add(v)
+
+        buckets = assign_ir_buckets(self.tenors)
+        shift = p.bump_bp * 1e-4
+        ir_s = torch.zeros((n_paths, n_times, len(IR_TENORS)), dtype=dtype, device=self.device)
+        has_ir = False
+        for name in self.curves:
+            if cfg.factors is not None and name not in cfg.factors:
+                continue
+            if name not in referenced:
+                continue
+            has_ir = True
+            cube0 = curves[name]
+            for k in np.unique(buckets):
+                mask = torch.as_tensor(buckets == k, device=self.device).to(dtype)
+                curves[name] = cube0 + shift * mask
+                ir_s[:, :, int(k)] += (run() - base) / p.bump_bp
+                self.simm_runs += 1
+            curves[name] = cube0
+        scalar_ws: Dict[str, list] = {}
+        for name in self.scalars:
+            if cfg.factors is not None and name not in cfg.factors:
+                continue
+            if name not in referenced:
+                continue
+            s0 = scalars[name]
+            scalars[name] = s0 * (1.0 + p.bump_rel)
+            s = (run() - base) * (0.01 / p.bump_rel)
+            self.simm_runs += 1
+            scalars[name] = s0
+            if not bool(torch.any(s)):
+                continue  # factor not referenced by any trade
+            cls = cfg.scalar_class(name)
+            scalar_ws.setdefault(cls, []).append(p.scalar_risk_weights[cls] * s)
+        ws_ir = weight_ir_sensitivities(ir_s, p) if has_ir else None
+        im = simm_im(ws_ir, scalar_ws or None, p).to(device=base.device, dtype=base.dtype)
+        im = torch.broadcast_to(im, (n_paths, n_times))
+        return im.cpu().numpy().copy(), base.cpu().numpy()

@@ -15,8 +15,8 @@ RiskFlow-style engine, :63-648):
 - linear interpolation of the market state to exact fixing dates (:16-60);
 - CSA close-out risky-curve substitution (:552-587);
 - pathwise collateral with MPOR lookback, two-sided VM thresholds, and
-  NONE/FIXED/SCHEDULE IM (:593-648). SIMM IM is not ported yet: a CSA
-  that asks for it raises NotImplementedError (ROADMAP.md queue 1 item 4b).
+  NONE/FIXED/SCHEDULE IM (:593-648), and SIMM IM from bumped re-pricings
+  aggregated by ``portfolio.simm`` on the CPU.
 
 The engine's date x trade loop is host orchestration (it stamps caches and
 dispatches to instruments); the heavy math lives inside the instruments'
@@ -33,7 +33,7 @@ import numpy as np
 
 from ..market_data.risk_factor import CurveSlice, ScalarSlice, SurfaceSlice
 from ..market_data.scenario_cube import ScenarioCube, StaticMarketData
-from ..portfolio.csa import SIMM_NOT_PORTED, CloseOutMethod, InitialMarginMethod
+from ..portfolio.csa import CloseOutMethod, InitialMarginMethod
 from ..portfolio.netting_set import NettingSet
 
 
@@ -131,7 +131,8 @@ def compute_im(
 ) -> np.ndarray:
     """Per-date IM under the NONE/FIXED/SCHEDULE policies (module-level
     twin of ExposureEngine._compute_im so the device fast path can honor
-    the same CSA without an engine instance)."""
+    the same CSA without an engine instance; SIMM stays pathwise in the
+    generic engine's pricing pass)."""
     return ExposureEngine._compute_im(None, n_paths, csa, sim_date, netting_set)
 
 
@@ -153,11 +154,6 @@ class ExposureEngine:
         n_times = self.cube.n_times
         scenario_dates = list(self.cube.dates)
         cube_end = scenario_dates[-1]
-        if (
-            netting_set.csa is not None
-            and netting_set.csa.im_method is InitialMarginMethod.SIMM
-        ):
-            raise NotImplementedError(SIMM_NOT_PORTED)
 
         for trade in netting_set.trades:
             trade_end = trade.instrument.effective_maturity
@@ -193,6 +189,12 @@ class ExposureEngine:
         for trade in netting_set.trades:
             trade.instrument.precompute(all_states, scenario_dates)
 
+        simm_on = (
+            netting_set.csa is not None
+            and netting_set.csa.im_method is InitialMarginMethod.SIMM
+        )
+        simm_im_paths = np.zeros((n_paths, n_times)) if simm_on else None
+
         for t_idx in range(n_times):
             sim_date = scenario_dates[t_idx]
             base_market_state = all_states[t_idx]
@@ -221,25 +223,36 @@ class ExposureEngine:
                 )
                 trade_ctx.append((trade, fixings, cpi_kwargs))
 
-            total = np.zeros(n_paths)
-            for trade, fixings, cpi_kwargs in trade_ctx:
-                pricing_state = self._pricing_market_state(
-                    base_market_state, trade.instrument, netting_set,
-                    trade.currency,
+            def price_all(market_state):
+                """Netting-set NPV paths under a (possibly bumped) state;
+                fixings stay frozen at the base state (historical)."""
+                total = np.zeros(n_paths)
+                for trade, fixings, cpi_kwargs in trade_ctx:
+                    pricing_state = self._pricing_market_state(
+                        market_state, trade.instrument, netting_set,
+                        trade.currency,
+                    )
+                    npv = trade.instrument.scenario_npvs(
+                        sim_date, pricing_state, fixings=fixings or None,
+                        **cpi_kwargs,
+                    )
+                    if trade.currency != netting_set.reporting_currency:
+                        fx_slice = market_state[trade.fx_rate_factor]
+                        npv = npv * fx_slice.values
+                    total = total + trade.notional_scale * npv
+                return total
+
+            mtm_paths[:, t_idx] = price_all(base_market_state)
+            if simm_on:
+                simm_im_paths[:, t_idx] = self._simm_im_paths(
+                    base_market_state, price_all, mtm_paths[:, t_idx],
+                    netting_set.csa,
                 )
-                npv = trade.instrument.scenario_npvs(
-                    sim_date, pricing_state, fixings=fixings or None,
-                    **cpi_kwargs,
-                )
-                if trade.currency != netting_set.reporting_currency:
-                    fx_slice = base_market_state[trade.fx_rate_factor]
-                    npv = npv * fx_slice.values
-                total = total + trade.notional_scale * npv
-            mtm_paths[:, t_idx] = total
 
         if netting_set.csa is not None:
             collateral = self._simulate_collateral(
                 mtm_paths, scenario_dates, netting_set.csa, netting_set,
+                im_paths=simm_im_paths,
             )
         else:
             collateral = np.zeros((n_paths, n_times))
@@ -496,10 +509,18 @@ class ExposureEngine:
 
     def _simulate_collateral(
         self, mtm_paths: np.ndarray, dates: List[date], csa, netting_set=None,
+        im_paths: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Pathwise collateral with MPOR lookback and two-sided VM
-        (:593-633); IM from the per-date NONE/FIXED/SCHEDULE policy."""
-        im_fn = lambda n, d: self._compute_im(n, csa, d, netting_set)
+        """Pathwise collateral with MPOR lookback and two-sided VM (:593-633).
+
+        ``im_paths`` (n_paths, n_times): precomputed pathwise IM (the SIMM
+        method computes it during the pricing pass); otherwise IM comes
+        from the per-date NONE/FIXED/SCHEDULE policy."""
+        if im_paths is not None:
+            date_idx = {d: i for i, d in enumerate(dates)}
+            im_fn = lambda n, d: im_paths[:, date_idx[d]]
+        else:
+            im_fn = lambda n, d: self._compute_im(n, csa, d, netting_set)
         return simulate_collateral(mtm_paths, dates, csa, netting_set, im_fn=im_fn)
 
     @staticmethod
@@ -559,5 +580,72 @@ class ExposureEngine:
                 )
             return np.full(n_paths, im)
         if csa.im_method is InitialMarginMethod.SIMM:
-            raise NotImplementedError(SIMM_NOT_PORTED)
+            raise ValueError(
+                "SIMM IM is computed pathwise during the pricing pass "
+                "(ExposureEngine.compute -> _simm_im_paths); it is not "
+                "available through the per-date policy interface."
+            )
         raise ValueError(f"Unknown IM method: {csa.im_method}")
+
+    def _simm_im_paths(
+        self, base_state: dict, price_fn, base_total: np.ndarray, csa
+    ) -> np.ndarray:
+        """Pathwise SIMM delta margin at one simulation date.
+
+        The reference declares the SIMM method but raises NotImplementedError
+        (exposure_engine.py:640-644); here the delta margin is computed from
+        finite-difference sensitivities of the NETTING-SET NPV paths:
+
+        - every CurveSlice is shifted +1bp per SIMM tenor bucket (slice
+          tenors map to their nearest bucket) -> bucketed PV01 paths;
+        - every ScalarSlice is shifted +1%% relative -> scalar-class
+          sensitivity paths (class from SimmConfig overrides or the
+          factor-name heuristic);
+        - aggregation (risk weights, tenor/intra-class/cross-class
+          correlations) lives in portfolio.simm.
+
+        Each bump re-prices the whole netting set vectorized over paths, so
+        the cost is (n_buckets_touched) x the base pricing cost per date.
+        Restrict ``SimmConfig.factors`` to the curves that matter to cut it.
+        """
+        from ..portfolio.simm import (
+            IR_TENORS, SimmConfig, assign_ir_buckets, simm_im,
+            weight_ir_sensitivities,
+        )
+
+        cfg = csa.simm_config or SimmConfig()
+        p = cfg.params
+        n_paths = base_total.shape[0]
+        ir_s = np.zeros((n_paths, len(IR_TENORS)))
+        scalar_ws: Dict[str, list] = {}
+        has_ir = False
+        for name, slc in base_state.items():
+            if cfg.factors is not None and name not in cfg.factors:
+                continue
+            if isinstance(slc, CurveSlice):
+                has_ir = True
+                buckets = assign_ir_buckets(slc.tenors)
+                shift = p.bump_bp * 1e-4
+                for k in np.unique(buckets):
+                    mask = (buckets == k).astype(np.float64)
+                    bumped = CurveSlice(
+                        slc.values + shift * mask[None, :], slc.tenors
+                    )
+                    s = (
+                        price_fn({**base_state, name: bumped}) - base_total
+                    ) / p.bump_bp
+                    ir_s[:, int(k)] += s
+            elif isinstance(slc, ScalarSlice):
+                bumped = ScalarSlice(slc.values * (1.0 + p.bump_rel))
+                s = (price_fn({**base_state, name: bumped}) - base_total) * (
+                    0.01 / p.bump_rel
+                )
+                if not np.any(s):
+                    continue  # factor not referenced by any trade
+                cls = cfg.scalar_class(name)
+                scalar_ws.setdefault(cls, []).append(
+                    p.scalar_risk_weights[cls] * s
+                )
+        ws_ir = weight_ir_sensitivities(ir_s, p) if has_ir else None
+        im = simm_im(ws_ir, scalar_ws or None, p)
+        return np.broadcast_to(im.cpu().numpy(), (n_paths,)).copy()

@@ -34,7 +34,11 @@ exposure path (no kernel of ours unless a surface takes K2):
 device engine's MTM of a netting set with a knock-out barrier, an
 American put and a swap (1e-10 of max|MTM|), and ``exposure_profile``
 (1e-13 relative) equal the port on the CPU; a float32 exposure call under
-TF32 raises.
+TF32 raises. The rest of the XVA engine (no kernel of ours): the device
+engine's TRS, ILS and commodity families (MTM 1e-10 of max|MTM|), a SIMM
+CSA (MTM, collateral and exposure 1e-9 of max|value|; a plain MTM after
+it unchanged bit for bit) and ``run_asset`` under each draw backend (CVA,
+peak EE and PFE 1e-12 relative) equal the port on the CPU.
 """
 import dataclasses
 
@@ -1095,3 +1099,109 @@ def test_xva_float32_under_tf32_raises(cuda):
             eng.mtm([swap])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _xva_family_market(n_times=26, n_paths=400, seed=3):
+    """A monthly cube of a swap curve, a dividend curve, an inflation curve,
+    a CPI level curve and a Brent forward curve, with equity and CPI
+    scalars (test_torch_xva_families.py's markets in one)."""
+    import datetime as dt
+
+    rng = np.random.default_rng(seed)
+    val = dt.date(2025, 7, 28)
+    dates = [val + dt.timedelta(days=30 * i) for i in range(n_times)]
+    shape = (n_times, n_paths, 8)
+    cpi = 102.4 * np.exp(0.004 * np.arange(n_times)[:, None]
+                         + rng.normal(0, 0.002, (n_times, n_paths)).cumsum(axis=0))
+    tenors = np.array([0.25, 0.5, 1.0, 2.0, 3.0, 5.0, 7.0, 10.0])
+    curves = {"ZAR-SWAP": 0.075 + rng.normal(0, 0.002, shape).cumsum(axis=0),
+              "EQ.DIV": np.full(shape, 0.02), "INFL.ZA": 0.05 + rng.normal(0, 0.001, shape).cumsum(axis=0),
+              "CPI.CURVE": cpi[:, :, None] * np.exp(0.05 * tenors)[None, None, :],
+              "BRENT": 70.0 * np.exp(rng.normal(0.001, 0.02, shape).cumsum(axis=0))}
+    scalars = {"EQ.SPOT": 100.0 * np.exp(rng.normal(0.002, 0.05, (n_times, n_paths)).cumsum(axis=0)),
+               "CPI.ZA": cpi}
+    return val, dates, tenors, curves, scalars
+
+
+def _xva_family_trades(kind, val):
+    import datetime as dt
+
+    from finite_difference_tpu_torch import instruments as I
+    from finite_difference_tpu_torch.market_data import first_of_month, shift_months
+
+    float_leg = I.SwapLeg(I.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP", spread=0.01)
+    if kind == "trs":
+        return [I.EquityTRS(name=f"trs-{s}", effective_date=val - dt.timedelta(days=100),
+                            maturity_date=dt.date(2027, 7, 28), quantity=1000.0, notional=100_000.0,
+                            interest_leg=float_leg, spot_name="EQ.SPOT", carry_curve_name="ZAR-SWAP",
+                            dividend_curve_name="EQ.DIV", discount_curve_name="ZAR-SWAP", initial_price=100.0,
+                            interest_nominal_scaling=s) for s in ("Initial Price", "Price")]
+    if kind == "ils":
+        hist = {shift_months(first_of_month(val), -k): 100.0 + 0.3 * (8 - k) for k in range(9)}
+        return [I.IndexLinkedSwap(
+            name=f"ils-{c}", effective_date=val, maturity_date=dt.date(2027, 7, 28), notional=1_000_000,
+            inflation_leg=I.InflationLeg(real_rate=0.025, base_cpi=100.0, cpi_curve_name=c, frequency=6,
+                                         inflation_rate_curve_name=r),
+            nominal_leg=I.SwapLeg(I.LegType.FIXED, frequency=6, fixed_rate=0.08),
+            discount_curve_name="ZAR-SWAP", inflation_index=hist)
+            for c, r in (("CPI.ZA", "INFL.ZA"), ("CPI.CURVE", ""))]
+    return [I.CommodityForwardInstrument("cf", delivery_date=val + dt.timedelta(days=180), strike=72.0,
+                                         notional=1000.0, forward_curve_name="BRENT",
+                                         discount_curve_name="ZAR-SWAP", pricing_lag_days=2),
+            I.CommodityAverageForwardInstrument(
+                "caf", averaging_dates=[val + dt.timedelta(days=30 * k) for k in range(1, 7)],
+                payment_date=val + dt.timedelta(days=200), strike=71.0, notional=500.0,
+                forward_curve_name="BRENT", discount_curve_name="ZAR-SWAP", pricing_lag_days=1)]
+
+
+@pytest.mark.parametrize("kind", ["trs", "ils", "commodity"])
+def test_xva_families_on_the_card_equal_the_cpu(cuda, kind):
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine
+
+    val, dates, tenors, curves, scalars = _xva_family_market()
+    trades = _xva_family_trades(kind, val)
+    got, want = (DeviceExposureEngine(dates, curves, tenors, scalars=scalars, device=d).mtm(trades)
+                 for d in (cuda, "cpu"))
+    assert got.device.type == "cuda"
+    m, w = got.cpu().numpy(), want.numpy()
+    assert np.abs(w).max() > 0 and np.abs(m - w).max() <= 1e-10 * np.abs(w).max()
+
+
+def test_xva_simm_on_the_card_equals_the_cpu(cuda):
+    from finite_difference_tpu_torch import instruments as I
+    from finite_difference_tpu_torch.portfolio import CSA, InitialMarginMethod
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine
+
+    val, dates, tenors, curves, scalars = _xva_family_market(n_times=14, n_paths=200)
+    swap = I.IRSwap(name="irs", effective_date=val, maturity_date=dates[-1], notional=1_000_000,
+                    receive_leg=I.SwapLeg(I.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP"),
+                    pay_leg=I.SwapLeg(I.LegType.FIXED, frequency=3, fixed_rate=0.08),
+                    discount_curve_name="ZAR-SWAP")
+    trades = [swap] + _xva_family_trades("trs", val)[:1] + _xva_family_trades("ils", val)[:1]
+    csa = CSA(mpor_days=10, vm_threshold=500.0, vm_threshold_post=800.0, im_method=InitialMarginMethod.SIMM)
+    out = []
+    for d in (cuda, "cpu"):
+        eng = DeviceExposureEngine(dates, curves, tenors, scalars=scalars, device=d)
+        before = eng.mtm(trades)
+        out.append(eng.compute(trades, csa=csa))
+        assert torch.equal(eng.mtm(trades), before)  # the SIMM pass leaves the cached legs alone
+    got, want = out
+    for f in ("mtm", "collateral", "exposure"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert np.abs(g - w).max() <= 1e-9 * np.abs(w).max(), f
+
+
+@pytest.mark.parametrize("backend", ["threefry", "sobol", "sobol_device"])
+def test_xva_run_asset_on_the_card_equals_the_cpu(cuda, backend):
+    from finite_difference_tpu_torch.models.mc import CSParams
+    from finite_difference_tpu_torch.runners import run_asset
+    from finite_difference_tpu_torch.xva import SimulationConfig
+
+    got, want = (run_asset("BRENT", initial_curve=np.array([78.0, 79.5, 80.2, 81.0, 81.5]),
+                           tenor_days=np.array([30.0, 90.0, 180.0, 270.0, 365.0]),
+                           cs_params=CSParams(alpha=1.1, sigma=0.35, mu=0.0),
+                           sim_cfg=SimulationConfig(num_sims=2000), rng_backend=backend, device=d)
+                 for d in (cuda, "cpu"))
+    assert got["cva"] > 0 and abs(got["cva"] - want["cva"]) <= 1e-12 * abs(want["cva"])
+    for key in ("peak_ee", "peak_pfe"):
+        assert abs(got[key] - want[key]) <= 1e-12 * abs(want[key])

@@ -266,7 +266,20 @@ class TestPortBoundary:
                 "finite_difference_tpu_torch/xva/config.py",
                 "finite_difference_tpu_torch/xva/cva.py",
                 "finite_difference_tpu_torch/xva/exposure_engine.py",
-                "finite_difference_tpu_torch/xva/device_exposure.py"} <= names
+                "finite_difference_tpu_torch/xva/device_exposure.py",
+                "finite_difference_tpu_torch/market_data/cpi.py",
+                "finite_difference_tpu_torch/market_data/cpi_term_structure.py",
+                "finite_difference_tpu_torch/instruments/equity_pv.py",
+                "finite_difference_tpu_torch/instruments/equity_trs.py",
+                "finite_difference_tpu_torch/instruments/inflation_pv.py",
+                "finite_difference_tpu_torch/instruments/index_linked_swap.py",
+                "finite_difference_tpu_torch/instruments/commodity.py",
+                "finite_difference_tpu_torch/portfolio/simm.py",
+                "finite_difference_tpu_torch/xva/time_grid.py",
+                "finite_difference_tpu_torch/xva/reference_price.py",
+                "finite_difference_tpu_torch/xva/commodity_forward.py",
+                "finite_difference_tpu_torch/xva/engine.py",
+                "finite_difference_tpu_torch/runners/xva_main.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -276,19 +289,8 @@ class TestPortBoundary:
         assert not bad, bad
 
     # names the JAX package exports that wait for later slices of the port
-    # (the IR swap and XVA runners; ROADMAP.md queue 1 item 4b's CPI market
-    # data, TRS, ILS, inflation and commodity instruments, SIMM and the
-    # commodity CVA stack), and the port's own additions of earlier slices
-    LATER = {"runners": {"run_asset", "IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"},
-             "market_data": {"BondHistoricalCPI", "CPIPublication", "HistoricalCPI", "besa_bracket",
-                             "first_of_month", "shift_months", "CPITermStructure"},
-             "instruments": {"InflationLeg", "get_cpi_level", "inflation_leg_pv", "IndexLinkedSwap",
-                             "compute_period_year_fractions", "equity_forward_price",
-                             "filter_future_periods", "trs_return_leg_pv", "EquityTRS",
-                             "CommodityAverageForwardInstrument", "CommodityForwardInstrument"},
-             "portfolio": {"SimmConfig", "SimmParams", "simm_im"},
-             "xva": {"TimeGrid", "FixingSchedule", "ReferencePrice", "CommodityForward",
-                     "CommodityXvaEngine", "RunResult"}}
+    # (the IR swap FA check), and the port's own additions of earlier slices
+    LATER = {"runners": {"IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"}}
     PORT_ONLY = {"models.analytic": {"generalized_bs_greeks"}, "utils": {"build_monitoring_dates"},
                  "runners": {"run_all_american_scenarios_batched"}}
 

@@ -15,7 +15,8 @@ Tolerances, with the largest gap measured on these inputs in brackets:
   the knock-in]. Their surfaces come from the batched CN solves of either
   package;
 - ``_leg_mtm``'s equity-notional branch on JAX's own TRS leg tensors:
-  1e-12 of max|MTM| [2.3e-15];
+  1e-12 of max|MTM| [2.3e-15] (the TRS family as a whole is held in
+  tests/test_torch_xva_families.py);
 - a float32 cube against float64 in the port: 1e-4 of max|MTM| [1.5e-5];
 - the device engine against JAX's device engine: 1e-12 of max|value|
   [4.6e-14] (the contractions sum in another order), and against the
@@ -312,8 +313,7 @@ def test_barrier_types_match_jax(case):
 
 def test_equity_notional_leg_matches_jax():
     """``_leg_mtm``'s equity-notional branch (the TRS interest leg under
-    'Price' scaling), on JAX's own leg tensors: the port's TRS tensors
-    come with ROADMAP.md queue 1 item 4b, its leg arithmetic now."""
+    'Price' scaling), on JAX's own leg tensors."""
     from finite_difference_tpu.instruments.equity_trs import EquityTRS
 
     rng = np.random.default_rng(3)
@@ -489,7 +489,7 @@ def test_row_interp_matches_vmapped_jnp_interp():
 
 
 # --------------------------------------------------------------------------
-# errors and what the port does not do yet
+# errors
 # --------------------------------------------------------------------------
 
 
@@ -534,35 +534,20 @@ class TestReviewHardening:
         np.testing.assert_allclose(out.mtm, eng.compute([swap]).mtm, rtol=0)
 
 
-def _jax_unported_instruments():
-    """One instrument of each family the port's device engine does not have
-    yet (ROADMAP.md queue 1 item 4b), as the JAX package builds them."""
-    from finite_difference_tpu.instruments import (
-        CommodityForwardInstrument,
-        EquityTRS,
-        IndexLinkedSwap,
-    )
-    return {
-        "EquityTRS": EquityTRS.__new__(EquityTRS),
-        "IndexLinkedSwap": IndexLinkedSwap.__new__(IndexLinkedSwap),
-        "CommodityForwardInstrument": CommodityForwardInstrument.__new__(CommodityForwardInstrument),
-    }
+def test_unknown_instrument_raises():
+    """An instrument outside the device engine's families (here a bare
+    Instrument subclass) still raises NotImplementedError on the device
+    path, naming its type."""
 
+    class Other(port_inst.Instrument):
+        def scenario_npvs(self, val_date, market_state, fixings=None, rng=None):
+            return np.zeros(1)
 
-def test_unported_families_and_simm_raise():
     eng, swap = TestReviewHardening()._engine_and_swap()
-    for name, inst in _jax_unported_instruments().items():
-        with pytest.raises(NotImplementedError, match=f"does not support {name}"):
-            port_dx._build_instrument_tensors(inst, eng.dates, TENORS)
-    simm = port_pf.CSA(im_method=port_pf.InitialMarginMethod.SIMM)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.compute([swap], csa=simm)
-    dates, curves = eng.dates, eng.curves
-    cube = port_sc.ScenarioCube(dates, {"C": ("curve", curves["C"], TENORS)})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_ee.ExposureEngine(cube).compute(port_pf.NettingSet("NS", [port_pf.Trade(swap, "T")], csa=simm))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # the commodity CVA stack's grid
-        port_cfg.SimulationConfig().time_grid()
+    with pytest.raises(NotImplementedError, match="does not support Other"):
+        port_dx._build_instrument_tensors(Other("x"), eng.dates, TENORS)
+    with pytest.raises(NotImplementedError, match="does not support Other"):
+        eng.mtm([swap, Other("x")])
 
 
 def test_device_entry_points_raise_without_cuda(monkeypatch):
