@@ -57,7 +57,13 @@ phase:
   engine (and once at float32), a SIMM CSA on its base netting set, the
   commodity forwards, and examples/xva_commodity_forward.py's assets
   through ``run_asset`` at ``SimulationConfig()``'s defaults, each held
-  against the generic engine and the CPU.
+  against the generic engine and the CPU;
+- the scenario layer and the CS and HW1F calibration (phase 25,
+  :func:`scenario_phases`): RiskFlow's CS batch loop on a two-factor
+  market (16,384 scenarios) under each draw backend, the joint HW1F + GBM
+  cube at 50,000 paths x 63 dates into the device exposure engine,
+  examples/hw1f_rates_xva.py end to end, and the CS implied calibration,
+  each held against the CPU (and the cube against the generic engine).
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -239,6 +245,19 @@ XVA_ASSETS = {  # initial curve, tenor days, CS (alpha, sigma, mu)
     "BRENT": ((78.0, 79.5, 80.2, 81.0, 81.5), (30.0, 90.0, 180.0, 270.0, 365.0), (1.1, 0.35, 0.0)),
     "GOLD": ((2400.0, 2410.0, 2425.0, 2450.0), (90.0, 180.0, 270.0, 365.0), (0.4, 0.14, 0.0)),
 }
+
+# phase 25, the scenario layer and the CS and HW1F calibration: a two-factor CS
+# market (BRENT 24 monthly tenors, GOLD 12 bimonthly, rho 0.6) run in RiskFlow's
+# batch loop (25a); tests/test_device_exposure.py's joint-cube factors at
+# examples/device_cva_pipeline.py's size (25b); examples/hw1f_rates_xva.py (25c);
+# test_calibration.py's implied round trip and bootstrap fixture (25d)
+SCEN_RUN = datetime.date(2025, 1, 6)
+SCEN_BATCH, SCEN_BATCHES = 1024, 16  # 16,384 scenarios
+SCEN_FACTORS = ("ForwardPrice.BRENT.OIL", "ForwardPrice.GOLD")
+SCEN_BACKENDS = ("threefry", "sobol_device", "torch")
+SCEN_GENERIC_PATHS = 64  # the joint cube's paths held on the generic engine
+HW1F_XVA_TENORS = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0)  # examples/hw1f_rates_xva.py
+HW1F_XVA_TODAY = (0.0705, 0.0710, 0.0718, 0.0735, 0.0765, 0.0788)
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 and float64 outside
 # the tensor cores, and HBM3 bandwidth
@@ -3160,6 +3179,332 @@ def xva_rest_phases(dev, card: dict) -> dict:
     return {k: sum(c[k] for c in launches.values()) for k in launches["24a"]}
 
 
+def scenario_market_json(directory: str) -> str:
+    """25a's CVAMarketData file (tests/test_scenarios.py's layout): BRENT on
+    24 monthly tenors to two years (historical CS: sigma 0.35, alpha 0.9,
+    drift 4%), GOLD on 12 tenors every 60 days (implied CS: sigma 25%, alpha
+    1.2), correlated 0.6 under RiskFlow's process prefix, run date
+    :data:`SCEN_RUN` and the default grid ``0d 2d 1w(1w) 1m(1m) 3m(3m)``."""
+    base = (SCEN_RUN - datetime.date(1899, 12, 30)).days
+    curve = lambda rows: {".Curve": {"meta": [], "data": rows}}
+    md = {"MarketData": {
+        "Price Factors": {
+            SCEN_FACTORS[0]: {"Curve": curve([[base + 30 * (i + 1), 80.0 + 0.5 * i] for i in range(24)]),
+                              "Currency": "USD"},
+            SCEN_FACTORS[1]: {"Curve": curve([[base + 60 * (i + 1), 2400.0 + 5.0 * i] for i in range(12)]),
+                              "Currency": "USD"},
+            "CSForwardPriceModelParameters.GOLD": {"Sigma": {".Percent": 25.0}, "Alpha": 1.2},
+        },
+        "Price Models": {"CSForwardPriceModel.BRENT.OIL": {"Sigma": 0.35, "Alpha": 0.9, "Drift": 0.04}},
+        "Model Configuration": {},
+        "Correlations": {"ClewlowStricklandProcess.ForwardPrice.BRENT.OIL": {
+            "ClewlowStricklandProcess.ForwardPrice.GOLD": 0.6}},
+        "Valuation Configuration": {"Run_Date": SCEN_RUN.isoformat()},
+    }}
+    path = os.path.join(directory, "market.json")
+    with open(path, "w") as fh:
+        json.dump(md, fh)
+    return path
+
+
+def implied_fixtures(directory: str, cal):
+    """25d's inputs: test_calibration.py's fifteen options priced from
+    (sigma, alpha) = (0.45, 0.8) on the CPU, and its bootstrap JSON file."""
+    options = []
+    for T, S in [(0.25, 0.3), (0.5, 0.6), (1.0, 1.1), (1.5, 1.6), (2.0, 2.1)]:
+        for K in (90.0, 100.0, 110.0):
+            var = float(cal.cs_variance(0.45, 0.8, T, S, device="cpu"))
+            prem = float(cal.black_european_option_price(100.0, K, 0.0, math.sqrt(var), 1.0, 1.0, 1.0,
+                                                         device="cpu")) * math.exp(-0.05 * T)
+            options.append(dict(Forward=100.0, Strike=K, r=0.05, T=T, S=S, Premium=prem, Units=1.0,
+                                Option_Type="Call", Weight=1.0))
+    curve = lambda rows: {".Curve": {"meta": [], "data": rows}}
+    md = {"MarketData": {
+        "Price Factors": {
+            "ForwardPrice.BRENT.OIL": {"Curve": curve([[45000 + 30 * i, 100.0 + i] for i in range(1, 13)]),
+                                       "Currency": "USD"},
+            "InterestRate.USD-OIS": {"Curve": curve([[0.0, 0.05], [5.0, 0.05]]), "Day_Count": "ACT_365"},
+            "ForwardPriceVol.BRENT.VOL": {"Surface": curve([[1.0, T, T + 0.08, 0.35] for T in (0.25, 0.5, 1.0)])},
+        },
+        "Price Models": {}, "Model Configuration": {}, "Correlations": {},
+        "System Parameters": {"Base_Date": "2023-03-15"},
+        "Market Prices": {"CSForwardPriceModelPrices.BRENT.OIL": {"instrument": {
+            "Forward_Volatility": "BRENT.VOL", "Energy": "BRENT.OIL", "Discount_Rate": "USD-OIS",
+            "Energy_Futures_Options": [
+                {"Expiry_Date": e, "Settlement_Date": s, "Option_Type": "Call"}
+                for e, s in (("2023-06-15", "2023-07-15"), ("2023-09-15", "2023-10-15"),
+                             ("2024-03-15", "2024-04-15"))]}}},
+    }}
+    path = os.path.join(directory, "bootstrap.json")
+    with open(path, "w") as fh:
+        json.dump(md, fh)
+    return options, path
+
+
+def hw1f_rates_xva(device, cal, sc, mc, instruments, portfolio, xva):
+    """examples/hw1f_rates_xva.py with the port's modules on ``device``:
+    calibrate HW1F on its 750-day synthetic panel (a numpy ``Panel``), a
+    correlated rates + FX cube of 2,048 paths x 25 dates, the two-swap USD
+    netting set through ``ExposureEngine``, then ``XvaCalculator``."""
+    from finite_difference_tpu_torch.xva.config import CounterpartyConfig
+    from finite_difference_tpu_torch.xva.cva import XvaCalculator
+
+    tenors, today = np.asarray(HW1F_XVA_TENORS), np.asarray(HW1F_XVA_TODAY)
+    rng = np.random.default_rng(0)
+    x, rows = np.zeros(tenors.size), []
+    for _ in range(750):
+        x = x * (1 - 0.004) + 0.0004 * rng.standard_normal(tenors.size)
+        rows.append(today + x)
+    param, _, _ = cal.calibrate_hw1f_interest_rate(cal.Panel(range(750), tenors, np.array(rows)))
+    p = mc.HW1FParams.from_calibration(param)
+    p = mc.HW1FParams(alpha=p.alpha, sigma_tenors=p.sigma_tenors, sigma_values=p.sigma_values * today.mean())
+    sim = mc.HW1FCurveSimulator(p, tenors, today, device=device)
+    cube = sc.simulate_joint_cube(
+        XVA_VAL, [30 * i for i in range(1, 25)] + [735],
+        {"ZAR-SWAP": sc.HW1FCurveFactor(simulator=sim, tenors=tenors),
+         "FX.USDZAR": sc.GBMScalarFactor(mc.GBMParams(mu=0.0, sigma=0.14), 18.0)},
+        n_paths=2048, correlations={("ZAR-SWAP", "FX.USDZAR"): -0.25}, seed=42, device=device)
+
+    def swap(fixed, years, flip=False):
+        legs = dict(receive_leg=instruments.SwapLeg(instruments.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP"),
+                    pay_leg=instruments.SwapLeg(instruments.LegType.FIXED, frequency=3, fixed_rate=fixed))
+        if flip:
+            legs = dict(receive_leg=legs["pay_leg"], pay_leg=legs["receive_leg"])
+        return instruments.IRSwap(name=f"swap{years}y", effective_date=XVA_VAL,
+                                  maturity_date=datetime.date(XVA_VAL.year + years, XVA_VAL.month, XVA_VAL.day),
+                                  notional=1_000_000, discount_curve_name="ZAR-SWAP", **legs)
+
+    ns = portfolio.NettingSet("US-bank", [
+        portfolio.Trade(swap(0.074, 2), "T1", currency="USD", fx_rate_factor="FX.USDZAR"),
+        portfolio.Trade(swap(0.073, 1, flip=True), "T2", currency="USD", fx_rate_factor="FX.USDZAR")])
+    prof = xva.ExposureEngine(cube).compute(ns)
+    ee, pfe = prof.ee(), prof.pfe(0.95)
+    calc = XvaCalculator(CounterpartyConfig(hazard_rate=0.02, recovery=0.4), days_in_year=365.25,
+                         discount_to_zero=False)
+    days = np.array([(d - XVA_VAL).days for d in cube.dates], float)
+    return dict(alpha=p.alpha, sigma_abs_1y=float(p.sigma_at(np.array(1.0))), peak_ee=float(ee.max()),
+                peak_pfe=float(pfe.max()), cva=float(calc.cva_from_ee(days, ee)))
+
+
+def scenario_phases(dev, card: dict) -> dict:
+    """Phase 25, the scenario layer and the CS and HW1F calibration
+    (``scenarios``, ``calibration``), float64. Returns the launch counts of
+    25a-25d, each read with the counts zeroed just before it: the path is
+    plain torch ops and host numpy, so every count should be 0.
+
+    - 25a, ``run_multi_factor_simulation_from_json`` on
+      :func:`scenario_market_json`'s two factors, 16 batches of 1,024
+      scenarios (16,384), with each draw backend (threefry, sobol_device,
+      torch): first and warm ms, the profile, the call's peak. Checks: the
+      card against the CPU on the same run within 1e-12 of max|F| per
+      factor; the torch backend's draws bit for bit; the comparator on
+      the card's frames against the CPU's says MATCH; GOLD (implied) is a
+      martingale at the last date within 3% per tenor.
+    - 25b, ``simulate_joint_cube(..., as_jax=True)`` with
+      test_device_exposure.py's factors (HW1F ZAR-SWAP and INFL.ZA on
+      :data:`XVA_TENORS`, GBM CPI.ZA and EQ.SPOT, their correlations) at
+      :data:`XVA_PATHS` x 63 dates, into ``DeviceExposureEngine.mtm`` over
+      :func:`xva_swaps`' ten swaps on ZAR-SWAP: the cube's ms apart from the
+      engine's. Checks: card = CPU at :data:`XVA_CPU_PATHS` paths (MTM within
+      1e-10 of max|MTM|); the device engine on the device cube = the generic
+      engine on the host cube at :data:`SCEN_GENERIC_PATHS` paths (1e-10 of
+      max|MTM|).
+    - 25c, :func:`hw1f_rates_xva` on the card: peak EE, peak PFE, CVA
+      (card = CPU within 1e-10 relative; CVA > 0, peak PFE >= peak EE > 0).
+    - 25d, ``calibrate_implied`` on the fifteen options of
+      :func:`implied_fixtures` and ``bootstrap_from_json`` on its file: the
+      L-BFGS-B iterations and ms. Checks: the fit's (Sigma, Alpha) card =
+      CPU within 1e-9, the bootstrap's within L-BFGS-B's 1e-6 (its optimum
+      sits at alpha ~ 0, where the variance formula keeps 8 digits); the
+      round trip recovers (0.45, 0.8) (1e-3 and 1e-2 relative, JAX's test).
+    """
+    import tempfile
+
+    import scipy.optimize
+    import torch
+
+    from finite_difference_tpu_torch import calibration as cal
+    from finite_difference_tpu_torch import instruments, kernels, portfolio, xva
+    from finite_difference_tpu_torch import scenarios as sc
+    from finite_difference_tpu_torch.models import mc
+
+    wall, launches = {}, {}
+
+    def rel_gap(got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+    def measured(fn):
+        """(out, first ms, warm ms, call peak GB, profile) of ``fn`` on the card,
+        the launch counts zeroed before the first call."""
+        kernels.reset_launch_counts()
+        _, first = host_ms(fn)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, warm = host_ms(fn)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        counts = dict(kernels.launch_counts)
+        prof = profile_call(fn, warm)
+        return out, first, warm, peak, prof, counts
+
+    tmp = tempfile.TemporaryDirectory()
+    # 25a. CS scenario generation -----------------------------------------------------
+    t_phase = time.perf_counter()
+    path = scenario_market_json(tmp.name)
+    run = lambda backend, device=dev: sc.run_multi_factor_simulation_from_json(
+        path, list(SCEN_FACTORS), batch_size=SCEN_BATCH, simulation_batches=SCEN_BATCHES, random_seed=42,
+        rng_backend=backend, device=device)
+    n_scen = SCEN_BATCH * SCEN_BATCHES
+    backends = {}
+    for backend in SCEN_BACKENDS:
+        (res, frames, metas), first, warm, peak, prof, launches[f"25a {backend}"] = measured(lambda: run(backend))
+        (cpu_res, cpu_frames, _), cpu_ms = host_ms(lambda: run(backend, "cpu"))
+        gaps, verdicts = {}, {}
+        for name in SCEN_FACTORS:
+            sim = res[name]
+            check(sim.shape == (len(metas[name]["scen_time_grid"]), len(metas[name]["prices"]), n_scen)
+                  and np.isfinite(sim).all(), f"25a {backend} {name}: shape {sim.shape} or not finite")
+            gaps[name] = rel_gap(sim, cpu_res[name])
+            check(gaps[name] <= 1e-12, f"25a {backend} {name}: card vs CPU {gaps[name]:.3e} > 1e-12")
+            verdicts[name] = sc.compare_scenario_outputs(frames[name], cpu_frames[name])["verdict"]
+            check(verdicts[name] == "MATCH", f"25a {backend} {name}: comparator says {verdicts[name]}")
+        gold = res[SCEN_FACTORS[1]][-1]
+        drift = np.abs(gold.mean(axis=-1) / metas[SCEN_FACTORS[1]]["prices"] - 1.0).max()
+        check(drift <= 0.03, f"25a {backend}: GOLD's last-date mean off its forward by {drift:.3e}")
+        draws_equal = None
+        if backend == "torch":
+            L = sc.build_cholesky({SCEN_FACTORS: 0.6}, list(SCEN_FACTORS))
+            n_steps = res[SCEN_FACTORS[0]].shape[0]
+            z = [sc.generate_random_numbers(L, n_steps, SCEN_BATCH, True, "torch", seed=42, device=d).cpu()
+                 for d in (dev, "cpu")]
+            draws_equal = bool(torch.equal(*z))
+            check(draws_equal, "25a torch backend: the card's draws differ from the CPU's")
+        backends[backend] = dict(
+            first_ms=first, warm_ms=warm, scenarios_per_s=n_scen / (warm / 1e3), device_ms=prof["device_ms"],
+            busy_share=prof["busy_share"], device_kernels=prof["device_kernels"], top=prof["top"][:3],
+            call_peak_gb=peak, cpu_ms=cpu_ms, card_vs_cpu=gaps, comparator=verdicts,
+            gold_martingale_gap=float(drift), draws_bit_for_bit=draws_equal,
+            launches=launches[f"25a {backend}"])
+    grid = metas[SCEN_FACTORS[0]]["scen_time_grid"]
+    emit("scenarios_cs", factors=list(SCEN_FACTORS), tenors=[len(metas[n]["prices"]) for n in SCEN_FACTORS],
+         steps=len(grid), grid_days=[int(d) for d in grid], batch=SCEN_BATCH, batches=SCEN_BATCHES,
+         scenarios=n_scen, backends=backends,
+         limits={"card_vs_cpu": 1e-12, "gold_martingale": 0.03, "comparator": "MATCH"}, **card)
+    wall["25a CS scenarios"] = time.perf_counter() - t_phase
+
+    # 25b. the joint cube into the device exposure engine -------------------------------
+    t_phase = time.perf_counter()
+    tenors = np.asarray(XVA_TENORS)
+    swaps = xva_swaps(instruments, XVA_SWAPS)
+
+    def factors(device):
+        sim = lambda r0: mc.HW1FCurveSimulator(mc.HW1FParams.flat(alpha=0.05, sigma=0.008), tenors,
+                                               np.full(tenors.size, r0), device=device)
+        return {"ZAR-SWAP": sc.HW1FCurveFactor(sim(0.075), tenors), "INFL.ZA": sc.HW1FCurveFactor(sim(0.05), tenors),
+                "CPI.ZA": sc.GBMScalarFactor(mc.GBMParams(mu=0.05, sigma=0.015), 102.4),
+                "EQ.SPOT": sc.GBMScalarFactor(mc.GBMParams(mu=0.07, sigma=0.25), 100.0)}
+
+    corr = {("ZAR-SWAP", "INFL.ZA"): 0.4, ("CPI.ZA", "INFL.ZA"): 0.6}
+    cube = lambda n, device=dev, as_jax=True: sc.simulate_joint_cube(
+        XVA_VAL, list(XVA_SCEN_DAYS), factors(device), n, corr, as_jax=as_jax, device=device)
+    (dates, curves, scalars, _), cube_first, cube_warm, cube_peak, cube_prof, cube_counts = measured(
+        lambda: cube(XVA_PATHS))
+    eng = xva.DeviceExposureEngine(dates, curves, tenors, scalars=scalars, device=dev)
+    mtm, eng_first, eng_warm, eng_peak, eng_prof, eng_counts = measured(lambda: eng.mtm(swaps))
+    launches["25b"] = {k: cube_counts[k] + eng_counts[k] for k in cube_counts}
+    check(tuple(mtm.shape) == (XVA_PATHS, len(dates)) and bool(torch.isfinite(mtm).all()),
+          f"25b MTM shape {tuple(mtm.shape)} or not finite")
+    for name, t in {**curves, **scalars}.items():
+        check(t.device.type == dev.type and bool(torch.isfinite(t).all()), f"25b factor {name} off the card or not finite")
+    del eng, curves, scalars, mtm
+
+    def cube_mtm(n, device):
+        d, c, s, _ = cube(n, device)
+        return xva.DeviceExposureEngine(d, c, tenors, scalars=s, device=device).mtm(swaps).cpu().numpy()
+
+    card_vs_cpu = rel_gap(cube_mtm(XVA_CPU_PATHS, dev), cube_mtm(XVA_CPU_PATHS, "cpu"))
+    check(card_vs_cpu <= 1e-10, f"25b card vs CPU at {XVA_CPU_PATHS} paths: {card_vs_cpu:.3e} > 1e-10")
+    host_cube = cube(SCEN_GENERIC_PATHS, as_jax=False)
+    gen, generic_ms = host_ms(lambda: xva.ExposureEngine(host_cube).compute(
+        portfolio.NettingSet("NS", [portfolio.Trade(s, f"T{i}") for i, s in enumerate(swaps)])))
+    dev_vs_generic = rel_gap(cube_mtm(SCEN_GENERIC_PATHS, dev), gen.mtm)
+    check(dev_vs_generic <= 1e-10, f"25b device vs generic at {SCEN_GENERIC_PATHS} paths: {dev_vs_generic:.3e}")
+    npvs = XVA_PATHS * len(dates) * XVA_SWAPS
+    emit("scenarios_joint_cube", paths=XVA_PATHS, dates=len(dates), tenors=tenors.size, factors=list(factors("cpu")),
+         swaps=XVA_SWAPS, cube_first_ms=cube_first, cube_warm_ms=cube_warm, cube_device_ms=cube_prof["device_ms"],
+         cube_busy_share=cube_prof["busy_share"], cube_device_kernels=cube_prof["device_kernels"],
+         cube_top=cube_prof["top"][:3], cube_call_peak_gb=cube_peak, engine_first_ms=eng_first,
+         engine_warm_ms=eng_warm, npvs_per_s=npvs / (eng_warm / 1e3), engine_device_ms=eng_prof["device_ms"],
+         engine_busy_share=eng_prof["busy_share"], engine_device_kernels=eng_prof["device_kernels"],
+         engine_call_peak_gb=eng_peak, card_vs_cpu=card_vs_cpu, cpu_paths=XVA_CPU_PATHS,
+         device_vs_generic=dev_vs_generic, generic_paths=SCEN_GENERIC_PATHS, generic_ms=generic_ms,
+         launches=launches["25b"], limits={"card_vs_cpu": 1e-10, "device_vs_generic": 1e-10}, **card)
+    wall["25b joint cube"] = time.perf_counter() - t_phase
+
+    # 25c. examples/hw1f_rates_xva.py on the card -------------------------------------
+    t_phase = time.perf_counter()
+    example = lambda device=dev: hw1f_rates_xva(device, cal, sc, mc, instruments, portfolio, xva)
+    out, first, warm, peak, prof, launches["25c"] = measured(example)
+    want, cpu_ms = host_ms(lambda: example("cpu"))
+    cva_gap = abs(out["cva"] - want["cva"]) / abs(want["cva"])
+    check(math.isfinite(out["cva"]) and out["cva"] > 0 and out["peak_pfe"] >= out["peak_ee"] > 0,
+          f"25c: CVA {out['cva']}, peak EE {out['peak_ee']}, peak PFE {out['peak_pfe']}")
+    check(cva_gap <= 1e-10, f"25c CVA card vs CPU {cva_gap:.3e} > 1e-10")
+    emit("scenarios_hw1f_xva", paths=2048, dates=26, **out, first_ms=first, warm_ms=warm,
+         device_ms=prof["device_ms"], busy_share=prof["busy_share"], device_kernels=prof["device_kernels"],
+         top=prof["top"][:3], call_peak_gb=peak, cpu_ms=cpu_ms, cpu_cva=want["cva"], cva_card_vs_cpu=cva_gap,
+         launches=launches["25c"], limits={"cva_card_vs_cpu": 1e-10}, **card)
+    wall["25c HW1F rates XVA"] = time.perf_counter() - t_phase
+
+    # 25d. the CS implied calibration -------------------------------------------------
+    t_phase = time.perf_counter()
+    options, boot_path = implied_fixtures(tmp.name, cal)
+    fits, minimize = [], scipy.optimize.minimize
+
+    def counted(*args, **kwargs):
+        res = minimize(*args, **kwargs)
+        fits.append(res)
+        return res
+
+    scipy.optimize.minimize = counted
+    try:
+        fit, first, warm, peak, prof, launches["25d"] = measured(lambda: cal.calibrate_implied(options, device=dev))
+        iterations, evaluations = fits[-1].nit, fits[-1].nfev
+        fit_cpu, cpu_ms = host_ms(lambda: cal.calibrate_implied(options, device="cpu"))
+        kernels.reset_launch_counts()
+        boot, boot_ms = host_ms(lambda: cal.bootstrap_from_json(boot_path, device=dev))
+        launches["25d"] = {k: v + kernels.launch_counts[k] for k, v in launches["25d"].items()}
+        boot_iterations = fits[-1].nit
+        boot_cpu = cal.bootstrap_from_json(boot_path, device="cpu")
+    finally:
+        scipy.optimize.minimize = minimize
+    fit_gap = max(abs(fit[k] - fit_cpu[k]) for k in ("Sigma", "Alpha"))
+    boot_gap = max(abs(boot["BRENT.OIL"][k] - boot_cpu["BRENT.OIL"][k]) for k in ("Sigma", "Alpha"))
+    check(fit_gap <= 1e-9, f"25d calibrate_implied card vs CPU: {fit_gap:.3e} > 1e-9")
+    # the bootstrap's optimum sits at alpha ~ 0, where cs_variance's
+    # (1 - exp(-2 alpha T)) / (2 alpha) (JAX's formula) keeps about 8 digits:
+    # the two devices' last-bit exp differences move L-BFGS-B's stopping
+    # point at that level, so it is held at L-BFGS-B's tolerance
+    check(boot_gap <= 1e-6, f"25d bootstrap card vs CPU: {boot_gap:.3e} > 1e-6")
+    check(abs(fit["Sigma"] / 0.45 - 1) <= 1e-3 and abs(fit["Alpha"] / 0.8 - 1) <= 1e-2,
+          f"25d round trip: {fit} is not (0.45, 0.8)")
+    b = boot["BRENT.OIL"]
+    check(0.001 < b["Sigma"] < 2.5 and -1.0 <= b["Alpha"] <= 2.0, f"25d bootstrap out of bounds: {b}")
+    emit("scenarios_cs_implied", options=len(options), fit=fit, iterations=int(iterations),
+         objective_evaluations=int(evaluations), first_ms=first, warm_ms=warm, ms_per_evaluation=warm / evaluations,
+         device_ms=prof["device_ms"], busy_share=prof["busy_share"], device_kernels=prof["device_kernels"],
+         call_peak_gb=peak, cpu_ms=cpu_ms, fit_card_vs_cpu=fit_gap, bootstrap=b, bootstrap_ms=boot_ms,
+         bootstrap_iterations=int(boot_iterations), bootstrap_card_vs_cpu=boot_gap, launches=launches["25d"],
+         limits={"card_vs_cpu": 1e-9, "bootstrap_card_vs_cpu": 1e-6, "round_trip": [1e-3, 1e-2]}, **card)
+    tmp.cleanup()
+    wall["25d CS implied"] = time.perf_counter() - t_phase
+
+    for name, counts in launches.items():
+        check(not any(counts.values()), f"phase {name} launched a kernel of ours: {counts}")
+    emit("scenario_phase_wall_s", **wall, total=sum(wall.values()))
+    return {k: sum(c[k] for c in launches.values()) for k in launches["25b"]}
+
+
 def main() -> int:
     import torch
 
@@ -3369,6 +3714,13 @@ def main() -> int:
     for k in (k1, k1a, k2, k3, k4):
         k["xva_rest_launches"] = xva_rest_launches.get(k["name"], 0)
     wall["24 rest of XVA"] = time.perf_counter() - t1
+
+    # 25. the scenario layer and the CS and HW1F calibration ------------------------------
+    t1 = time.perf_counter()
+    scenario_launches = scenario_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["scenario_launches"] = scenario_launches.get(k["name"], 0)
+    wall["25 scenarios and calibration"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

@@ -22,7 +22,8 @@ Unsigned 32-bit words are held in int64 tensors, masked with 0xFFFFFFFF
 after every operation that can carry out of 32 bits (torch's uint32
 arithmetic and shifts are incomplete, and its int64 ``>>`` is arithmetic:
 every word here is non-negative, so it is the logical shift). A key is
-``prng_key(seed)``, a numpy uint32 pair equal to ``jax.random.PRNGKey(seed)``.
+``prng_key(seed)``, a numpy uint32 pair equal to ``jax.random.PRNGKey(seed)``;
+``threefry_fold_in(key, d)`` is ``jax.random.fold_in(key, d)``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,14 @@ def prng_key(seed: int) -> np.ndarray:
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return np.array([s >> 32, s & _M32], dtype=np.uint32)
 
+
+
+def threefry_fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.key_data(jax.random.fold_in(key, data))``: the threefry
+    hash under ``key`` of the one counter (0, data & 0xFFFFFFFF), whose two
+    output words are the new key (a numpy uint32 pair, on the host)."""
+    b1, b2 = _threefry2x32(key, torch.tensor([int(data) & _M32], dtype=torch.int64))
+    return np.array([int(b1[0]), int(b2[0])], dtype=np.uint32)
 
 def _key_words(key):
     k = np.asarray(key).astype(np.uint64).ravel()

@@ -219,3 +219,7 @@ def thomas_solve(dl, d, du, rhs):
     diagonally dominant systems both are used for.
     """
     return thomas_solve_pscan(dl, d, du, rhs)
+
+
+# JAX's alias of the constant-coefficient solve, kept under its name.
+thomas_solve_assoc = thomas_solve_const

@@ -38,7 +38,10 @@ TF32 raises. The rest of the XVA engine (no kernel of ours): the device
 engine's TRS, ILS and commodity families (MTM 1e-10 of max|MTM|), a SIMM
 CSA (MTM, collateral and exposure 1e-9 of max|value|; a plain MTM after
 it unchanged bit for bit) and ``run_asset`` under each draw backend (CVA,
-peak EE and PFE 1e-12 relative) equal the port on the CPU.
+peak EE and PFE 1e-12 relative) equal the port on the CPU. The scenario
+layer (no kernel of ours): the CS draws (threefry and sobol_device within
+1e-12 of max|z|, the torch backend bit for bit) and the paths on them
+(1e-12 of max|F|) equal the port on the CPU.
 """
 import dataclasses
 
@@ -1205,3 +1208,32 @@ def test_xva_run_asset_on_the_card_equals_the_cpu(cuda, backend):
     assert got["cva"] > 0 and abs(got["cva"] - want["cva"]) <= 1e-12 * abs(want["cva"])
     for key in ("peak_ee", "peak_pfe"):
         assert abs(got[key] - want[key]) <= 1e-12 * abs(want[key])
+
+
+# ---------------------------------------------------------------------------
+# the scenario layer (no kernel of ours): the card against the CPU
+
+
+@pytest.mark.parametrize("backend", ["threefry", "sobol_device", "torch"])
+def test_scenarios_draws_and_paths_on_the_card_equal_the_cpu(cuda, backend):
+    """generate_random_numbers on 25a's two correlated factors (rho 0.6) at
+    a small batch and generate_paths on them: threefry and sobol_device
+    within 1e-12 of max|z| (the two erfinvs' and ndtri's rounding), the
+    torch backend bit for bit (its draws come from the CPU); the paths
+    within 1e-12 of max|F|."""
+    from finite_difference_tpu_torch.models.mc import rng
+    from finite_difference_tpu_torch.scenarios import build_cholesky, generate_paths, generate_random_numbers, precalculate
+
+    L = build_cholesky({("A", "B"): 0.6}, ["A", "B"])
+    key = rng.threefry_fold_in(rng.prng_key(42), 3)
+    z = {d: generate_random_numbers(L, 30, 256, use_antithetic=True, rng_backend=backend, key=key, seed=42,
+                                    sobol_offset=384, device=d) for d in (cuda, "cpu")}
+    got, want = z[cuda].cpu(), z["cpu"]
+    if backend == "torch":
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    tenor_days = 45000.0 + 30.0 * np.arange(1, 25)
+    pre = precalculate(80.0 + np.arange(24.0), tenor_days, np.arange(0, 720, 24), 0.35, 1.1, 0.04, 45000)
+    paths = {d: generate_paths(pre, z[d], factor_index=1) for d in (cuda, "cpu")}
+    assert np.abs(paths[cuda] - paths["cpu"]).max() <= 1e-12 * np.abs(paths["cpu"]).max()

@@ -279,7 +279,20 @@ class TestPortBoundary:
                 "finite_difference_tpu_torch/xva/reference_price.py",
                 "finite_difference_tpu_torch/xva/commodity_forward.py",
                 "finite_difference_tpu_torch/xva/engine.py",
-                "finite_difference_tpu_torch/runners/xva_main.py"} <= names
+                "finite_difference_tpu_torch/runners/xva_main.py",
+                "finite_difference_tpu_torch/ops/__init__.py",
+                "finite_difference_tpu_torch/scenarios/__init__.py",
+                "finite_difference_tpu_torch/scenarios/time_grid.py",
+                "finite_difference_tpu_torch/scenarios/market_data.py",
+                "finite_difference_tpu_torch/scenarios/simulation.py",
+                "finite_difference_tpu_torch/scenarios/joint_cube.py",
+                "finite_difference_tpu_torch/scenarios/riskflow_io.py",
+                "finite_difference_tpu_torch/scenarios/diagnostics.py",
+                "finite_difference_tpu_torch/calibration/__init__.py",
+                "finite_difference_tpu_torch/calibration/curve_data.py",
+                "finite_difference_tpu_torch/calibration/statistics.py",
+                "finite_difference_tpu_torch/calibration/cs.py",
+                "finite_difference_tpu_torch/calibration/hw1f.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -289,13 +302,22 @@ class TestPortBoundary:
         assert not bad, bad
 
     # names the JAX package exports that wait for later slices of the port
-    # (the IR swap FA check), and the port's own additions of earlier slices
-    LATER = {"runners": {"IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"}}
+    # (the IR swap FA check, the PCA and GBM-FX calibrations) or have no
+    # counterpart (df64: the card computes float64 natively), and the
+    # port's own additions of earlier slices
+    LATER = {"runners": {"IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"},
+             "ops": {"df64"},
+             "calibration": {"CalibrationInfo", "calibrate_pca_interest_rate", "compare_pca_params",
+                             "compute_curve_statistics", "extract_pca_params", "pca",
+                             "bootstrap_fx_from_json", "build_parser", "compare_gbm_fx_params",
+                             "correct_declining_variance", "export_gbm_fx_results", "extract_atm_vols",
+                             "extract_gbm_fx_params", "read_vol_surface", "run_gbm_fx_calibration"}}
     PORT_ONLY = {"models.analytic": {"generalized_bs_greeks"}, "utils": {"build_monitoring_dates"},
                  "runners": {"run_all_american_scenarios_batched"}}
 
     @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils", "models.mc",
-                                         "market_data", "instruments", "portfolio", "xva"])
+                                         "market_data", "instruments", "portfolio", "xva", "ops",
+                                         "scenarios", "calibration"])
     def test_exports_what_jax_exports(self, package):
         import importlib
 
@@ -318,7 +340,8 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.models.pde, finite_difference_tpu_torch.runners, "
             "finite_difference_tpu_torch.models.mc, finite_difference_tpu_torch.market_data, "
             "finite_difference_tpu_torch.instruments, finite_difference_tpu_torch.portfolio, "
-            "finite_difference_tpu_torch.xva; "
+            "finite_difference_tpu_torch.xva, finite_difference_tpu_torch.ops, "
+            "finite_difference_tpu_torch.scenarios, finite_difference_tpu_torch.calibration; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"
