@@ -63,7 +63,12 @@ phase:
   market (16,384 scenarios) under each draw backend, the joint HW1F + GBM
   cube at 50,000 paths x 63 dates into the device exposure engine,
   examples/hw1f_rates_xva.py end to end, and the CS implied calibration,
-  each held against the CPU (and the cube against the generic engine).
+  each held against the CPU (and the cube against the generic engine);
+- the device mesh (phase 26, :func:`mesh_phases`): the drivers, two
+  services, the barrier runner and the device exposure engine over meshes
+  that repeat the card (``["cuda:0"] * k``; over the real cards too where
+  there are two or more), each held against its unsharded call, and the
+  port's ``entry()`` and ``dryrun_multichip(4)``.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -256,6 +261,11 @@ SCEN_BATCH, SCEN_BATCHES = 1024, 16  # 16,384 scenarios
 SCEN_FACTORS = ("ForwardPrice.BRENT.OIL", "ForwardPrice.GOLD")
 SCEN_BACKENDS = ("threefry", "sobol_device", "torch")
 SCEN_GENERIC_PATHS = 64  # the joint cube's paths held on the generic engine
+# phase 26, the device mesh: one card repeated k times (the machine has one)
+MESH_SHARDS = (1, 2, 4)
+MESH_CALLS = 5  # host-clock calls per mesh, after a warm-up (the median is kept)
+MESH_REQUESTS = 4  # phase 19's mixed requests at bucket 512 through each service
+MESH_SAMPLES = 200_000  # the reductions' sample: MCConfig's default path count (22a's)
 HW1F_XVA_TENORS = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0)  # examples/hw1f_rates_xva.py
 HW1F_XVA_TODAY = (0.0705, 0.0710, 0.0718, 0.0735, 0.0765, 0.0788)
 
@@ -1555,6 +1565,31 @@ def serving_phases(dev, card: dict) -> dict:
     return serving_launches
 
 
+FA_HEADER = ["scenario_name", "S0", "K", "sigma", "rate", "barrier_type", "upper_barrier",
+             "lower_barrier", "FA_price", "FA_delta", "FA_gamma", "FA_vega"]
+
+
+def fa_stress_rows() -> dict:
+    """Phase 20's barrier stress table, per option type (a runner prices
+    one per table): the golden trades x :data:`FA_SPOT_SHOCKS` x
+    :data:`FA_VOL_SHOCKS`, 4160 rows in all, in :data:`FA_HEADER`'s order."""
+    blank = lambda x: "" if x is None else x
+    return {opt: [[f"{r[0]}_s{i}_v{j}", FA_SPOT * (1.0 + ds), r[3], r[4] * dv, FA_RATE, r[2],
+                   blank(r[6]), blank(r[5]), "", "", "", ""]
+                  for r in FA_GOLDEN if r[1] == opt for i, ds in enumerate(FA_SPOT_SHOCKS)
+                  for j, dv in enumerate(FA_VOL_SHOCKS)] for opt in ("call", "put")}
+
+
+def write_csv(path: str, header, rows) -> str:
+    import csv
+
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(header)
+        w.writerows(rows)
+    return path
+
+
 def fa_phases(dev, card: dict) -> dict:
     """Phase 20, the FA-validation path, at the runners' and FA's own widths
     (float64, 500 steps). Returns the kernels' launches in 20c's tables.
@@ -1746,17 +1781,11 @@ def fa_phases(dev, card: dict) -> dict:
             return out
         return wrapped
 
-    header_b = ["scenario_name", "S0", "K", "sigma", "rate", "barrier_type", "upper_barrier",
-                "lower_barrier", "FA_price", "FA_delta", "FA_gamma", "FA_vega"]
+    header_b = FA_HEADER
     header_a = ["scenario_name", "S0", "K", "sigma", "rate", "FA_price", "FA_delta", "FA_gamma",
                 "FA_vega"]
     blank = lambda x: "" if x is None else x
-    # a runner prices one option type per table (``opt_type``): calls and puts
-    # go in two tables each
-    bar_rows = {opt: [[f"{r[0]}_s{i}_v{j}", FA_SPOT * (1.0 + ds), r[3], r[4] * dv, FA_RATE, r[2],
-                       blank(r[6]), blank(r[5]), "", "", "", ""]
-                      for r in FA_GOLDEN if r[1] == opt for i, ds in enumerate(FA_SPOT_SHOCKS)
-                      for j, dv in enumerate(FA_VOL_SHOCKS)] for opt in ("call", "put")}
+    bar_rows = fa_stress_rows()
     golden_rows = {opt: [[r[0], FA_SPOT, r[3], r[4], FA_RATE, r[2], blank(r[6]), blank(r[5]),
                           *r[7:]] for r in FA_GOLDEN if r[1] == opt] for opt in ("call", "put")}
     rng = np.random.default_rng(7)
@@ -1776,12 +1805,7 @@ def fa_phases(dev, card: dict) -> dict:
         "build_trade_batch", "price_barrier_batch", "build_american_batch", "price_american_batch")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fa_") as tmp:
         def write(name, header, rows):
-            path = os.path.join(tmp, name)
-            with open(path, "w", newline="") as fh:
-                w = csv.writer(fh)
-                w.writerow(header)
-                w.writerows(rows)
-            return path
+            return write_csv(os.path.join(tmp, name), header, rows)
 
         bar_csv = {o: write(f"barrier_{o}.csv", header_b, rows) for o, rows in bar_rows.items()}
         bar_sub = {o: write(f"barrier_{o}_sub.csv", header_b, rows[:FA_SUBSET // 2])
@@ -3505,6 +3529,280 @@ def scenario_phases(dev, card: dict) -> dict:
     return {k: sum(c[k] for c in launches.values()) for k in launches["25b"]}
 
 
+def mesh_phases(dev, card: dict) -> dict:
+    """Phase 26, the device mesh (``finite_difference_tpu_torch.parallel``
+    and ``mesh=``). The machine has one card, so a k-way mesh repeats it
+    (``["cuda:0"] * k``): each check shows that the split, the padding, the
+    per-shard launches and the gather are right at full width, not that
+    cards overlap. Where torch sees two cards or more, 26a runs over the
+    real cards too. Returns the launches of K1, K1a and K2 in the sharded
+    calls (each read with the counts zeroed just before it; the unsharded
+    references are not counted).
+
+    - 26a, the benchmark trade set (B=4096, N=1024, 512 steps, f32,
+      ``solver="spike"``, price only) unsharded and over k = 1, 2, 4
+      shards: equal bit for bit, K1 launched k times the unsharded count
+      (one launch per segment per shard), and each call's host ms (the
+      median of :data:`MESH_CALLS`), the split's cost on one card.
+    - 26b, the American set over 4 shards (``solver="spike"``): B=4096 f32
+      with two dividends (K1a) and the f64 rung, B=256 with greeks (K2):
+      equal to unsharded bit for bit, each kernel launched 4 times the
+      unsharded count.
+    - 26c, the spectral route: f64 B=4096 ``auto`` over 4 shards, within
+      1e-12 of max|price| of the unsharded call; its graph counts.
+    - 26d, the float64 barrier service with greeks and the float32
+      price-only service on phase 19's mixed stream at bucket 512, built
+      with a 4-shard mesh: rows within 1e-12 of max|value| of the plain
+      service's; and the spectral graphs a mesh request adds beside a plain
+      request's key, which keeps replaying.
+    - 26e, the barrier runner on phase 20's 4160-row stress table with the
+      mesh: rows within 1e-12 of max|value| of the unsharded runner's.
+    - 26f, phase 23's ten swaps at 50,000 x 63 x 8 with the cube's path
+      axis sharded over 4: MTM within 1e-12 of max|MTM|; the reductions:
+      ``sharded_mean_stderr`` on 200,000 seeded samples (22a's path count)
+      against numpy, ``sharded_exposure_profile`` on that MTM against
+      ``xva.cva.exposure_profile``, each within 1e-12 (stderr 1e-10).
+    - 26g, ``entry()`` on the card and ``dryrun_multichip(4, devices=
+      ["cuda:0"] * 4)``: each completes.
+    """
+    import datetime as dt
+    import statistics
+    import tempfile
+
+    import torch
+
+    from finite_difference_tpu_torch import instruments, kernels, parallel
+    from finite_difference_tpu_torch.entry import dryrun_multichip, entry
+    from finite_difference_tpu_torch.models.mc import HW1FCurveSimulator, HW1FParams
+    from finite_difference_tpu_torch.models.pde import spectral, spike
+    from finite_difference_tpu_torch.models.pde.batch import (
+        build_american_batch,
+        build_trade_batch,
+        price_american_batch,
+        price_barrier_batch,
+    )
+    from finite_difference_tpu_torch.runners import run_all_scenarios_batched
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+    from finite_difference_tpu_torch.xva import DeviceExposureEngine
+    from finite_difference_tpu_torch.xva.cva import exposure_profile
+
+    wall, launches = {}, {}
+    here = f"cuda:{torch.cuda.current_device()}"
+    repeated = lambda k: parallel.make_mesh(k, devices=[here] * k)
+    mesh4 = repeated(4)
+
+    def drive(fn):
+        """``fn()`` with the kernels' counts zeroed just before and read just after."""
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    def median_ms(fn):
+        fn()
+        return statistics.median(host_ms(fn)[1] for _ in range(MESH_CALLS))
+
+    def same(got, want) -> bool:
+        return set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+    def gap(got, want) -> float:
+        return max(float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-300)
+                   for k in want)
+
+    # 26a. the benchmark trade set over k shards ----------------------------------------
+    t_phase = time.perf_counter()
+    tb = build_trade_batch(dtype=torch.float32, device=dev, **bench_trades(B_MAIN)[0])
+    call = lambda mesh=None: price_barrier_batch(tb, N_NODES, with_greeks=False, solver="spike", mesh=mesh,
+                                                 device=dev)
+    kernels.reset_launch_counts()
+    single = call()
+    torch.cuda.synchronize()
+    base = kernels.launch_counts["spike_march_f32"]
+    base_ms = median_ms(call)
+
+    def over(meshes) -> dict:
+        rows = {}
+        for k, mesh in meshes:
+            out, counts = drive(lambda: call(mesh))
+            check(same(out, single), f"26a {k} shards: not equal to the unsharded call")
+            check(counts.get("spike_march_f32") == k * base,
+                  f"26a {k} shards launched K1 {counts.get('spike_march_f32')} times, not {k} x {base}")
+            rows[str(k)] = dict(call_ms=median_ms(lambda: call(mesh)), launches=counts, bit_for_bit=True)
+        return rows
+
+    emit("mesh_spike", mesh=f"[{here!r}] * k", B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float32",
+         solver="spike", P_whole_batch=spike.spike_p_choices(N_NODES, B_MAIN)[0],
+         P_shard_alone={str(k): spike.spike_p_choices(N_NODES, B_MAIN // k)[0] for k in MESH_SHARDS},
+         unsharded_call_ms=base_ms, unsharded_launches=base,
+         shards=over((k, repeated(k)) for k in MESH_SHARDS),
+         note="one card repeated: the split's cost, not an overlap across cards", **card)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        emit("mesh_spike_real_cards", cards=n_cards, shards=over([(n_cards, parallel.make_mesh())]), **card)
+    else:
+        emit("mesh_spike_real_cards", cards=n_cards, run=False,
+             note=f"torch.cuda.device_count() is {n_cards}: 26a ran on the repeated card only", **card)
+    del tb, single
+    wall["26a benchmark set"] = time.perf_counter() - t_phase
+
+    # 26b. the American set: K1a and K2 over 4 shards --------------------------------------
+    t_phase = time.perf_counter()
+    american = {}
+    for label, kernel, make, kw in (
+        ("f32_dividends", "spike_march_american_f32",
+         lambda: build_american_batch(dtype=torch.float32, device=dev, **american_trades(B_MAIN, True)[0]),
+         dict(with_greeks=False, solver="spike")),
+        ("f64_greeks", "spike_march_american_f64",
+         lambda: build_american_batch(dtype=torch.float64, device=dev, **american_trades(B_CHECK)[0]),
+         dict(with_greeks=True, dv_sigma=1e-2, solver="spike")),
+    ):
+        batch = make()
+        kernels.reset_launch_counts()
+        want = price_american_batch(batch, N_NODES, device=dev, **kw)
+        torch.cuda.synchronize()
+        alone = kernels.launch_counts[kernel]
+        got, counts = drive(lambda: price_american_batch(batch, N_NODES, mesh=mesh4, device=dev, **kw))
+        check(same(got, want), f"26b {label}: 4 shards not equal to the unsharded call")
+        check(counts.get(kernel) == 4 * alone, f"26b {label}: {kernel} {counts.get(kernel)} != 4 x {alone}")
+        american[label] = dict(B=batch.batch_size, launches=counts, unsharded_launches=alone, bit_for_bit=True,
+                               call_ms=median_ms(lambda: price_american_batch(batch, N_NODES, mesh=mesh4, device=dev, **kw)),
+                               unsharded_call_ms=median_ms(lambda: price_american_batch(batch, N_NODES, device=dev, **kw)))
+    emit("mesh_american", shards=4, N=N_NODES, steps=N_STEPS, **american, **card)
+    wall["26b American"] = time.perf_counter() - t_phase
+
+    # 26c. the spectral route over 4 shards --------------------------------------------------
+    t_phase = time.perf_counter()
+    tb64 = build_trade_batch(dtype=torch.float64, device=dev, **bench_trades(B_MAIN)[0])
+    spectral_call = lambda mesh=None: price_barrier_batch(tb64, N_NODES, with_greeks=False, mesh=mesh, device=dev)
+    want = spectral_call()
+    spectral.reset_graph_counts()
+    outs = [drive(lambda: spectral_call(mesh4)) for _ in range(3)]
+    graphs = dict(spectral.graph_counts)
+    spec_gap = max(gap(o, want) for o, _ in outs)
+    check(spec_gap <= 1e-12, f"26c spectral over 4 shards vs unsharded {spec_gap:.3e} > 1e-12")
+    check(not any(c for _, c in outs), f"26c launched a kernel of ours: {[c for _, c in outs]}")
+    emit("mesh_spectral", shards=4, B=B_MAIN, N=N_NODES, steps=N_STEPS, dtype="float64", solver="auto",
+         calls=3, graph_counts=graphs, max_rel_gap=spec_gap, limit=1e-12,
+         call_ms=median_ms(lambda: spectral_call(mesh4)), unsharded_call_ms=median_ms(spectral_call), **card)
+    del tb64
+    wall["26c spectral"] = time.perf_counter() - t_phase
+
+    # 26d. two services over a 4-shard mesh ------------------------------------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(2600)
+    stream = [serving_trades("barrier", int(rng.integers(257, 513)), rng) for _ in range(MESH_REQUESTS)]
+    services = {}
+    for label, make in (
+        ("barrier_f64_greeks", lambda **kw: BarrierPricingService(device=dev, **kw)),
+        ("barrier_f32_price", lambda **kw: BarrierPricingService(dtype=np.float32, with_greeks=False,
+                                                                 device=dev, **kw)),
+    ):
+        plain, sharded = make(), make(mesh=mesh4)
+        want = [plain.price(r) for r in stream]
+        got, counts = drive(lambda: [sharded.price(r) for r in stream])
+        errs = [rows_error(g, w) for g, w in zip(got, want)]
+        worst = max(max(e.values()) for e in errs)
+        check(worst <= 1e-12, f"26d {label} over 4 shards vs the plain service {worst:.3e} > 1e-12")
+        line = dict(requests=MESH_REQUESTS, bucket=512, launches=counts, max_rel_gap=worst, limit=1e-12,
+                    bit_for_bit=all(g == w for g, w in zip(got, want)))
+        if label == "barrier_f64_greeks":
+            # a plain request's graph key against the keys a mesh request adds
+            request = stream[0]
+            for _ in range(3):
+                plain.price(request)
+            before = set(spectral._GRAPHS)
+            for _ in range(3):
+                sharded.price(request)
+            added = len(set(spectral._GRAPHS) - before)
+            spectral.reset_graph_counts()
+            plain.price(request)
+            after = dict(spectral.graph_counts)
+            check(after["eager"] == 0 and after["captures"] == 0,
+                  f"26d the plain request's graph was evicted by the mesh's: {after}")
+            line.update(graphs_cached=len(spectral._GRAPHS), graphs_added_by_mesh_request=added,
+                        cache_size=spectral.GRAPH_CACHE_SIZE, plain_request_after_mesh=after)
+        else:
+            check(counts.get("spike_march_f32", 0) > 0, "26d the float32 service over the mesh launched no K1")
+        services[label] = line
+    emit("mesh_serving", shards=4, N=N_NODES, steps=N_STEPS, **services, **card)
+    wall["26d services"] = time.perf_counter() - t_phase
+
+    # 26e. the barrier runner on the stress table ----------------------------------------
+    t_phase = time.perf_counter()
+    base_params = dict(valuation=datetime.date(2025, 7, 28), maturity=datetime.date(2025, 8, 28),
+                       monitor_dates=[datetime.date(2025, 7, 28) + dt.timedelta(days=d) for d in FA_MONITOR_DAYS])
+    runner = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for opt, rows in fa_stress_rows().items():
+            path = write_csv(os.path.join(tmp, f"barrier_{opt}.csv"), FA_HEADER, rows)
+            params = dict(base_params, opt_type=opt)
+            want, plain_ms = host_ms(lambda: run_all_scenarios_batched(path, None, params, device=dev))
+            (got, counts), mesh_ms = host_ms(lambda: drive(
+                lambda: run_all_scenarios_batched(path, None, params, mesh=mesh4, device=dev)))
+            cols = [c for c in want[0] if c.startswith("model_")]
+            worst = rows_error(got, want, keys=cols)
+            check(len(got) == len(want) and [r["scenario_name"] for r in got] == [r["scenario_name"] for r in want],
+                  f"26e {opt}: rows out of order")
+            check(max(worst.values()) <= 1e-12, f"26e {opt} over 4 shards vs unsharded {worst} > 1e-12")
+            runner[opt] = dict(rows=len(got), mesh_ms=mesh_ms, plain_ms=plain_ms, max_rel_gap=worst,
+                               bit_for_bit=got == want, launches=counts)
+    emit("mesh_runner", shards=4, table="phase 20 stress table", **runner, limit=1e-12, **card)
+    wall["26e runner"] = time.perf_counter() - t_phase
+
+    # 26f. the path-sharded exposure and the reductions --------------------------------
+    t_phase = time.perf_counter()
+    val = dt.date(2025, 7, 28)
+    tenors = np.asarray(XVA_TENORS)
+    scen_days = list(XVA_SCEN_DAYS)
+    dates = [val] + [val + dt.timedelta(days=d) for d in scen_days]
+    times_days = np.array([0.0] + [float(d) for d in scen_days])
+    swaps = xva_swaps(instruments, XVA_SWAPS)
+    sim = HW1FCurveSimulator(HW1FParams.flat(alpha=0.05, sigma=0.01), tenors, np.full(tenors.size, 0.075),
+                             device=dev)
+    cube = sim.values_with_today(
+        sim.simulate(np.asarray(scen_days) / 365.25, tenors, XVA_PATHS, seed=42, as_jax=True),
+        tenors, XVA_PATHS, as_jax=True)
+    plain_mtm = lambda: DeviceExposureEngine(dates, {"ZAR-SWAP": cube}, tenors, device=dev).mtm(swaps)
+    sharded_cube = parallel.shard_batch(cube, mesh4, dim=1)
+    mesh_mtm = lambda: DeviceExposureEngine(dates, {"ZAR-SWAP": sharded_cube}, tenors, device=dev).mtm(swaps)
+    want = plain_mtm()
+    got, counts = drive(mesh_mtm)
+    mtm_gap = float((got - want).abs().max() / want.abs().max())
+    check(tuple(got.shape) == (XVA_PATHS, len(dates)) and mtm_gap <= 1e-12,
+          f"26f path-sharded MTM {tuple(got.shape)}: {mtm_gap:.3e} of max|MTM| > 1e-12")
+    samples = np.random.default_rng(22).normal(5.0, 2.0, MESH_SAMPLES)
+    mean, stderr = parallel.sharded_mean_stderr(torch.as_tensor(samples, device=dev), mesh4)
+    mean_gap = abs(float(mean) - samples.mean()) / abs(samples.mean())
+    se_want = samples.std(ddof=1) / math.sqrt(samples.size)
+    se_gap = abs(float(stderr) - se_want) / se_want
+    check(mean_gap <= 1e-12 and se_gap <= 1e-10, f"26f sharded_mean_stderr: {mean_gap:.3e}, {se_gap:.3e}")
+    ee, pfe = parallel.sharded_exposure_profile(parallel.shard_batch(got, mesh4), mesh4)
+    ref = exposure_profile(times_days, want.T)
+    prof_gap = {"ee": float(np.abs(ee.cpu().numpy() - ref.ee).max() / np.abs(ref.ee).max()),
+                "pfe": float(np.abs(pfe.cpu().numpy() - ref.pfe).max() / np.abs(ref.pfe).max())}
+    check(max(prof_gap.values()) <= 1e-12, f"26f sharded_exposure_profile vs xva.cva {prof_gap} > 1e-12")
+    emit("mesh_xva", shards=4, paths=XVA_PATHS, dates=len(dates), tenors=tenors.size, swaps=XVA_SWAPS,
+         mtm_rel_gap=mtm_gap, mtm_ms=median_ms(mesh_mtm), unsharded_mtm_ms=median_ms(plain_mtm),
+         launches=counts, samples=MESH_SAMPLES, mean_rel_gap=mean_gap, stderr_rel_gap=se_gap, profile_rel_gap=prof_gap,
+         limits={"mtm": 1e-12, "mean": 1e-12, "stderr": 1e-10, "profile": 1e-12}, **card)
+    del cube, sharded_cube, got, want
+    wall["26f XVA and reductions"] = time.perf_counter() - t_phase
+
+    # 26g. the driver entry points ------------------------------------------------------
+    t_phase = time.perf_counter()
+    fn, args = entry(device=dev)
+    out = fn(*args)
+    check(all(v.shape == (8,) and bool(torch.isfinite(v).all()) for v in out.values()), "26g entry() not finite")
+    steps = dryrun_multichip(4, devices=[here] * 4)
+    emit("mesh_entry", entry_outputs=sorted(out), dryrun_multichip_4=steps, **card)
+    wall["26g entry points"] = time.perf_counter() - t_phase
+    emit("mesh_phase_wall_s", **wall, total=sum(wall.values()), **card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3721,6 +4019,15 @@ def main() -> int:
     for k in (k1, k1a, k2, k3, k4):
         k["scenario_launches"] = scenario_launches.get(k["name"], 0)
     wall["25 scenarios and calibration"] = time.perf_counter() - t1
+
+    # 26. the device mesh -----------------------------------------------------------------
+    t1 = time.perf_counter()
+    mesh_launches = mesh_phases(dev, card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["mesh_launches"] = mesh_launches.get(k["name"], 0)
+    check(all(mesh_launches.get(k["name"], 0) > 0 for k in (k1, k1a, k2)),
+          f"phase 26 did not launch K1, K1a and K2 over the mesh: {mesh_launches}")
+    wall["26 device mesh"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

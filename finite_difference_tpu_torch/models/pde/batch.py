@@ -18,9 +18,15 @@ price and bump greeks on the device.
 ``"spike"``, ``"spike_df64"``, ``"spectral"``, ``"spectral_x64dst"`` and
 ``"spectral_mixed"`` (:func:`auto_solver` is the rule of ``"auto"``);
 ``greeks_mode`` ``"bump"`` or ``"ad"`` (vega from one ``torch.func.jvp``).
-Differences from the JAX package: single device only (no mesh, no packed
-transfers); the spectral names on an American batch raise (the JAX
-package silently runs the scan there).
+``mesh=`` (a :class:`finite_difference_tpu_torch.parallel.Mesh`) splits the
+trade axis over the mesh's ``axis_name``: the route and every static
+choice are made once on the whole batch, then each shard runs on its
+device (the SPIKE march as one launch per segment per shard) and the
+outputs are gathered in trade order on the batch's device
+(:func:`_run_batch_driver`). Differences from the JAX package: no packed
+transfers; no ``B % 128`` padding rule (a mesh pads to a multiple of its
+axis only); the spectral names on an American batch raise (the JAX package
+silently runs the scan there).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from ... import native
 from ...device import DEFAULT_DEVICE, resolve_device
+from ...parallel.mesh import check_mesh, on_device, pad_to_multiple
 from ...ops.interp import linear_interp
 from ...ops.stencils import nearest_index, nonuniform_central
 from .grid import (
@@ -146,6 +153,23 @@ def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> Ba
         if fields.get(k) is not None:
             tensors[k] = torch.as_tensor(np.asarray(fields[k])).to(dev)
     return BarrierTradeBatch(**tensors)
+
+
+def _pad_rows(x: torch.Tensor, pad: int, dim: int = 0) -> torch.Tensor:
+    """``x`` with ``pad`` clones of its first row along ``dim`` appended."""
+    if pad <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, x.narrow(dim, 0, 1).expand(shape)], dim)
+
+
+def pad_batch(tb: BarrierTradeBatch, pad: int) -> BarrierTradeBatch:
+    """Append ``pad`` clones of the first trade to every per-trade tensor
+    (the ``sp_*`` layout too, where it is set). The services pad a request
+    to its bucket with it, and the driver a batch to a multiple of its
+    mesh's axis; the padded rows' outputs are dropped."""
+    return tb._map(lambda v: _pad_rows(v, pad)) if pad > 0 else tb
 
 
 def build_trade_batch(
@@ -472,7 +496,7 @@ def _solve_scan_american(batch: BarrierTradeBatch, sigma, n_nodes: int, with_div
 
 
 def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, graph: bool = False,
-                    new_call: bool = True):
+                    graph_keys: Optional[set] = None):
     """The spectral propagator over the whole batch at ``sigma``, on the
     batch's ``sp_*`` layout (:func:`_spectral_layout`):
 
@@ -484,8 +508,11 @@ def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, 
 
     ``graph``: run the solve by ``spectral.run_graphed``'s capture rule
     (eager in a key's first driver call, from a CUDA graph after; a CUDA
-    batch, and not under ``torch.func.jvp``); ``new_call``: this solve
-    starts a driver call (False for the vega bump's solve).
+    batch, and not under ``torch.func.jvp``); ``graph_keys``: the keys the
+    driver call has sighted so far (a solve sights its key once per call:
+    the vega bump's solve, and a mesh's further shards of one shape on one
+    device, follow the first). The key holds the device, so each device of
+    a mesh has its own graphs.
     """
     mixed = solver == "spectral_mixed"
     dt = batch.dt[:, 0] if mixed or batch.sp_dt is None else batch.sp_dt
@@ -508,6 +535,9 @@ def _solve_spectral(batch: BarrierTradeBatch, sigma, n_nodes: int, solver: str, 
     if solver == "spectral":  # a replay launches no matmul from here: check first
         require_full_float32(batch.x_min.dtype, batch.x_min.device)
     key = (solver, n_nodes, tuple(plan), tuple((t.shape, t.dtype, t.device) for t in tensors))
+    graph_keys = set() if graph_keys is None else graph_keys
+    new_call = key not in graph_keys
+    graph_keys.add(key)
     return run_graphed(key, solve, tensors, new_call)
 
 
@@ -539,7 +569,7 @@ def _spike_values(batch: BarrierTradeBatch, n_nodes: int, spike_segments, americ
     each of ``sigmas``. ``spike_segments`` is the tuple from
     :func:`_spike_schedule_impl`, None meaning the uniform-dt default; the
     barrier march ignores its dividend and reset columns, as the barrier
-    scan does. ``preps`` are the auto route's, one per sigma
+    scan does. ``preps`` are the driver's, one per sigma
     (:func:`_guarded_spike_preps`); without them each solve makes its own
     prep, which raises where the interface guard refuses it."""
     seg, sd, div_steps, reset_steps = (
@@ -558,18 +588,26 @@ def _spike_values(batch: BarrierTradeBatch, n_nodes: int, spike_segments, americ
 
 
 def _guarded_spike_preps(batch: BarrierTradeBatch, n_nodes: int, spike_segments,
-                         american: bool, sigmas):
+                         american: bool, sigmas, strict: bool = False):
     """The SPIKE prep at each of ``sigmas`` (``spike.prepare_spike`` at the
-    rule's P, not strict), or None as soon as the interface guard refuses
-    one: then the call's solves all take another route, so that the price
-    and its vega come from one discretisation."""
+    rule's P), or None as soon as the interface guard refuses one (with
+    ``strict``, ValueError instead): then the call's solves all take another
+    route, so that the price and its vega come from one discretisation."""
     preps = []
     for sig in sigmas:
-        prep = prepare_spike(batch, sig, n_nodes, None, spike_segments[1], american, strict=False)
+        prep = prepare_spike(batch, sig, n_nodes, None, spike_segments[1], american, strict=strict)
         if prep is None:
             return None
         preps.append(prep)
     return preps
+
+
+def _march_inputs(batch: BarrierTradeBatch, sigmas, solver: str):
+    """The batch and sigmas a SPIKE route marches: ``"spike_df64"`` marches
+    a float32 batch as its float64 cast (the K2 kernel)."""
+    if solver == "spike_df64":
+        return batch.astype(torch.float64), [s.to(torch.float64) for s in sigmas]
+    return batch, sigmas
 
 
 def _no_ad_rule(solver: str) -> ValueError:
@@ -581,7 +619,7 @@ def _no_ad_rule(solver: str) -> ValueError:
 
 def _solve_values(batch: BarrierTradeBatch, n_nodes: int, solver: str, american: bool, sigmas,
                   spike_segments=None, spike_preps=None, with_dividends: bool = True,
-                  ad: bool = False) -> List[torch.Tensor]:
+                  ad: bool = False, graph_keys: Optional[set] = None) -> List[torch.Tensor]:
     """V (B, N) at each of ``sigmas`` on ``solver``'s route; with ``ad``,
     ``[V, dV/dsigma]`` at ``sigmas[0]`` instead, from one ``torch.func.jvp``
     through the scan or the spectral solve (the tangent flows through the
@@ -589,13 +627,12 @@ def _solve_values(batch: BarrierTradeBatch, n_nodes: int, solver: str, american:
 
     ``"spike_df64"`` is the SPIKE march at float64 whatever the batch's
     dtype: a float32 batch is solved as its float64 cast (the K2 kernel),
-    and its outputs are cast back to float32 by :func:`_outputs_of`."""
+    and its outputs are cast back to float32 by :func:`_outputs_of`.
+    ``graph_keys``: see :func:`_solve_spectral`."""
     if solver in _SPIKE_SOLVERS:
         if ad:
             raise _no_ad_rule(solver)
-        if solver == "spike_df64":
-            batch = batch.astype(torch.float64)
-            sigmas = [s.to(torch.float64) for s in sigmas]
+        batch, sigmas = _march_inputs(batch, sigmas, solver)
         return _spike_values(batch, n_nodes, spike_segments, american, sigmas, spike_preps)
     if american:
         solve = lambda sg: _solve_scan_american(batch, sg, n_nodes, with_dividends)[0]
@@ -606,9 +643,9 @@ def _solve_values(batch: BarrierTradeBatch, n_nodes: int, solver: str, american:
     else:
         # the call's first solve is its sighting of the graph key; the vega
         # bump's solve follows it (spectral.run_graphed)
-        graph = batch.x_min.is_cuda
-        return [_solve_spectral(batch, sg, n_nodes, solver, graph, new_call=i == 0)[0]
-                for i, sg in enumerate(sigmas)]
+        graph_keys = set() if graph_keys is None else graph_keys
+        return [_solve_spectral(batch, sg, n_nodes, solver, batch.x_min.is_cuda, graph_keys)[0]
+                for sg in sigmas]
     if ad:
         return list(torch.func.jvp(solve, (sigmas[0],), (torch.ones_like(sigmas[0]),)))
     return [solve(sg) for sg in sigmas]
@@ -677,6 +714,7 @@ def price_batch_kernel(
     spike_segments=None,
     spike_preps=None,
     vol_points=None,
+    graph_keys: Optional[set] = None,
 ) -> Dict[str, torch.Tensor]:
     """Barrier batch on one device -> dict of (B,) tensors on that device:
     price, and with greeks vega, delta, gamma and theta (see :func:`_outputs_of`).
@@ -688,12 +726,14 @@ def price_batch_kernel(
     the spectral names (needs the batch's ``sp_*`` layout; see
     :func:`_solve_spectral`). ``greeks_mode="ad"`` takes vega from one jvp
     through the scan or the spectral solve, and raises ValueError on the
-    SPIKE route. ``vol_points``: the driver's :func:`_vol_points`.
+    SPIKE route. ``vol_points``: the driver's :func:`_vol_points`;
+    ``graph_keys``: the driver call's (:func:`_solve_spectral`).
     """
     _check_greeks_mode(greeks_mode)
     ad = with_greeks and greeks_mode == "ad"
     dv_sigma, sigmas = vol_points or _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
-    values = _solve_values(batch, n_nodes, solver, False, sigmas, spike_segments, spike_preps, ad=ad)
+    values = _solve_values(batch, n_nodes, solver, False, sigmas, spike_segments, spike_preps, ad=ad,
+                           graph_keys=graph_keys)
     return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True, tangent=ad)
 
 
@@ -898,44 +938,84 @@ def _run_batch_driver(
     solver: str = "scan",
     spike_segments=None,
     american: bool = False,
+    mesh=None,
+    axis_name: str = "data",
     **kernel_kw,
 ) -> Dict[str, torch.Tensor]:
-    """Single-device driver: :func:`american_batch_kernel` (``american``) or
-    :func:`price_batch_kernel` over the batch in chunks of ``max_chunk``
-    trades; ``kernel_kw`` goes to every call. The sigmas of the call
-    (:func:`_vol_points`) are made once here and sliced per chunk.
+    """The driver: :func:`american_batch_kernel` (``american``) or
+    :func:`price_batch_kernel` over the batch, on its device or split over
+    axis ``axis_name`` of ``mesh``; ``kernel_kw`` goes to every call. The
+    sigmas of the call (:func:`_vol_points`) are made once here and sliced
+    per shard and chunk.
+
+    Under a mesh the batch is padded to a multiple of the axis's size with
+    clones of its first trade and split into equal shards, shard i copied
+    to the axis's i-th device (the JAX package's ``shard_map`` rule without
+    its 128-trade multiple). The route, the SPIKE segmentation and the
+    spectral layout come from the whole batch (:func:`_route`), and so do
+    the SPIKE preps (:func:`_guarded_spike_preps`, at the whole batch's P):
+    a prep is per trade, so each shard marches its rows of them
+    (``SpikePrep.map_trades``), bit for bit the unsharded march of its
+    trades. Each shard's work is issued
+    to its device in turn from this thread, and the outputs are gathered in
+    trade order on the batch's device, the padding dropped: a caller sees
+    the same dict of (B,) tensors with or without a mesh. Without one the
+    batch is its one shard.
 
     Chunking bounds the scan's per-step working set (its (B, N) temporaries
-    per doubling pass). The SPIKE march keeps each trade's grid in shared
-    memory and streams its solver tensors, so the spike route runs the
-    whole batch as one launch per segment; the spectral route also runs it
-    in one pass (about 30 (B, M) tensors: under 1 GB at B=4096, N=1024,
-    float64), since each chunk would repeat its ~1000 launches per solve.
+    per doubling pass): the scan runs each shard in chunks of ``max_chunk``
+    trades. The SPIKE march keeps each trade's grid in shared memory and
+    streams its solver tensors, so the spike route runs a shard as one
+    launch per segment; the spectral route also runs it in one pass (about
+    30 (B, M) tensors: under 1 GB at B=4096, N=1024, float64), since each
+    chunk would repeat its ~1000 launches per solve.
 
+    The SPIKE routes make the preps of every sigma of the call first.
     ``solver="auto"`` (from :func:`_route`: the rule picked the SPIKE march
-    on CUDA) leaves the route to the interface guard: the preps of every
-    sigma of the call are made first, not strict, and :func:`auto_solver`
-    reads their verdict. The spike route then marches those preps; where
-    the guard refused one, the whole call takes the scan.
+    on CUDA) leaves the route to the interface guard: the preps are not
+    strict, and :func:`auto_solver` reads their verdict; where the guard
+    refused one, the whole call takes the scan. An explicit SPIKE solver
+    raises there.
     """
     kernel = american_batch_kernel if american else price_batch_kernel
     dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
+    B, home = batch.batch_size, batch.x_min.device
     preps = None
-    if solver == "auto":
-        preps = _guarded_spike_preps(batch, n_nodes, spike_segments, american, sigmas)
-        solver = auto_solver(batch.x_min.device.type, spike_segments, preps is not None,
-                             **_auto_inputs(batch, american, with_greeks, greeks_mode))
-    B = batch.batch_size
+    if solver in ("auto",) + _SPIKE_SOLVERS:
+        march_batch, march_sigmas = _march_inputs(batch, sigmas, solver)
+        preps = _guarded_spike_preps(march_batch, n_nodes, spike_segments, american, march_sigmas,
+                                     strict=solver != "auto")
+        if solver == "auto":
+            solver = auto_solver(home.type, spike_segments, preps is not None,
+                                 **_auto_inputs(batch, american, with_greeks, greeks_mode))
+    if not american:
+        kernel_kw["graph_keys"] = set()
+    devices = (home,) if mesh is None else mesh.axis_devices(axis_name)
+    pad = pad_to_multiple(B, len(devices)) - B
+    n = (B + pad) // len(devices)
+    padded = pad_batch(batch, pad)
+    padded_sigmas = [_pad_rows(s, pad) for s in sigmas]
+    padded_preps = preps and [p.map_trades(lambda x, dim: _pad_rows(x, pad, dim)) for p in preps]
     chunk = max_chunk if solver == "scan" else None
-    run = lambda sl: kernel(
-        batch[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
-        greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
-        spike_preps=preps, vol_points=(dv_sigma, [s[sl] for s in sigmas]), **kernel_kw,
-    )
-    if chunk is None or B <= chunk:
-        return run(slice(None))
-    pieces = [run(slice(start, start + chunk)) for start in range(0, B, chunk)]
-    return {k: torch.cat([p[k] for p in pieces]) for k in pieces[0]}
+    outs = []
+    for i, dev in enumerate(devices):
+        rows = lambda x, dim=0: x.narrow(dim, i * n, n).to(dev).contiguous()
+        b, sg = padded._map(rows), [rows(s) for s in padded_sigmas]
+        prep = padded_preps and [p.map_trades(rows) for p in padded_preps]
+        run = lambda sl: kernel(
+            b[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
+            greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
+            spike_preps=prep, vol_points=(dv_sigma, [s[sl] for s in sg]), **kernel_kw,
+        )
+        with on_device(dev):
+            if chunk is None or n <= chunk:
+                outs.append(run(slice(None)))
+            else:
+                pieces = [run(slice(start, start + chunk)) for start in range(0, n, chunk)]
+                outs.append({k: torch.cat([p[k] for p in pieces]) for k in pieces[0]})
+    if mesh is None:
+        return outs[0]
+    return {k: torch.cat([o[k].to(home) for o in outs])[:B] for k in outs[0]}
 
 
 def auto_solver(
@@ -983,7 +1063,8 @@ def auto_solver(
 
 
 def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str, device,
-           american: bool = False, with_greeks: bool = False, greeks_mode: str = "bump"):
+           american: bool = False, with_greeks: bool = False, greeks_mode: str = "bump",
+           mesh=None):
     """The batch on its device and dtype, with its spectral layout attached
     where it has one, and the route: ``(batch, max_chunk, solver,
     spike_segments)``.
@@ -997,9 +1078,12 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
     :func:`_spectral_layout` refuses or on an American batch, and
     ``"spectral_mixed"`` on a per-interval dt.
     ``dtype`` casts the batch's floating fields (float64 halves
-    ``max_chunk``, the same working-set budget).
+    ``max_chunk``, the same working-set budget). ``mesh`` must be None or a
+    ``parallel.Mesh`` of ``device``'s type (ValueError otherwise); the route
+    is the whole batch's either way.
     """
     dev = resolve_device(device)
+    check_mesh(mesh, dev)
     batch = batch.to(dev)
     if dtype is not None:
         batch = batch.astype(dtype)
@@ -1053,6 +1137,8 @@ def price_barrier_batch(
     n_nodes: int,
     dv_sigma: Optional[float] = None,
     with_greeks: bool = True,
+    mesh=None,
+    axis_name: str = "data",
     max_chunk: Optional[int] = 1024,
     dtype: Optional[torch.dtype] = None,
     greeks_mode: str = "bump",
@@ -1072,15 +1158,19 @@ def price_barrier_batch(
     instead of the sigma bump (not on SPIKE). ``dtype`` casts the batch's
     floating fields first. ``max_chunk`` bounds the scan's chunks (float64
     halves it, the same working-set budget; None forces one pass); the
-    SPIKE and spectral routes run the batch in one pass.
+    SPIKE and spectral routes run the batch in one pass. ``mesh`` (a
+    ``parallel.Mesh`` of ``device``'s type, from ``parallel.make_mesh``)
+    splits the trades over its axis ``axis_name``, one shard per device,
+    each shard chunked as the whole batch would be; the outputs come back
+    on ``device`` (:func:`_run_batch_driver`).
     """
     batch, max_chunk, solver, sched = _route(
         batch, n_nodes, max_chunk, dtype, solver, device,
-        with_greeks=with_greeks, greeks_mode=greeks_mode,
+        with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
     )
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched,
+        solver, sched, mesh=mesh, axis_name=axis_name,
     )
 
 
@@ -1089,6 +1179,8 @@ def price_american_batch(
     n_nodes: int,
     dv_sigma: Optional[float] = None,
     with_greeks: bool = True,
+    mesh=None,
+    axis_name: str = "data",
     max_chunk: Optional[int] = 1024,
     dtype: Optional[torch.dtype] = None,
     greeks_mode: str = "bump",
@@ -1109,15 +1201,18 @@ def price_american_batch(
     dividend, so the theta pattern differs per trade) and take the scan, as
     in the JAX package. ``"spike_df64"`` is the march at float64
     (:func:`_solve_values`); the spectral names raise (European only).
-    ``dtype``, ``max_chunk``: as :func:`price_barrier_batch`.
+    ``dtype``, ``max_chunk``, ``mesh``, ``axis_name``: as
+    :func:`price_barrier_batch` (under a mesh the dividend jumps and
+    lambda resets run per shard, between its launches).
     """
     batch, max_chunk, solver, sched = _route(
         batch, n_nodes, max_chunk, dtype, solver, device, american=True,
-        with_greeks=with_greeks, greeks_mode=greeks_mode,
+        with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
     )
     return _run_batch_driver(
         batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched, american=True, with_dividends=_with_dividends(batch, sched),
+        solver, sched, american=True, mesh=mesh, axis_name=axis_name,
+        with_dividends=_with_dividends(batch, sched),
     )
 
 
@@ -1185,6 +1280,8 @@ def price_american_batch_richardson(
     n_time_steps_fine: Optional[int] = None,
     dv_sigma: Optional[float] = None,
     with_greeks: bool = True,
+    mesh=None,
+    axis_name: str = "data",
     max_chunk: Optional[int] = 1024,
     dtype: Optional[torch.dtype] = None,
     device=DEFAULT_DEVICE,
@@ -1193,12 +1290,13 @@ def price_american_batch_richardson(
     """Richardson-extrapolated batched American sweep: two batched solves,
     at ``n_time_steps`` and (default) twice that, combined as
     (4 P_fine - P_coarse)/3 per output, which cancels the leading O(dt^2)
-    time-truncation term. ``build_kwargs`` go to :func:`build_american_batch`.
+    time-truncation term. ``build_kwargs`` go to :func:`build_american_batch`;
+    ``mesh`` and ``axis_name`` to both solves (:func:`price_american_batch`).
     """
     fine = n_time_steps_fine or 2 * n_time_steps
     common = dict(
-        n_nodes=n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
-        max_chunk=max_chunk, dtype=dtype, device=device,
+        n_nodes=n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks, mesh=mesh,
+        axis_name=axis_name, max_chunk=max_chunk, dtype=dtype, device=device,
     )
     out_c = price_american_batch(
         build_american_batch(n_time_steps=n_time_steps, device=device, **build_kwargs), **common

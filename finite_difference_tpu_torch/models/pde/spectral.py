@@ -783,13 +783,16 @@ def spectral_solve_mixed(
 # call's further solves (the vega bump's, of the same key) follow its first:
 # they never capture. GRAPH_CACHE_SIZE covers the serving buckets (8 ...
 # 4096: ten) with room for the other routes' shapes; chip_smoke.py's whole
-# run, serving included, leaves about 5.4 GB reserved on the H100.
+# run, serving included, leaves about 5.4 GB reserved on the H100. A key
+# holds its tensors' device and a graph its memory there, so the bound is
+# per device: a call over a mesh of n cards keeps its n shards' graphs
+# without evicting the keys of the cards' other shapes.
 #
 # The scalar pricers' scan (american._solve_batch) shares the rule and the
 # cache: one solve is one driver call, keyed on its shape and scan plan.
 _GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _SEEN: "OrderedDict[tuple, None]" = OrderedDict()  # keys run once, eagerly
-GRAPH_CACHE_SIZE = 16  # graphs kept, the least recently used dropped first
+GRAPH_CACHE_SIZE = 16  # graphs kept per device, the least recently used dropped first
 SEEN_KEYS = 1024  # keys remembered between their first and second call
 graph_counts: Dict[str, int] = {"eager": 0, "captures": 0, "replays": 0}
 
@@ -797,6 +800,13 @@ graph_counts: Dict[str, int] = {"eager": 0, "captures": 0, "replays": 0}
 def reset_graph_counts() -> None:
     for name in graph_counts:
         graph_counts[name] = 0
+
+
+def _drop_least_recent(device: torch.device) -> None:
+    """Drop ``device``'s least recently used graphs past GRAPH_CACHE_SIZE."""
+    keys = [k for k, hit in _GRAPHS.items() if hit[3] == device]
+    for k in keys[: max(len(keys) - GRAPH_CACHE_SIZE, 0)]:
+        del _GRAPHS[k]
 
 
 def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
@@ -810,9 +820,10 @@ def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
     everything the captured work depends on besides the values of
     ``tensors``: their shapes and dtypes, and the host-side plan. A replay
     copies the inputs into the graph's buffers and returns clones of the
-    outputs. At most :data:`GRAPH_CACHE_SIZE` graphs are kept, the least
-    recently used dropped first; :data:`graph_counts` counts each kind of
-    call. Not safe to call from two threads at once."""
+    outputs. At most :data:`GRAPH_CACHE_SIZE` graphs are kept per device
+    (that of ``tensors``), the least recently used there dropped first;
+    :data:`graph_counts` counts each kind of call. Not safe to call from
+    two threads at once."""
     hit = _GRAPHS.get(key)
     if hit is None:
         if not new_call or key not in _SEEN:
@@ -832,14 +843,13 @@ def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = solve(*static)
-        hit = _GRAPHS[key] = (graph, static, out)
-        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
-            _GRAPHS.popitem(last=False)
+        hit = _GRAPHS[key] = (graph, static, out, static[0].device)
+        _drop_least_recent(static[0].device)
         graph_counts["captures"] += 1
     else:
         _GRAPHS.move_to_end(key)
     graph_counts["replays"] += 1
-    graph, static, out = hit
+    graph, static, out, _ = hit
     for buf, t in zip(static, tensors):
         buf.copy_(t)
     graph.replay()

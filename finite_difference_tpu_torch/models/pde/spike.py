@@ -53,7 +53,7 @@ multiple of 128: the CUDA kernel masks a ragged last block.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -179,6 +179,15 @@ class SpikePrep:
     n_int: int
     il: int  # band ii holding the global-last interior row (in chunk P-1)
     american: bool = False
+
+    def map_trades(self, fn) -> "SpikePrep":
+        """This prep with ``fn(x, dim)`` applied to each tensor, ``dim`` its
+        trade axis. Every tensor and the interface guard are per trade, so
+        rows a:b of a batch's prep are the prep of its trades a:b."""
+        return replace(self, **{
+            name: fn(getattr(self, name), 1 if name in ("coef", "fields", "iface") else 0)
+            for name in ("trade", "coef", "fields", "iface", "tau", "mon", "v0", "edge0")
+        })
 
 
 def _per_row_thomas(l, c, u):

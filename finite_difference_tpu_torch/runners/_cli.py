@@ -79,7 +79,3 @@ def diff_block(prefix: str, model: float, fa: Optional[float]) -> Row:
         f"{prefix}_pct_diff": abs(model - fa) / abs(fa) * 100.0 if has_fa and fa != 0.0 else math.nan,
     }
 
-
-def require_no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("the port has no device mesh yet; pass mesh=None")

@@ -19,9 +19,10 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.pde.american import AmericanFDMPricer
+from ..parallel.mesh import check_mesh
 from ..utils.curves import flat_curve
 from ..utils.rates import naca_to_nacc
-from ._cli import Row, diff_block, read_rows, require_no_mesh, write_rows
+from ._cli import Row, diff_block, read_rows, write_rows
 
 
 def run_american_scenario(
@@ -141,7 +142,9 @@ def run_all_american_scenarios_batched(
     ``price_american_batch`` when ``richardson=False``, each under its
     ``auto`` route: on a card the American SPIKE march with the
     Ikonen–Toivanen projection fused into the step (at float64 the march
-    at double precision), on the CPU the scan. ``mesh`` must be None.
+    at double precision), on the CPU the scan. ``mesh`` (a ``parallel.Mesh``
+    of ``device``'s type) splits the trades over its ``"data"`` axis;
+    anything else but None raises ValueError.
     """
     from ..models.pde.batch import (
         build_american_batch,
@@ -150,8 +153,8 @@ def run_all_american_scenarios_batched(
     )
     from ..utils.daycount import year_fraction
 
-    require_no_mesh(mesh)
     dev = resolve_device(device)
+    check_mesh(mesh, dev)
     rows = read_rows(config_csv_path)
     valuation = base_params["valuation"]
     maturity = base_params["maturity"]
@@ -202,12 +205,13 @@ def run_all_american_scenarios_batched(
             # the scalar price_log2's reference quirk: the refined run
             # steps 2*num_space_nodes times (fd_american_equity.py:944-952)
             n_time_steps_fine=2 * n_space,
+            mesh=mesh,
             device=dev,
             **build_kwargs,
         )
     else:
         tb = build_american_batch(n_time_steps=n_time, device=dev, **build_kwargs)
-        out = price_american_batch(tb, n_nodes=n_space + 1, device=dev)
+        out = price_american_batch(tb, n_nodes=n_space + 1, mesh=mesh, device=dev)
     out = {k: v.double().cpu().numpy() for k, v in out.items()}
 
     all_results = []

@@ -24,9 +24,10 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.pde.barrier import DiscreteBarrierFDMPricer
+from ..parallel.mesh import check_mesh
 from ..utils.curves import flat_curve
 from ..utils.rates import naca_to_nacc
-from ._cli import Row, diff_block, read_rows, require_no_mesh, write_rows
+from ._cli import Row, diff_block, read_rows, write_rows
 
 
 def run_scenario(
@@ -174,8 +175,9 @@ def run_all_scenarios_batched(
     Uses the same flat-curve/time-measure resolution as the per-scenario
     runner, then prices with ``price_barrier_batch`` (its ``auto`` route).
     KI prices come from in-out parity against the Black-76 vanilla,
-    computed for the whole table at once. ``mesh`` must be None (the port
-    has no device mesh).
+    computed for the whole table at once. ``mesh`` (a ``parallel.Mesh`` of
+    ``device``'s type) splits the CN batch's trades over its ``"data"``
+    axis; anything else but None raises ValueError.
 
     ``route='hybrid'`` applies the FIS n_lim monitoring decision per trade
     (discrete_barrier_analytic_pricer.py:278-342): continuous-regime trades
@@ -193,8 +195,8 @@ def run_all_scenarios_batched(
     from ..models.pde.batch import build_trade_batch, price_barrier_batch
     from ..utils.daycount import year_fraction
 
-    require_no_mesh(mesh)
     dev = resolve_device(device)
+    check_mesh(mesh, dev)
     rows = read_rows(config_csv_path)
     valuation = base_params["valuation"]
     maturity = base_params["maturity"]
@@ -280,7 +282,7 @@ def run_all_scenarios_batched(
             monitor_aligned=(schedule == "monitor-aligned"),
             device=dev,
         )
-        res = price_barrier_batch(tb, n_nodes=n_nodes + 1, device=dev)
+        res = price_barrier_batch(tb, n_nodes=n_nodes + 1, mesh=mesh, device=dev)
         for k in out:
             out[k][pde_idx] = res[k].double().cpu().numpy()
 

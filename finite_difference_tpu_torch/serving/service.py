@@ -13,7 +13,9 @@ KO(R at expiry) + R·DF), with the vanilla leg's greeks from closed-form
 bumps of the generalized Black–Scholes price.
 
 A service serialises its device work: ``price`` may be called from several
-threads, and one request at a time builds its batch and prices it.
+threads, and one request at a time builds its batch and prices it. A
+service built with ``mesh`` (a ``parallel.Mesh``) splits each bucket's
+trades over the mesh's ``"data"`` axis (the drivers' ``mesh=``).
 """
 from __future__ import annotations
 
@@ -34,9 +36,11 @@ from ..models.pde.batch import (
     BarrierTradeBatch,
     build_american_batch,
     build_trade_batch,
+    pad_batch,
     price_american_batch,
     price_barrier_batch,
 )
+from ..parallel.mesh import check_mesh
 
 __all__ = ["BarrierPricingService", "AmericanPricingService"]
 
@@ -87,14 +91,6 @@ def _next_bucket(n: int, min_bucket: int, max_bucket: int) -> int:
     return min(b, max_bucket)
 
 
-def _pad_batch(tb: BarrierTradeBatch, pad: int) -> BarrierTradeBatch:
-    """Append ``pad`` clones of the first trade to every per-trade tensor
-    (the ``sp_*`` layout too, where it is set)."""
-    if pad <= 0:
-        return tb
-    return tb._map(lambda v: torch.cat([v, v[:1].expand(pad, *v.shape[1:])]))
-
-
 def _columns(out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
     """The first ``n`` rows of each output, float64 on the host, in one copy."""
     keys = [k for k in _GREEK_KEYS if k in out]
@@ -112,11 +108,10 @@ class _BucketedService:
     def __init__(self, min_bucket: int, max_bucket: int, mesh, device) -> None:
         if min_bucket < 1 or max_bucket < min_bucket:
             raise ValueError("need 1 <= min_bucket <= max_bucket")
-        if mesh is not None:
-            raise ValueError("the port has no device mesh yet; pass mesh=None")
         self.min_bucket = int(min_bucket)
         self.max_bucket = int(max_bucket)
         self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh, self.device)
         self._lock = threading.Lock()  # one request at a time: its stats and device work
         self.stats: Dict[str, Any] = {
             "requests": 0,
@@ -159,7 +154,9 @@ class BarrierPricingService(_BucketedService):
     or numpy dtypes; a greek-bearing float32 service solves at float64
     unless ``greeks_dtype=float32`` (:func:`_resolve_greeks_dtype`).
     ``solver``, ``greeks_mode`` and ``max_chunk`` go to
-    ``price_barrier_batch``. ``mesh`` must be None (the port has no mesh).
+    ``price_barrier_batch``; so does ``mesh`` (None, or a ``parallel.Mesh``
+    of ``device``'s type, split over its ``"data"`` axis; ValueError
+    otherwise).
 
     ``route='hybrid'`` applies the FIS n_lim monitoring decision per trade
     (reference semantics discrete_barrier_analytic_pricer.py:278-342):
@@ -318,7 +315,7 @@ class BarrierPricingService(_BucketedService):
             dtype=self.dtype,
             device=self.device,
         )
-        return _pad_batch(tb, bucket - len(trades))
+        return pad_batch(tb, bucket - len(trades))
 
     def _price_pde(self, trades, bucket):
         B = len(trades)
@@ -330,6 +327,7 @@ class BarrierPricingService(_BucketedService):
             greeks_mode=self.greeks_mode,
             solver=self.solver,
             device=self.device,
+            mesh=self.mesh,
         )
         cols = _columns(out, B)
         in_idx = np.where([self._barriers(t)[2] for t in trades])[0]
@@ -444,7 +442,7 @@ class AmericanPricingService(_BucketedService):
             snap_to_grid=self.snap_to_grid,
             device=self.device,
         )
-        return _pad_batch(tb, bucket - len(trades))
+        return pad_batch(tb, bucket - len(trades))
 
     def _solve(self, trades, bucket, n_time_steps):
         out = price_american_batch(
@@ -455,6 +453,7 @@ class AmericanPricingService(_BucketedService):
             greeks_mode=self.greeks_mode,
             solver=self.solver,
             device=self.device,
+            mesh=self.mesh,
         )
         return _columns(out, len(trades))
 

@@ -31,6 +31,11 @@ the port's own runs here. The leg tensors are built on the host once per
 per (device, dtype), so a steady call moves no weight tensor to the card.
 Under a SIMM CSA the bumped netting runs and the margin aggregation stay
 on the device; only the (n_paths, n_times) IM comes back to the host.
+
+A factor given as a ``parallel.mesh.Sharded`` cube, split along its path
+axis (``shard_batch(cube, mesh, dim=1)``), runs the netting set on each
+shard's device with that device's leg copies; every path is priced alone,
+so the MTM is the unsharded one, gathered on the engine's device.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel.mesh import Sharded, on_device, split_rows
 from ..instruments.cashflow import LegType, SwapLeg
 from ..instruments.commodity import CommodityAverageForwardInstrument, CommodityForwardInstrument
 from ..instruments.equity_trs import EquityTRS
@@ -1490,6 +1496,13 @@ class DeviceExposureEngine:
     are moved there on each call. After a SIMM :meth:`compute`,
     ``simm_runs`` holds the number of netting runs it made (the base run
     and one per bump).
+
+    A factor may be a ``parallel.mesh.Sharded`` split along its path axis
+    (dim 1; every sharded factor split alike): :meth:`mtm` (and
+    :meth:`compute` through it) then runs each path shard on its device,
+    the unsharded factors split the same way, and gathers the MTM on
+    ``device``. A SIMM CSA gathers the factors on ``device`` first, since
+    each bump re-prices the whole cube.
     """
 
     def __init__(
@@ -1507,15 +1520,28 @@ class DeviceExposureEngine:
         self.device = resolve_device(device)
         self.simm_runs = 0
 
-    def _factors(self):
-        """(curves, scalars, dtype): the factor cubes as tensors on the
-        engine's device in one dtype."""
-        curves = {k: torch.as_tensor(v, device=self.device) for k, v in self.curves.items()}
-        scalars = {k: torch.as_tensor(v, device=self.device) for k, v in self.scalars.items()}
-        factors = [*curves.values(), *scalars.values()]
-        float32 = bool(factors) and all(t.dtype == torch.float32 for t in factors)
-        dtype = torch.float32 if float32 else torch.float64
-        if dtype == torch.float32 and self.device.type == "cuda":
+    def _factors(self, gather: bool = False):
+        """([(device, curves, scalars), ...], dtype): the factor cubes as
+        tensors in one dtype, one entry per path shard, on its device. With
+        no sharded factor, or with ``gather``, one entry on the engine's
+        device (a sharded factor gathered there); else the sharded factors'
+        own shards, and every other factor split along its path axis into
+        the same sizes and devices."""
+        factors = [dict(self.curves), dict(self.scalars)]
+        sharded = [v for f in factors for v in f.values() if isinstance(v, Sharded)]
+        if gather or not sharded:
+            devices, sizes = (self.device,), None
+            factors = [{k: v.gather(self.device) if isinstance(v, Sharded) else v for k, v in f.items()}
+                       for f in factors]
+        else:
+            devices, sizes = sharded[0].devices, sharded[0].sizes
+            if any(v.dim != 1 or v.devices != devices or v.sizes != sizes for v in sharded):
+                raise ValueError("sharded factors must all be split along their path axis "
+                                 "(dim 1) into the same shards on the same devices")
+        dtypes = {v.dtype if isinstance(v, Sharded) else torch.as_tensor(v).dtype
+                  for f in factors for v in f.values()}
+        dtype = torch.float32 if dtypes == {torch.float32} else torch.float64
+        if dtype == torch.float32 and "cuda" in {d.type for d in devices}:
             from ..models.pde.spectral import tf32_enabled
 
             if tf32_enabled():
@@ -1524,9 +1550,16 @@ class DeviceExposureEngine:
                     "matmuls, but TF32 is enabled (torch.backends.cuda.matmul); "
                     "disable it or pass float64 cubes"
                 )
-        curves = {k: v.to(dtype) for k, v in curves.items()}
-        scalars = {k: v.to(dtype) for k, v in scalars.items()}
-        return curves, scalars, dtype
+
+        def shards(v):
+            if isinstance(v, Sharded):
+                return tuple(t.to(dtype) for t in v.shards)
+            t = torch.as_tensor(v, device=devices[0]).to(dtype)
+            return (t,) if sizes is None else split_rows(t, sizes, devices, dim=1)
+
+        split = [{k: shards(v) for k, v in f.items()} for f in factors]
+        parts = [(d, *({k: t[i] for k, t in f.items()} for f in split)) for i, d in enumerate(devices)]
+        return parts, dtype
 
     def _prepare(
         self,
@@ -1535,8 +1568,10 @@ class DeviceExposureEngine:
         fx_factors: Optional[Sequence[Optional[str]]] = None,
         risky_curve=None,
         dtype: torch.dtype = torch.float64,
+        device: Optional[torch.device] = None,
     ):
-        """(legs, scales, fx_names) ready for :func:`_netting_mtm`.
+        """(legs, scales, fx_names) ready for :func:`_netting_mtm`, the legs
+        on ``device`` (default: the engine's).
 
         ``risky_curve``: FORWARD close-out substitution — a single curve
         name applied to every trade, or a per-instrument sequence (the
@@ -1552,11 +1587,12 @@ class DeviceExposureEngine:
                 hasattr(inst, "build_surfaces")
                 and getattr(inst, "_surfaces", None) is None
             ):
-                row0 = self.scalars[inst.spot_name][0]
+                spot = self.scalars[inst.spot_name]
+                row0 = (spot.gather() if isinstance(spot, Sharded) else spot)[0]
                 row0 = row0.cpu().numpy() if torch.is_tensor(row0) else np.asarray(row0)
                 inst.build_surfaces(float(np.mean(row0)), self.dates)
         legs, counts = _legs_for(
-            tuple(instruments), self.dates, self.tenors, self.device, dtype
+            tuple(instruments), self.dates, self.tenors, device or self.device, dtype
         )
         if risky_curve is None or isinstance(risky_curve, str):
             risky_list = [risky_curve] * len(instruments)
@@ -1634,13 +1670,21 @@ class DeviceExposureEngine:
         pipeline) pay the host cost and the copy once.
         ``fx_factors``: per-instrument scalar-factor name converting the
         trade currency to the reporting currency (None = same currency),
-        mirroring the generic engine's fx_rate_factor handling.
+        mirroring the generic engine's fx_rate_factor handling. Over
+        path-sharded factors each shard runs on its device (the work issued
+        shard by shard from this thread) and the MTM is gathered here.
         """
-        curves, scalars, dtype = self._factors()
-        legs, scales, fx_names = self._prepare(
-            instruments, notional_scales, fx_factors, risky_curve, dtype
-        )
-        return _netting_mtm(curves, scalars, legs, scales, fx_names)
+        parts, dtype = self._factors()
+        out = []
+        for device, curves, scalars in parts:
+            with on_device(device):
+                legs, scales, fx_names = self._prepare(
+                    instruments, notional_scales, fx_factors, risky_curve, dtype, device
+                )
+                out.append(_netting_mtm(curves, scalars, legs, scales, fx_names))
+        if len(out) == 1:
+            return out[0].to(self.device)
+        return torch.cat([m.to(self.device) for m in out], dim=0)
 
     def compute(
         self, instruments: Sequence[IRSwap], netting_set_id: str = "NS",
@@ -1764,10 +1808,12 @@ class DeviceExposureEngine:
         (n_buckets + n_scalars) runs in all instead of n_times x that. The
         bumped differences and the aggregation stay on the engine's
         device; the IM and the base MTM come back to the host once each.
+        Path-sharded factors are gathered on the engine's device first: a
+        bump moves a factor's whole cube.
         """
         cfg = csa.simm_config or SimmConfig()
         p = cfg.params
-        curves, scalars, dtype = self._factors()
+        [(_, curves, scalars)], dtype = self._factors(gather=True)
         legs, scales, fx_names = self._prepare(
             instruments, notional_scales, fx_factors, risky_curve, dtype
         )

@@ -317,7 +317,7 @@ class TestPortBoundary:
 
     @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils", "models.mc",
                                          "market_data", "instruments", "portfolio", "xva", "ops",
-                                         "scenarios", "calibration"])
+                                         "scenarios", "calibration", "parallel"])
     def test_exports_what_jax_exports(self, package):
         import importlib
 
@@ -341,7 +341,8 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.models.mc, finite_difference_tpu_torch.market_data, "
             "finite_difference_tpu_torch.instruments, finite_difference_tpu_torch.portfolio, "
             "finite_difference_tpu_torch.xva, finite_difference_tpu_torch.ops, "
-            "finite_difference_tpu_torch.scenarios, finite_difference_tpu_torch.calibration; "
+            "finite_difference_tpu_torch.scenarios, finite_difference_tpu_torch.calibration, "
+            "finite_difference_tpu_torch.parallel, finite_difference_tpu_torch.entry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"

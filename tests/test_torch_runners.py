@@ -7,7 +7,9 @@ DataFrame; the columns are the same and each model column is held within
 |model value| of the table. The cases mirror test_runners.py's barrier and
 American runner tests, TestReferenceModelParity and TestRunnerCLIs (the
 port's CLIs with ``--cpu``), and the rejections: unsupported base
-parameters, an unknown route, and any ``mesh``.
+parameters, an unknown route, and a ``mesh`` that is not a
+``parallel.Mesh`` (the runners over a mesh of repeated CPU devices are
+held in tests/test_torch_parallel.py).
 
 The Bjerksund–Stensland and BGK runners (TestBSRunner, TestBGKRunner and
 their CLIs) return row dicts like the JAX ones, which are held column by
@@ -145,6 +147,8 @@ class TestBarrierRunner:
         assert b.sum() == pytest.approx(s.sum(), rel=2e-2)  # KO + KI = vanilla in both
 
     def test_batched_rejects(self, tmp_path):
+        """Base parameters the batch cannot express, an unknown route, and a
+        ``mesh`` that is not a ``parallel.Mesh``, each ValueError."""
         cfg = _barrier_config(tmp_path)
         for key, val in (("divs", [(dt.date(2025, 8, 15), 1.0)]), ("already_hit", True),
                          ("already_in", True), ("underlying_spot_days", 3), ("option_days", 1),
@@ -228,6 +232,8 @@ class TestAmericanRunner:
                                        [r["model_price"] for r in scalar], rtol=1e-10)
 
     def test_batched_rejects(self, tmp_path):
+        """Non-zero settlement lags, and a ``mesh`` that is not a
+        ``parallel.Mesh``, each ValueError."""
         cfg = _american_config(tmp_path)
         for lag in ("underlying_spot_days", "option_days", "option_settlement_days"):
             with pytest.raises(ValueError, match="batched American runner does not support"):

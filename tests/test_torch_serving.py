@@ -13,9 +13,10 @@ tests/test_torch_analytic.py (the second difference divides the closed
 forms' last-digit differences by (1e-4 S)^2).
 
 Not ported: TestGreeksDtypePolicy's test_policy_warns_when_x64_disabled
-(torch always has float64, so the policy has no x64 branch) and
-TestMeshShardedService (the port has no device mesh yet: a service given
-``mesh`` raises, tested here).
+(torch always has float64, so the policy has no x64 branch).
+TestMeshShardedService is held in tests/test_torch_parallel.py (services
+over a mesh of repeated CPU devices); here, a service given a ``mesh``
+that is not a ``parallel.Mesh`` raises.
 """
 import http.client
 import json
@@ -48,7 +49,7 @@ from finite_difference_tpu_torch.serving import (
 )
 from finite_difference_tpu_torch.serving import __main__ as cli
 from finite_difference_tpu_torch.serving import server as port_server
-from finite_difference_tpu_torch.serving.service import _pad_batch
+from finite_difference_tpu_torch.models.pde.batch import pad_batch
 
 GRID = dict(n_time_steps=64, num_space_nodes=127)
 MONITORS = [0.02, 0.04, 0.06, 0.08]
@@ -150,7 +151,7 @@ class TestBarrierService:
     def test_pad_batch_clones_the_first_trade_and_the_spectral_layout(self):
         tb = _barrier_service().build_batch([_ko_trade(), _ko_trade(spot=104.0)], 2)
         tb.sp_k_end = torch.tensor([[3, 7], [4, 9]])
-        padded = _pad_batch(tb, 3)
+        padded = pad_batch(tb, 3)
         assert padded.batch_size == 5 and padded.sp_apply is None
         assert torch.equal(padded.sp_k_end[2:], torch.tensor([[3, 7]] * 3))
         assert torch.equal(padded.dt[2:], tb.dt[:1].expand(3, -1))
@@ -198,7 +199,8 @@ class TestBarrierService:
 
     @pytest.mark.parametrize("service", [BarrierPricingService, AmericanPricingService])
     def test_mesh_and_default_device(self, service, monkeypatch):
-        """No mesh in the port; without a card the default device raises."""
+        """A mesh that is not a ``parallel.Mesh`` raises; without a card the
+        default device raises."""
         with pytest.raises(ValueError, match="mesh"):
             service(mesh=object(), device="cpu")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -898,3 +898,156 @@ class TestDeviceFuzz:
             _, jd = _engines(JAX, dates, curves, scalars, make, generic=False)
             assert _rel(pd.mtm, jd.mtm) <= 1e-12, f"trial {trial}"
             np.testing.assert_allclose(pd.mtm, pg.mtm, rtol=1e-9, atol=1e-4, err_msg=f"trial {trial}")
+
+    def test_random_swap_configs_match_generic(self):
+        """JAX's fuzz of swap configurations (seed 21, 16 trials: random
+        frequencies, spreads, fixing tenors, OIS and sub-period compounding,
+        seasoned effective dates and maturities): the port's device MTM =
+        its generic engine's at JAX's gate, and = JAX's device MTM."""
+        rng = np.random.default_rng(21)
+        n_times, n_paths = 20, 8
+        dates = [VAL + dt.timedelta(days=30 * i) for i in range(n_times)]
+        t = np.arange(n_times)[:, None, None]
+        cube_arr = 0.07 + 0.0004 * t + rng.normal(0, 0.002, (n_times, n_paths, TENORS.size)).cumsum(axis=0)
+        port_dev, jax_dev = _both(lambda k: k.dx.DeviceExposureEngine(dates, {"ZAR-SWAP": cube_arr}, TENORS,
+                                                                       **k.kw))
+        cube = port_sc.ScenarioCube(dates, {"ZAR-SWAP": ("curve", cube_arr, TENORS)})
+        n_checked = 0
+        for trial in range(16):
+            freq = int(rng.choice([1, 3, 6, 12]))
+            fixing = rng.choice([None, 1, 3, 6])
+            fixing = None if fixing is None else int(fixing)
+            spread = float(rng.uniform(-0.01, 0.02))
+            eff = VAL + dt.timedelta(days=int(rng.integers(-400, 90)))
+            mat = min(eff + dt.timedelta(days=int(rng.integers(360, 900))), dates[-1])
+            if mat <= eff:
+                continue
+            kind = int(rng.integers(0, 3))  # simple forward, OIS, sub-period compounded
+            ois = kind == 1
+            reset_freq = 0
+            if kind == 2:
+                fixing = None
+                sub = [s for s in (1, 3, 6) if s < freq]
+                reset_freq = int(rng.choice(sub)) if sub else 0
+            notional = float(rng.uniform(1e5, 5e6))
+            fixed = float(rng.uniform(0.05, 0.1))
+
+            def make(pkg):
+                inst = pkg.inst
+                return inst.IRSwap(
+                    name=f"f{trial}", effective_date=eff, maturity_date=mat, notional=notional,
+                    receive_leg=inst.SwapLeg(inst.LegType.FLOATING, frequency=freq, curve_name="ZAR-SWAP",
+                                             spread=spread, fixing_tenor_months=None if ois else fixing,
+                                             overnight_compounding=ois, reset_frequency_months=reset_freq),
+                    pay_leg=inst.SwapLeg(inst.LegType.FIXED, frequency=freq, fixed_rate=fixed),
+                    discount_curve_name="ZAR-SWAP")
+
+            swap = make(PORT)
+            generic = port_ee.ExposureEngine(cube).compute(port_pf.NettingSet("NS", [port_pf.Trade(swap, "T")]))
+            got = _np(port_dev.mtm([swap]))
+            msg = f"trial {trial}: freq={freq} fixing={fixing} kind={kind} reset={reset_freq} eff={eff} mat={mat}"
+            np.testing.assert_allclose(got, generic.mtm, rtol=1e-9, atol=1e-4, err_msg=msg)
+            assert _rel(got, _np(jax_dev.mtm([make(JAX)]))) <= 1e-12, msg
+            n_checked += 1
+        assert n_checked >= 12
+
+    def test_random_csa_space_matches_generic(self):
+        """JAX's fuzz of the CSA space (seed 53, ten trials: MPOR, VM
+        thresholds, IM none/fixed/schedule/SIMM, standard or forward
+        close-out with a string or per-currency risky curve, over swaps,
+        TRS and index-linked swaps whose windows overlap the cube's
+        variously; the TRS initial-price case once went wrong in JAX): the
+        port's device compute() = its generic engine's (mtm, collateral,
+        exposure) at JAX's gates, and = JAX's device compute() (SIMM at
+        ``SIMM_VS_JAX``)."""
+        rng = np.random.default_rng(53)
+        n_times, n_paths = 16, 6
+        dates = [VAL + dt.timedelta(days=30 * i) for i in range(n_times)]
+        swap_arr = 0.073 + rng.normal(0, 0.002, (n_times, n_paths, TENORS.size)).cumsum(axis=0)
+        infl = 0.05 + rng.normal(0, 0.001, (n_times, n_paths, TENORS.size)).cumsum(axis=0)
+        eq = 100.0 * np.exp(rng.normal(0.001, 0.04, (n_times, n_paths)).cumsum(axis=0))
+        cpi = 102.4 * np.exp(0.004 * np.arange(n_times)[:, None]
+                             + rng.normal(0, 0.002, (n_times, n_paths)).cumsum(axis=0))
+        curves = {"ZAR-SWAP": swap_arr, "ZAR-RISKY": swap_arr + 0.015, "USD-RISKY": swap_arr + 0.025,
+                  "INFL.ZA": infl, "EQ.DIV": np.full((n_times, n_paths, TENORS.size), 0.02)}
+        scalars = {"EQ.SPOT": eq, "CPI.ZA": cpi}
+        factors = {**{k: ("curve", v, TENORS) for k, v in curves.items()},
+                   **{k: ("scalar", v) for k, v in scalars.items()}}
+        cube = port_sc.ScenarioCube(dates, factors)
+        port_dev, jax_dev = _both(lambda k: k.dx.DeviceExposureEngine(dates, curves, TENORS, scalars=scalars,
+                                                                       **k.kw))
+        n_checked = 0
+        for trial in range(10):
+            swap_eff = VAL + dt.timedelta(days=int(rng.integers(-300, 60)))
+            swap_mat = min(swap_eff + dt.timedelta(days=int(rng.integers(180, 700))), dates[-1])
+            if swap_mat <= max(swap_eff, dates[0]):
+                continue
+            swap_kw = dict(notional=float(rng.uniform(2e5, 2e6)), freq=int(rng.choice([3, 6])),
+                           spread=float(rng.uniform(-0.005, 0.01)), fixed=float(rng.uniform(0.06, 0.09)))
+            trs_kw = None
+            if rng.integers(0, 2):
+                trs_kw = dict(eff=VAL + dt.timedelta(days=int(rng.integers(-200, 30))),
+                              mat=dates[int(rng.integers(6, n_times))], qty=float(rng.uniform(100, 1500)),
+                              scaling=str(rng.choice(["Price", "Initial Price"])))
+            ils_kw = dict(pay=bool(rng.integers(0, 2)), receiver=bool(rng.integers(0, 2))) if rng.integers(0, 2) else None
+            im = str(rng.choice(["none", "fixed", "schedule", "simm"]))
+            close_out = str(rng.choice(["standard", "forward"]))
+            risky = None
+            if close_out == "forward":
+                risky = {"ZAR": "ZAR-RISKY", "USD": "USD-RISKY"} if rng.integers(0, 2) else "ZAR-RISKY"
+            csa_kw = dict(mpor_days=int(rng.choice([0, 5, 10, 22])), vm_threshold=float(rng.choice([0.0, 5e3, 5e4])),
+                          vm_threshold_post=float(rng.choice([0.0, 1e4])))
+            im_amount = float(rng.uniform(0, 2e4)) if im == "fixed" else 0.0
+
+            def make(pkg):
+                inst = pkg.inst
+                trades = [inst.IRSwap(
+                    name=f"s{trial}", effective_date=swap_eff, maturity_date=swap_mat,
+                    notional=swap_kw["notional"],
+                    receive_leg=inst.SwapLeg(inst.LegType.FLOATING, frequency=swap_kw["freq"],
+                                             curve_name="ZAR-SWAP", spread=swap_kw["spread"]),
+                    pay_leg=inst.SwapLeg(inst.LegType.FIXED, frequency=3, fixed_rate=swap_kw["fixed"]),
+                    discount_curve_name="ZAR-SWAP")]
+                if trs_kw:
+                    trades.append(inst.EquityTRS(
+                        name=f"t{trial}", effective_date=trs_kw["eff"], maturity_date=trs_kw["mat"],
+                        quantity=trs_kw["qty"], notional=100_000.0,
+                        interest_leg=inst.SwapLeg(inst.LegType.FLOATING, frequency=3, curve_name="ZAR-SWAP",
+                                                  spread=0.01),
+                        spot_name="EQ.SPOT", carry_curve_name="ZAR-SWAP", dividend_curve_name="EQ.DIV",
+                        discount_curve_name="ZAR-SWAP", initial_price=100.0,
+                        return_nominal_scaling=trs_kw["scaling"]))
+                if ils_kw:
+                    hist = {pkg.md.shift_months(pkg.md.first_of_month(VAL), -k): 100.0 + 0.3 * (8 - k)
+                            for k in range(0, 9)}
+                    trades.append(inst.IndexLinkedSwap(
+                        name=f"i{trial}", effective_date=VAL,
+                        maturity_date=dt.date(VAL.year + 1, VAL.month, VAL.day), notional=500_000.0,
+                        inflation_leg=inst.InflationLeg(
+                            real_rate=0.025, base_cpi=100.0, cpi_curve_name="CPI.ZA", frequency=6,
+                            inflation_rate_curve_name="INFL.ZA", pay_notional_at_maturity=ils_kw["pay"]),
+                        nominal_leg=inst.SwapLeg(inst.LegType.FIXED, frequency=6, fixed_rate=0.08),
+                        discount_curve_name="ZAR-SWAP", inflation_index=hist,
+                        inflation_receiver=ils_kw["receiver"]))
+                pf = pkg.pf
+                csa = pf.CSA(**csa_kw, im_method=pf.InitialMarginMethod(im), im_amount=im_amount,
+                             close_out_method=pf.CloseOutMethod(close_out), risky_curve_name=risky)
+                return trades, csa
+
+            trades, csa = make(PORT)
+            ccys = ["ZAR"] * len(trades)
+            generic = port_ee.ExposureEngine(cube).compute(port_pf.NettingSet(
+                "NS", [port_pf.Trade(x, f"T{i}", currency=c) for i, (x, c) in enumerate(zip(trades, ccys))],
+                csa=csa))
+            prof = port_dev.compute(trades, csa=csa, currencies=ccys)
+            jax_trades, jax_csa = make(JAX)
+            jax_prof = jax_dev.compute(jax_trades, csa=jax_csa, currencies=ccys)
+            simm = im == "simm"
+            tol = dict(rtol=1e-7, atol=1e-5) if simm else dict(rtol=1e-9, atol=1e-6)
+            msg = f"trial {trial}: im={im} close={close_out} risky={risky!r} n_trades={len(trades)}"
+            for f in ("mtm", "collateral", "exposure"):
+                np.testing.assert_allclose(getattr(prof, f), getattr(generic, f), err_msg=f"{msg} {f}", **tol)
+                limit = SIMM_VS_JAX if simm and f != "mtm" else 1e-12
+                assert _rel(getattr(prof, f), getattr(jax_prof, f)) <= limit, f"{msg} {f} vs JAX"
+            n_checked += 1
+        assert n_checked >= 8
