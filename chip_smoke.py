@@ -68,7 +68,12 @@ phase:
   services, the barrier runner and the device exposure engine over meshes
   that repeat the card (``["cuda:0"] * k``; over the real cards too where
   there are two or more), each held against its unsharded call, and the
-  port's ``entry()`` and ``dryrun_multichip(4)``.
+  port's ``entry()`` and ``dryrun_multichip(4)``;
+- the host-only remainder (phase 27, :func:`host_remainder_phases`): a
+  book of bonds, inflation-linked bonds and swaps and FRAs, the PCA
+  calibration on ten years of a 20-tenor curve, the GBM FX calibration of
+  eight currencies with its CSVs and the IR swap FA check, each checked
+  and shown to launch none of our kernels.
 
 The barrier path's phases ask for ``solver="spike"`` by name, so that
 the SPIKE march runs there whatever the auto rule picks.
@@ -266,6 +271,21 @@ MESH_SHARDS = (1, 2, 4)
 MESH_CALLS = 5  # host-clock calls per mesh, after a warm-up (the median is kept)
 MESH_REQUESTS = 4  # phase 19's mixed requests at bucket 512 through each service
 MESH_SAMPLES = 200_000  # the reductions' sample: MCConfig's default path count (22a's)
+# the host-only remainder (phase 27): a rates desk's book, a ten-year
+# daily curve history and an eight-currency FX vol market, seed 27
+REM_VAL = datetime.date(2025, 7, 28)
+REM_SEED = 27
+REM_CALLS = 5  # host-clock calls per sub-phase, after a warm-up (the median is kept)
+REM_BONDS, REM_INFLATION, REM_FRAS = 64, 16, 64
+REM_FLAT_NACA = 0.0775  # the zero-coupon bonds' flat curve
+REM_PCA_DAYS = 2520
+REM_PCA_TENORS = (0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0, 12.0, 15.0, 20.0,
+                  25.0, 30.0)
+REM_PCA_FACTORS = 3
+REM_FX = ("EUR", "USD", "GBP", "JPY", "CHF", "AUD", "CNY", "NGN")
+REM_FA_FIGURES = (334439.05, -27800.25)  # FA's pay and total PV (the reference's test_1.py)
+# the synthetic-curve leg PVs that tests/test_irswap_fa.py pins
+REM_FA_GOLDENS = {"pay_pv": 327214.7213617418, "receive_pv": 316727.46266538475}
 HW1F_XVA_TENORS = (0.25, 0.5, 1.0, 2.0, 5.0, 10.0)  # examples/hw1f_rates_xva.py
 HW1F_XVA_TODAY = (0.0705, 0.0710, 0.0718, 0.0735, 0.0765, 0.0788)
 
@@ -3803,6 +3823,329 @@ def mesh_phases(dev, card: dict) -> dict:
     return launches
 
 
+def host_remainder_book(rng):
+    """Phase 27a's book on ``REM_VAL``'s seeded ZAR curve (a knot every 30
+    days to 31 years, forward-filled daily), as constructor arguments: 64
+    zero-coupon bonds (1-30 years), 64 semi-annual fixed-rate bonds of
+    2-30 years (their next coupons 1-180 days out, so that the value date
+    falls before book close for some and inside the ex period for the
+    rest), 16 inflation-linked bonds (issued 2012-2024, 2028-2050
+    maturities) with a CPI history of 2010-2025, 16 inflation swaps and 64
+    FRAs (3- and 6-month periods starting 1-24 months out)."""
+    val = REM_VAL
+    n = 31 * 365 // 30 + 2
+    dates = [val - datetime.timedelta(days=30) + datetime.timedelta(days=30 * i) for i in range(n)]
+    rates = 0.0725 + 0.02 * (1.0 - np.exp(-np.arange(n) / 40.0)) + rng.normal(0.0, 5e-4, n)
+
+    def add_months(d, m):
+        y, mo = divmod(d.month - 1 + m, 12)
+        return datetime.date(d.year + y, mo + 1, min(d.day, 28))
+
+    zcb = [dict(face_value=float(rng.uniform(1e5, 1e7)), maturity_date=add_months(val, 12 * int(y)))
+           for y in rng.integers(1, 31, REM_BONDS)]
+    frb = []
+    for i in range(REM_BONDS):
+        # half the next coupons within 12 days: inside the 10-business-day ex period
+        ncd = val + datetime.timedelta(days=int(rng.integers(1, 13) if i % 2 else rng.integers(20, 181)))
+        frb.append(dict(notional=100.0, issue_date=datetime.date(2010, 1, 1), value_date=val,
+                        last_coupon_date=add_months(ncd, -6), next_coupon_date=ncd,
+                        maturity_date=add_months(ncd, 12 * int(rng.integers(2, 31))),
+                        coupon_rate=float(rng.uniform(0.065, 0.105)), frequency="semi-annual"))
+    months = [datetime.date(2010 + m // 12, m % 12 + 1, 1) for m in range(15 * 12 + 7)]
+    cpi = dict(zip(months, 70.0 * np.exp(np.cumsum(rng.normal(0.05 / 12, 0.003, len(months))))))
+    ilb = [dict(issue_date=datetime.date(int(y), 3, 31), maturity_date=datetime.date(int(m), 3, 31),
+                notional=float(rng.uniform(1e6, 5e7)), coupon_rate=float(rng.uniform(0.015, 0.035)),
+                value_date=val, base_cpi=float(cpi[datetime.date(int(y) - 1, 11, 1)]))
+           for y, m in zip(rng.integers(2012, 2025, REM_INFLATION), rng.integers(2028, 2051, REM_INFLATION))]
+    ils = [dict(issue_date=datetime.date(int(y), 1, 31), maturity_date=datetime.date(int(m), 7, 31),
+                notional=float(rng.uniform(1e6, 1e8)), fixed_rate=float(rng.uniform(0.02, 0.04)), value_date=val,
+                float_frequency_months=int(f))
+           for y, m, f in zip(rng.integers(2018, 2026, REM_INFLATION), rng.integers(2027, 2041, REM_INFLATION),
+                              rng.choice([3, 6], REM_INFLATION))]
+    fra = []
+    for _ in range(REM_FRAS):
+        period = int(rng.choice([3, 6]))
+        settle = add_months(val, int(rng.integers(1, 25)))
+        fra.append(dict(settle_date=settle, maturity_date=add_months(settle, period), strike_rate=0.075,
+                        notional=float(rng.uniform(1e6, 1e8)),
+                        frequency="quarterly" if period == 3 else "semi-annual"))
+    return (dates, rates), cpi, zcb, frb, ilb, ils, fra
+
+
+def host_remainder_panel(rng):
+    """Phase 27b's history: 2,520 business days (ten years) of a 20-tenor
+    ZAR swap curve, each tenor's log level an OU process (alpha 1.2 a
+    year, 15% volatility, around 6.5-9.5%) driven by level, slope and
+    curvature shocks plus its own, as :class:`calibration.Panel` with
+    ``datetime.date`` rows and "ZAR-SWAP,<tenor>" columns."""
+    from finite_difference_tpu_torch import calibration as cal
+
+    tenors = np.array(REM_PCA_TENORS)
+    x = np.log(tenors / 30.0 + 1.0)
+    loadings = np.stack([np.ones_like(x), x - x.mean(), (x - x.mean()) ** 2 - ((x - x.mean()) ** 2).mean()])
+    theta = np.log(0.065 + 0.03 * x / x.max())
+    step = 1.0 / 252.0
+    logs = np.empty((REM_PCA_DAYS, len(tenors)))
+    logs[0] = theta
+    shocks = rng.normal(size=(REM_PCA_DAYS, 3)) @ (loadings * np.array([[0.8], [0.5], [0.3]])) \
+        + 0.3 * rng.normal(size=(REM_PCA_DAYS, len(tenors)))
+    for i in range(1, REM_PCA_DAYS):
+        logs[i] = logs[i - 1] + 1.2 * (theta - logs[i - 1]) * step + 0.15 * np.sqrt(step) * shocks[i]
+    days, d = [], datetime.date(2015, 7, 1)
+    while len(days) < REM_PCA_DAYS:
+        if d.weekday() < 5:
+            days.append(d)
+        d += datetime.timedelta(days=1)
+    return cal.Panel(days, [f"ZAR-SWAP,{t}" for t in tenors], np.exp(logs))
+
+
+def host_remainder_market(directory: str, rng) -> str:
+    """Phase 27c's RiskFlow market, written to ``directory``: for each of
+    :data:`REM_FX` an FX vol surface of 12 expiries (one month to ten
+    years) x 5 moneyness points (0.8-1.2, a smile on seeded ATM vols of
+    6-30%, so that some variance curves decline), the stored GBM
+    parameters and the market-price entry that names the surface."""
+    expiries = (1 / 12, 2 / 12, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 5.0, 7.0, 10.0)
+    factors, prices = {}, {}
+    for ccy in REM_FX:
+        atm = rng.uniform(0.06, 0.30, len(expiries))
+        rows = [[m, t, v + 0.04 * (m - 1.0) ** 2 + 0.01 * (1.0 - m)]
+                for t, v in zip(expiries, atm) for m in (0.8, 0.9, 1.0, 1.1, 1.2)]
+        factors[f"FXVol.{ccy}"] = {"Surface": {".Curve": {"meta": [], "data": rows}}}
+        factors[f"GBMAssetPriceTSModelParameters.{ccy}"] = {
+            "Vol": {".Curve": {"meta": [], "data": [[t, float(v)] for t, v in zip(expiries, atm)]}},
+            "Quanto_FX_Correlation": 0.0}
+        prices[f"GBMAssetPriceTSModelPrices.{ccy}"] = {"instrument": {"Asset_Price_Volatility": ccy}}
+    path = os.path.join(directory, "gbm_fx_market.json")
+    with open(path, "w") as fh:
+        json.dump({"MarketData": {"Price Factors": factors, "Price Models": {}, "Model Configuration": {},
+                                  "Correlations": {}, "Market Prices": prices}}, fh)
+    return path
+
+
+def host_remainder_phases(card: dict) -> dict:
+    """Phase 27, the host-only remainder: ``bonds``, the PCA and GBM-FX
+    calibrations and the IR swap FA check. In both packages these are
+    host Python and numpy, so each sub-phase checks that none of our
+    kernels launched (the counts zeroed just before it and read after) and
+    that the card's allocated memory did not change. Each reports host ms
+    per call, the median of :data:`REM_CALLS` calls after a warm-up.
+    Returns the launch counts summed over 27a-27d.
+
+    - 27a, :func:`host_remainder_book`: the zero-coupon bonds' PV and PV01,
+      the fixed-rate bonds' dirty, accrued, clean, YTM, val01 and gamma,
+      the inflation-linked bonds' summaries and their forwards at 3 months
+      (long and short at a strike of 95), the swaps' NPV and fair rate and
+      the FRAs' forward and NPV. Checks: ZCB PV = face e^(-rT) within 1e-12
+      relative (r the curve's NACC rate); the YTM round trip within 1e-10
+      of the dirty price; accrued >= 0 before book close and < 0 inside
+      the ex period, both present; a forward at its default strike, a swap
+      at its fair rate and an FRA at its forward price to 0 within 1e-8 of
+      notional; long = -short for the forwards and FRAs, pay = -receive for
+      the swaps, within 1e-12 relative.
+    - 27b, ``calibrate_pca_interest_rate`` on :func:`host_remainder_panel`
+      with 3 factors, and once at full rank. Checks: the eigenvalues
+      descend; at full rank aki @ aki.T equals the covariance (outer(vols)
+      x correlation) within 1e-10 of its largest entry.
+    - 27c, ``run_gbm_fx_calibration`` on :func:`host_remainder_market` with
+      CSV export. Checks: every corrected variance curve (avg vol^2 x T)
+      is non-decreasing within 1e-12; two CSVs per currency.
+    - 27d, ``run_irswap_fa_check(334439.05, -27800.25)``. Checks: the pay
+      and receive PVs equal the synthetic goldens (JAX's test pins them)
+      within 1e-12 relative.
+    """
+    import gc
+    import statistics
+    import tempfile
+
+    import torch
+
+    from finite_difference_tpu_torch import bonds, calibration as cal, kernels
+    from finite_difference_tpu_torch.instruments.schedule import get_calendar
+    from finite_difference_tpu_torch.market_data import HistoricalCPI
+    from finite_difference_tpu_torch.runners import run_irswap_fa_check
+    from finite_difference_tpu_torch.utils.curves import DailyNacaCurve, flat_curve
+
+    wall, launches, allocated = {}, {}, {}
+
+    def measured(label, fn):
+        """(fn()'s result, median host ms of REM_CALLS calls after a warm-up),
+        holding that ``fn`` launched no kernel of ours and left the card's
+        allocated memory as it was."""
+        # earlier phases' garbage cycles may still hold card tensors: collect
+        # them first, so that only this path's own use shows
+        gc.collect()
+        kernels.reset_launch_counts()
+        held = torch.cuda.memory_allocated()
+        out = fn()
+        ms = statistics.median(host_ms(fn)[1] for _ in range(REM_CALLS))
+        launches[label] = dict(kernels.launch_counts)
+        allocated[label] = torch.cuda.memory_allocated() - held
+        check(not any(launches[label].values()), f"phase {label} launched a kernel of ours: {launches[label]}")
+        check(allocated[label] == 0, f"phase {label} changed the card's allocated memory by {allocated[label]} B")
+        return out, ms
+
+    def device_use(sub: str) -> dict:
+        """The launches of our kernels and the change of the card's allocated
+        bytes over sub-phase ``sub``'s calls."""
+        labels = [k for k in launches if k.split()[0] == sub]
+        return dict(launches=sum(sum(launches[k].values()) for k in labels),
+                    cuda_allocated_change_bytes=sum(allocated[k] for k in labels))
+
+    rng = np.random.default_rng(REM_SEED)
+    # 27a. bonds ----------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    curve_points, cpi_map, zcb_kw, frb_kw, ilb_kw, ils_kw, fra_kw = host_remainder_book(rng)
+    curve = DailyNacaCurve(curve_points, REM_VAL)
+    flat = flat_curve(REM_FLAT_NACA, REM_VAL, end=REM_VAL + datetime.timedelta(days=31 * 366))
+    infl_df = lambda d: math.exp(-0.05 * (d - REM_VAL).days / 365.0)
+    cpi = HistoricalCPI(REM_VAL, cpi_map, discount_factor_fn=infl_df, extend_cpi=360)
+    ms_by = {}
+
+    def zero_coupon():
+        out = []
+        for kw in zcb_kw:
+            p = bonds.ZeroCouponBondPricer(bonds.ZeroCouponBond(**kw), flat)
+            out.append((p.present_value(), p.pv01()))
+        return out
+
+    def fixed_rate():
+        out = []
+        for kw in frb_kw:
+            pr = bonds.FixedRateBondPricer(bonds.FixedRateBond(**kw), curve)
+            ytm = pr.yield_to_maturity()
+            out.append(dict(dirty=pr.dirty_price(), accrued=pr.accrued_amount(), clean=pr.clean_price(), ytm=ytm,
+                            round_trip=pr._dirty_from_yield(ytm), val01=pr.val01(yield_to_maturity=ytm),
+                            gamma=pr.gamma(yield_to_maturity=ytm)))
+        return out
+
+    def inflation_bonds():
+        out = []
+        for kw in ilb_kw:
+            bond = bonds.InflationLinkedBondPricer(discount_curve=curve, historical_cpi=cpi, **kw)
+            fwd_date = REM_VAL + datetime.timedelta(days=91)
+            at_fwd = bonds.ForwardInflationBondPricer(bond, fwd_date)
+            long, short = (bonds.ForwardInflationBondPricer(bond, fwd_date, strike_price=95.0, position=p).npv()
+                           for p in ("long", "short"))
+            out.append(dict(spot=bond.summary(), forward=at_fwd.summary(), long=long, short=short,
+                            notional=bond.notional))
+        return out
+
+    def inflation_swaps():
+        out = []
+        for kw in ils_kw:
+            pricers = [bonds.InflationLinkedSwapPricer(bonds.InflationLinkedSwap(
+                historical_cpi=cpi, yield_curve=curve, pay_fixed_leg=pay, **kw)) for pay in (True, False)]
+            fair = pricers[0].fair_fixed_rate()
+            at_fair = bonds.InflationLinkedSwapPricer(bonds.InflationLinkedSwap(
+                historical_cpi=cpi, yield_curve=curve, **{**kw, "fixed_rate": fair})).npv()
+            out.append(dict(pay=pricers[0].npv(), receive=pricers[1].npv(), fair=fair, at_fair=at_fair,
+                            notional=kw["notional"]))
+        return out
+
+    def fras():
+        out = []
+        for kw in fra_kw:
+            long, short = (bonds.ForwardRateAgreementPricer(bonds.ForwardRateAgreement(position=p, **kw), curve)
+                           for p in ("long", "short"))
+            fwd = long.forward_rate()
+            at_fwd = bonds.ForwardRateAgreementPricer(
+                bonds.ForwardRateAgreement(position="long", **{**kw, "strike_rate": fwd}), curve).npv()
+            out.append(dict(forward=fwd, long=long.npv(), short=short.npv(), at_forward=at_fwd,
+                            notional=kw["notional"]))
+        return out
+
+    results = {}
+    for name, fn in (("zero_coupon", zero_coupon), ("fixed_rate", fixed_rate),
+                     ("inflation_bond", inflation_bonds), ("inflation_swap", inflation_swaps), ("fra", fras)):
+        results[name], ms_by[name] = measured(f"27a {name}", fn)
+    zcb_gap = max(abs(pv - kw["face_value"] * math.exp(-math.log1p(REM_FLAT_NACA) * flat.year_fraction(
+        REM_VAL, kw["maturity_date"]))) / pv for (pv, _), kw in zip(results["zero_coupon"], zcb_kw))
+    frb = results["fixed_rate"]
+    round_trip = max(abs(b["round_trip"] - b["dirty"]) for b in frb)
+    cal_sa = get_calendar("SouthAfrica")
+    ex = [REM_VAL >= cal_sa.add_working_days(kw["next_coupon_date"], -10) for kw in frb_kw]
+    check(all((b["accrued"] < 0) == e for b, e in zip(frb, ex)) and 0 < sum(ex) < len(ex),
+          f"27a accrued against book close: {sum(ex)} of {len(ex)} ex")
+    check(all(b["val01"] > 0 and b["gamma"] > 0 and abs(b["clean"] - (b["dirty"] - b["accrued"])) <= 1e-12 * b["dirty"]
+              for b in frb), "27a val01, gamma or clean price")
+    zero_gap = max(
+        [abs(b["forward"]["npv"]) / b["notional"] for b in results["inflation_bond"]]
+        + [abs(s["at_fair"]) / s["notional"] for s in results["inflation_swap"]]
+        + [abs(f["at_forward"]) / f["notional"] for f in results["fra"]])
+    sign_gap = max(
+        [abs(b["long"] + b["short"]) / abs(b["long"]) for b in results["inflation_bond"]]
+        + [abs(s["pay"] + s["receive"]) / abs(s["pay"]) for s in results["inflation_swap"]]
+        + [abs(f["long"] + f["short"]) / abs(f["long"]) for f in results["fra"]])
+    check(zcb_gap <= 1e-12, f"27a ZCB PV vs face e^(-rT): {zcb_gap:.3e} > 1e-12")
+    check(round_trip <= 1e-10, f"27a YTM round trip: {round_trip:.3e} > 1e-10")
+    check(zero_gap <= 1e-8, f"27a NPV at the fair strike or rate: {zero_gap:.3e} > 1e-8 of notional")
+    check(sign_gap <= 1e-12, f"27a long vs short: {sign_gap:.3e} > 1e-12")
+    emit("host_remainder_bonds", zero_coupon=len(zcb_kw), fixed_rate=len(frb_kw), ex_coupon=sum(ex),
+         inflation_bonds=len(ilb_kw), inflation_swaps=len(ils_kw), fras=len(fra_kw), ms=ms_by,
+         book_ms=sum(ms_by.values()), zcb_vs_closed_form=zcb_gap, ytm_round_trip=round_trip,
+         fair_npv_over_notional=zero_gap, long_plus_short=sign_gap,
+         ytm_range=[min(b["ytm"] for b in frb), max(b["ytm"] for b in frb)],
+         limits={"zcb": 1e-12, "ytm_round_trip": 1e-10, "fair_npv": 1e-8, "long_short": 1e-12},
+         **device_use("27a"), **card)
+    wall["27a bonds"] = time.perf_counter() - t_phase
+
+    # 27b. PCA ------------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    panel = host_remainder_panel(rng)
+    info, pca_ms = measured("27b", lambda: cal.calibrate_pca_interest_rate(panel, num_factors=REM_PCA_FACTORS))
+    full, full_ms = measured("27b full",
+                             lambda: cal.calibrate_pca_interest_rate(panel, num_factors=len(REM_PCA_TENORS)))
+    stats, correlation = cal.compute_curve_statistics(panel)[:2]
+    vols = stats["Reversion Volatility"]
+    covariance = np.outer(vols, vols) * correlation.values
+    aki = full.correlation_coef.T
+    recon = float(np.abs(aki @ aki.T - covariance).max() / np.abs(covariance).max())
+    evals = [e["Eigenvalue"] for e in full.param["Eigenvectors"]]
+    check(bool(np.isfinite(covariance).all()), "27b covariance not finite")
+    check(all(a >= b for a, b in zip(evals, evals[1:])), "27b eigenvalues do not descend")
+    check(recon <= 1e-10, f"27b aki aki^T vs covariance: {recon:.3e} > 1e-10")
+    top = [e["Eigenvalue"] for e in info.param["Eigenvectors"]]
+    emit("host_remainder_pca", days=len(panel.index), tenors=len(panel.columns), factors=REM_PCA_FACTORS,
+         ms=pca_ms, full_rank_ms=full_ms, eigenvalues=top, explained=sum(top) / sum(evals),
+         reversion_speed=info.param["Reversion_Speed"], reconstruction=recon, limits={"reconstruction": 1e-10},
+         **device_use("27b"), **card)
+    wall["27b PCA"] = time.perf_counter() - t_phase
+
+    # 27c. GBM FX ---------------------------------------------------------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = host_remainder_market(tmp, rng)
+        out_dir = os.path.join(tmp, "csv")
+        (calibrated, comparisons), fx_ms = measured(
+            "27c", lambda: cal.run_gbm_fx_calibration(path, output_dir=out_dir))
+        written = sorted(os.listdir(out_dir))
+    worst = min(float(np.diff(np.array(c["expiries"]) * np.array([v for _, v in c["Vol"]]) ** 2).min())
+                for c in calibrated.values())
+    corrected = sorted(k for k, c in calibrated.items() if c["corrected"])
+    check(sorted(calibrated) == sorted(REM_FX) and len(written) == 2 * len(REM_FX),
+          f"27c currencies {sorted(calibrated)}, files {len(written)}")
+    check(worst >= -1e-12, f"27c a corrected variance curve declines by {-worst:.3e} > 1e-12")
+    check(bool(corrected), "27c no variance curve needed correcting")
+    emit("host_remainder_gbm_fx", currencies=len(calibrated),
+         expiries=len(next(iter(calibrated.values()))["expiries"]), moneyness=5, corrected=corrected, min_variance_step=worst, csv_files=len(written),
+         comparison_rows=sum(len(r) for r in comparisons.values()), ms=fx_ms, limits={"variance_decline": 1e-12},
+         **device_use("27c"), **card)
+    wall["27c GBM FX"] = time.perf_counter() - t_phase
+
+    # 27d. IR swap FA check -----------------------------------------------------------
+    t_phase = time.perf_counter()
+    fa, fa_ms = measured("27d", lambda: run_irswap_fa_check(*REM_FA_FIGURES, verbose=False))
+    gaps = {k: abs(fa[k] - REM_FA_GOLDENS[k]) / abs(REM_FA_GOLDENS[k]) for k in REM_FA_GOLDENS}
+    check(max(gaps.values()) <= 1e-12, f"27d pay/receive PV vs the goldens: {gaps}")
+    emit("host_remainder_irswap_fa", pay_pv=fa["pay_pv"], receive_pv=fa["receive_pv"], total_pv=fa["total_pv"],
+         vs_goldens=gaps, ms=fa_ms, limits={"vs_goldens": 1e-12}, **device_use("27d"), **card)
+    wall["27d IR swap FA"] = time.perf_counter() - t_phase
+
+    emit("host_remainder_phase_wall_s", **wall, total=sum(wall.values()), **card)
+    return {k: sum(c.get(k, 0) for c in launches.values()) for k in kernels.launch_counts}
+
+
 def main() -> int:
     import torch
 
@@ -4028,6 +4371,13 @@ def main() -> int:
     check(all(mesh_launches.get(k["name"], 0) > 0 for k in (k1, k1a, k2)),
           f"phase 26 did not launch K1, K1a and K2 over the mesh: {mesh_launches}")
     wall["26 device mesh"] = time.perf_counter() - t1
+
+    # 27. the host-only remainder -----------------------------------------------------------
+    t1 = time.perf_counter()
+    remainder_launches = host_remainder_phases(card)
+    for k in (k1, k1a, k2, k3, k4):
+        k["host_remainder_launches"] = remainder_launches.get(k["name"], 0)
+    wall["27 host remainder"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------

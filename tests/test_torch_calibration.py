@@ -1,9 +1,9 @@
 """The port's calibration layer (``finite_difference_tpu_torch.calibration``:
-the panel statistics, Clewlow–Strickland historical and implied, and
-Hull–White one-factor) against the JAX package, on the CPU at float64, on
-the same numpy panels and JSON files; and the checks of
-tests/test_calibration.py's TestStatistics, TestCSCalibration,
-TestCSPipeline and the HW1F part of TestHW1F, and of
+the panel statistics, Clewlow–Strickland historical and implied,
+Hull–White one-factor, the PCA interest-rate model and GBM FX) against the
+JAX package, on the CPU at float64, on the same numpy panels and JSON
+files; and the checks of tests/test_calibration.py's TestStatistics,
+TestCSCalibration, TestCSPipeline, TestHW1F, TestPCA and TestGBMFX, and of
 test_hw1f.py::TestHW1FParams::test_from_calibration_pipeline_output, on
 the port.
 
@@ -20,10 +20,19 @@ Tolerances, with the largest gap measured on these inputs in brackets:
   ``bootstrap_from_json``: 1e-6 absolute, L-BFGS-B's own tolerance: both
   packages stop at its default ``pgtol``/``ftol`` from gradients that
   differ in their last bits, so the iterates may part at that level
-  [5.6e-16 on the round trip].
+  [5.6e-16 on the round trip];
+- ``calibrate_pca_interest_rate`` on every panel: the reversion speed,
+  historical yield and yield volatility within ``STATS_GAP``, eigenvalues
+  within 1e-10 relative, eigenvectors (after the sign rule, largest
+  entry positive) and loadings within 1e-8 of their largest entry [0:
+  the covariance is equal bit for bit, so ``eigh`` returns the same
+  vectors and no sign flips];
+- GBM FX: the calibrated dicts, the comparison rows and the CSV files'
+  text equal bit for bit [0].
 """
 import datetime as dt
 import json
+import os
 from functools import lru_cache
 
 import jax.numpy as jnp
@@ -37,6 +46,7 @@ import finite_difference_tpu.calibration.cs as jax_cs
 import finite_difference_tpu.calibration.statistics as jax_stats
 import finite_difference_tpu_torch.calibration as port_cal
 import finite_difference_tpu_torch.calibration.cs as port_cs
+import finite_difference_tpu_torch.calibration.gbm_fx as gbm_fx
 import finite_difference_tpu_torch.calibration.statistics as port_stats
 from finite_difference_tpu.models.mc.hw1f import HW1FParams as JaxHW1FParams
 from finite_difference_tpu_torch.models.mc.hw1f import HW1FParams
@@ -45,6 +55,8 @@ CPU = "cpu"
 STATS_GAP = 1e-12
 OBJECTIVE_GAP = 1e-12
 FIT_GAP = 1e-6
+EIGENVALUE_GAP = 1e-10
+EIGENVECTOR_GAP = 1e-8
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -422,7 +434,7 @@ class TestHW1FEqualJax:
 
 
 class TestHW1F:
-    """tests/test_calibration.py::TestHW1F (the HW1F part) on the port."""
+    """tests/test_calibration.py::TestHW1F on the port."""
 
     def test_calibrate_structure(self):
         param, corr, delta = port_cal.calibrate_hw1f_interest_rate(_port_panel(_ou_panel(n_cols=3)))
@@ -444,6 +456,15 @@ class TestHW1F:
                                    rtol=1e-12)
         assert [t for t, _ in param["Historical_Yield"]] == [0.25, 0.75, 1.0]
 
+    def test_pca_all_nan_column_keeps_tenor_alignment(self):
+        df = _ou_panel(n_cols=4)
+        df["A,0.5"] = np.nan
+        info = port_cal.calibrate_pca_interest_rate(_port_panel(df))
+        for key in ("Yield_Volatility", "Historical_Yield"):
+            assert [t for t, _ in info.param[key]] == [0.25, 0.75, 1.0], key
+        for ev in info.param["Eigenvectors"]:
+            assert [t for t, _ in ev["Eigenvector"]] == [0.25, 0.75, 1.0]
+
     def test_negative_rates_shifted(self):
         param, _, _ = port_cal.calibrate_hw1f_interest_rate(_port_panel(_ou_panel(n_cols=2) / 1000.0 - 0.05))
         assert param["Force_Positive"] > 0
@@ -462,3 +483,292 @@ class TestHW1F:
         np.testing.assert_array_equal(p.sigma_tenors, jp.sigma_tenors)
         _elementwise(p.sigma_values, jp.sigma_values, STATS_GAP)
         _elementwise([p.alpha], [jp.alpha], STATS_GAP)
+
+
+# ---------------------------------------------------------------------------
+# PCA
+
+
+def _same_pca(got, want):
+    """Two ``CalibrationInfo``: the OU parameters within STATS_GAP, the
+    eigenvalues within EIGENVALUE_GAP, the eigenvectors and the loadings
+    within EIGENVECTOR_GAP of their largest entry, the rest equal."""
+    g, w = got.param, want.param
+    assert list(g) == list(w)
+    _elementwise([g["Reversion_Speed"]], [w["Reversion_Speed"]], STATS_GAP)
+    for k in ("Historical_Yield", "Yield_Volatility"):
+        assert [t for t, _ in g[k]] == [t for t, _ in w[k]], k
+        _elementwise([v for _, v in g[k]], [v for _, v in w[k]], STATS_GAP)
+    assert len(g["Eigenvectors"]) == len(w["Eigenvectors"])
+    for ge, we in zip(g["Eigenvectors"], w["Eigenvectors"]):
+        assert list(ge) == list(we)
+        _elementwise([ge["Eigenvalue"]], [we["Eigenvalue"]], EIGENVALUE_GAP)
+        assert [t for t, _ in ge["Eigenvector"]] == [t for t, _ in we["Eigenvector"]]
+        gv, wv = np.array([v for _, v in ge["Eigenvector"]]), np.array([v for _, v in we["Eigenvector"]])
+        assert np.abs(gv - wv).max() <= EIGENVECTOR_GAP * np.abs(wv).max()
+    for k in ("Rate_Drift_Model", "Princ_Comp_Source", "Distribution_Type", "Force_Positive"):
+        assert g[k] == w[k], k
+    assert got.correlation_coef.shape == want.correlation_coef.shape
+    scale = np.abs(want.correlation_coef).max()
+    assert np.abs(got.correlation_coef - want.correlation_coef).max() <= EIGENVECTOR_GAP * scale
+    _same_panel(got.delta, want.delta)
+
+
+def _first_column(df, kind):
+    """``df`` with its first tenor made degenerate: all ones (a zero log
+    spread, so beta is 0/0) or alternating (beta < -1, so alpha is the log
+    of a negative): either way its reversion volatility is NaN, a leading
+    gap that the linear fill keeps."""
+    df = df.copy()
+    n = len(df)
+    df.iloc[:, 0] = 1.0 if kind == "ones" else 100.0 * (1.0 + 0.5 * (-1.0) ** np.arange(n))
+    return df
+
+
+class TestPCAEqualJax:
+    @pytest.mark.parametrize("num_factors", [2, 3])
+    @pytest.mark.parametrize("panel", list(PANELS))
+    def test_calibrate(self, panel, num_factors):
+        df = PANELS[panel]
+        got = port_cal.calibrate_pca_interest_rate(_port_panel(df), num_factors=num_factors)
+        want = jax_cal.calibrate_pca_interest_rate(df, num_factors=num_factors)
+        _same_pca(got, want)
+        g_stats, w_stats = port_cal.compute_curve_statistics(_port_panel(df)), jax_cal.compute_curve_statistics(df)
+        for g, w in zip(g_stats[:3], w_stats[:3]):
+            _same_panel(g, w)
+        assert g_stats[3] == w_stats[3]
+
+    @pytest.mark.parametrize("kind", ["ones", "alternating"])
+    def test_nan_volatility_raises_as_jax(self, kind):
+        """A NaN reversion volatility puts NaN into the covariance, and
+        ``np.linalg.eigh`` refuses it in both packages alike."""
+        df = _first_column(PANELS["holes"], kind)
+        stats = port_cal.compute_curve_statistics(_port_panel(df))[0]
+        assert np.isnan(stats["Reversion Volatility"][0]) and not np.isnan(stats["Reversion Volatility"][1:]).any()
+        with pytest.raises(np.linalg.LinAlgError) as want:
+            jax_cal.calibrate_pca_interest_rate(df)
+        with pytest.raises(np.linalg.LinAlgError) as got:
+            port_cal.calibrate_pca_interest_rate(_port_panel(df))
+        assert str(got.value) == str(want.value)
+
+    @pytest.mark.parametrize("cut", ["one_tenor", "four_rows", "all_nan"])
+    def test_too_little_data_raises_as_jax(self, cut):
+        df = PANELS["all_nan_column_and_row"]
+        df = {"one_tenor": df[["A,0.25", "A,0.5"]], "four_rows": df.iloc[8:13],
+              "all_nan": df * np.nan}[cut]
+        with pytest.raises(ValueError) as want:
+            jax_cal.compute_curve_statistics(df)
+        with pytest.raises(ValueError) as got:
+            port_cal.calibrate_pca_interest_rate(_port_panel(df))
+        assert str(got.value) == str(want.value)
+
+    def test_pca_function(self):
+        rng = np.random.default_rng(4)
+        A = rng.normal(size=(6, 6))
+        for k in (1, 3, 6):
+            for g, w in zip(port_cal.pca(A @ A.T, k), jax_cal.pca(A @ A.T, k)):
+                np.testing.assert_array_equal(g, w)
+
+    def test_extract_and_compare(self, tmp_path):
+        p = tmp_path / "md.json"
+        p.write_text(json.dumps(_pca_market()))
+        name = "PCAInterestRateModel.ZAR-SWAP"
+        ext = port_cal.extract_pca_params(str(p), [name, "missing"])
+        assert ext == jax_cal.extract_pca_params(str(p), [name, "missing"])
+        with pytest.raises(FileNotFoundError):
+            port_cal.extract_pca_params(str(tmp_path / "missing.json"), name)
+        cal = port_cal.calibrate_pca_interest_rate(_port_panel(_ou_panel(n_cols=3)), num_factors=3)
+        rows = port_cal.compare_pca_params(cal, ext, name)
+        want = jax_cal.compare_pca_params(cal, ext, name).to_dict("records")
+        assert [r["Parameter"] for r in rows] == ["Reversion_Speed", "Eigenvalue_0", "Eigenvalue_1"]
+        assert len(rows) == len(want)
+        for row, w in zip(rows, want):
+            assert list(row) == list(w)
+            for k, v in row.items():
+                assert v == w[k] or (np.isnan(v) and np.isnan(w[k])), k
+        # a side without the value: NaN, as pandas' subtraction gives
+        rows = port_cal.compare_pca_params({"Eigenvectors": []}, ext, name)
+        assert rows[0]["Calibrated"] is None and np.isnan(rows[0]["Abs_Diff"])
+
+
+def _pca_market():
+    curve = lambda pairs: {".Curve": {"meta": [], "data": pairs}}
+    return {"MarketData": {"Price Models": {"PCAInterestRateModel.ZAR-SWAP": {
+        "Reversion_Speed": 1.0,
+        "Historical_Yield": curve([[0.25, 0.07], [1.0, 0.072]]),
+        "Yield_Volatility": curve([[0.25, 0.01], [1.0, 0.012]]),
+        "Eigenvectors": [{"Eigenvalue": 0.9, "Eigenvector": curve([[0.25, 0.5], [1.0, 0.6]])},
+                         {"Eigenvalue": 0.05, "Eigenvector": curve([[0.25, -0.6], [1.0, 0.5]])}],
+        "Rate_Drift_Model": "Drift_To_Forward"}}}}
+
+
+class TestPCA:
+    """tests/test_calibration.py::TestPCA on the port."""
+
+    def test_pca_reconstruction(self):
+        rng = np.random.default_rng(0)
+        A = rng.normal(size=(4, 4))
+        cov = A @ A.T
+        aki, evecs, evals = port_cal.pca(cov, 4)
+        np.testing.assert_allclose(aki @ aki.T, cov, atol=1e-10)
+        np.testing.assert_allclose(evecs.T @ evecs, np.eye(4), atol=1e-10)
+        assert np.all(np.diff(evals) <= 1e-12)  # descending
+
+    def test_calibrate_pca_structure(self):
+        info = port_cal.calibrate_pca_interest_rate(_port_panel(_ou_panel(n_cols=4)), num_factors=2)
+        assert len(info.param["Eigenvectors"]) == 2
+        ev0 = info.param["Eigenvectors"][0]
+        assert ev0["Eigenvalue"] >= info.param["Eigenvectors"][1]["Eigenvalue"]
+        assert len(ev0["Eigenvector"]) == 4
+        assert info.correlation_coef.shape == (2, 4)
+
+    def test_extract_pca(self, tmp_path):
+        p = tmp_path / "md.json"
+        p.write_text(json.dumps(_pca_market()))
+        got = port_cal.extract_pca_params(str(p), "PCAInterestRateModel.ZAR-SWAP")["PCAInterestRateModel.ZAR-SWAP"]
+        assert got["Reversion_Speed"] == 1.0
+        assert got["Eigenvectors"][0]["Eigenvalue"] == 0.9
+
+
+# ---------------------------------------------------------------------------
+# GBM FX
+
+
+def _gbm_surface():
+    """tests/test_calibration.py::TestGBMFX's surface."""
+    rows = []
+    for T, v in [(0.25, 0.15), (0.5, 0.14), (1.0, 0.12), (2.0, 0.13)]:
+        for m in (0.9, 1.0, 1.1):
+            rows.append([m, T, v + 0.01 * abs(m - 1.0) * 10])
+    return np.array(rows)
+
+
+def _gbm_json(tmp_path, name="md.json", currencies=("EUR",), seed=None):
+    """A RiskFlow market with an FX vol surface, stored GBM parameters and a
+    market-price entry per currency: TestGBMFX's surface, or a seeded one
+    of 12 expiries x 5 moneyness points (ATM vols drawn so that some
+    variance curves decline), its rows shuffled. With a seed the first
+    currency is priced under the ``GBMTSModelPrices`` name and the last has
+    no stored parameters; the stored vols miss some calibrated tenors and
+    add one."""
+    rng = None if seed is None else np.random.default_rng(seed)
+    factors, prices = {}, {}
+    for i, ccy in enumerate(currencies):
+        if rng is None:
+            rows, stored = _gbm_surface().tolist(), [[0.25, 0.15], [2.0, 0.14]]
+        else:
+            expiries = np.array([1 / 12, 2 / 12, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 5.0, 7.0, 10.0])
+            atm = rng.uniform(0.06, 0.3, len(expiries))
+            rows = [[m, T, v + 0.04 * (m - 1.0) ** 2 + 0.01 * (1.0 - m)]
+                    for T, v in zip(expiries, atm) for m in (0.8, 0.9, 1.0, 1.1, 1.2)]
+            rows = [rows[j] for j in rng.permutation(len(rows))]
+            stored = [[float(T), float(v)] for T, v in zip(expiries[::3], rng.uniform(0.08, 0.2, 4))] + [[20.0, 0.2]]
+        factors[f"FXVol.{ccy}"] = {"Surface": {".Curve": {"meta": [], "data": rows}}}
+        if rng is None or i < len(currencies) - 1:
+            factors[f"GBMAssetPriceTSModelParameters.{ccy}"] = {
+                "Vol": {".Curve": {"meta": [], "data": stored}}, "Quanto_FX_Correlation": 0.0}
+        kind = "GBMTSModelPrices" if rng is not None and i == 0 else "GBMAssetPriceTSModelPrices"
+        prices[f"{kind}.{ccy}"] = {"instrument": {"Asset_Price_Volatility": ccy}}
+    md = {"MarketData": {"Price Factors": factors, "Price Models": {}, "Model Configuration": {},
+                         "Correlations": {}, "Market Prices": prices}}
+    p = tmp_path / name
+    p.write_text(json.dumps(md))
+    return str(p)
+
+
+GBM_CURRENCIES = ("EUR", "USD", "GBP", "JPY", "CHF", "AUD", "CNY", "NGN")
+
+
+class TestGBMFXEqualJax:
+    def test_calibrated_and_extracted(self, tmp_path):
+        """The calibrated dicts (vols, details, flags) equal bit for bit."""
+        path = _gbm_json(tmp_path, currencies=GBM_CURRENCIES, seed=5)
+        got, want = port_cal.bootstrap_fx_from_json(path), jax_cal.bootstrap_fx_from_json(path)
+        assert got == want
+        assert sum(c["corrected"] for c in got.values()) >= 2  # the seeded curves decline somewhere
+        assert port_cal.bootstrap_fx_from_json(path, "usd") == jax_cal.bootstrap_fx_from_json(path, "usd")
+        for fx in (None, ["EUR", "JPY"]):
+            assert port_cal.extract_gbm_fx_params(path, fx) == jax_cal.extract_gbm_fx_params(path, fx)
+
+    def test_compare(self, tmp_path):
+        path = _gbm_json(tmp_path, currencies=GBM_CURRENCIES, seed=6)
+        cal, ext = port_cal.bootstrap_fx_from_json(path), port_cal.extract_gbm_fx_params(path)
+        got, want = port_cal.compare_gbm_fx_params(cal, ext), jax_cal.compare_gbm_fx_params(cal, ext)
+        assert list(got) == list(want) == list(GBM_CURRENCIES[:-1])
+        for ccy, rows in got.items():
+            records = want[ccy].to_dict("records")
+            assert len(rows) == len(records)
+            for row, w in zip(rows, records):
+                assert list(row) == list(w)
+                for k, v in row.items():
+                    assert v == w[k] or (v is None and (w[k] is None or np.isnan(w[k]))), (ccy, k)
+
+    def test_csv_text(self, tmp_path):
+        """``export_gbm_fx_results`` writes the text pandas writes: the
+        details' numpy and Python floats by ``repr``, flags as True/False,
+        a missing value as an empty cell."""
+        path = _gbm_json(tmp_path, currencies=GBM_CURRENCIES, seed=7)
+        cal = port_cal.bootstrap_fx_from_json(path)
+        ext = port_cal.extract_gbm_fx_params(path)
+        port_dir, jax_dir = tmp_path / "port", tmp_path / "jax"
+        got = port_cal.export_gbm_fx_results(cal, port_cal.compare_gbm_fx_params(cal, ext), str(port_dir))
+        want = jax_cal.export_gbm_fx_results(cal, jax_cal.compare_gbm_fx_params(cal, ext), str(jax_dir))
+        assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
+        assert len(got) == 2 * len(GBM_CURRENCIES) - 1
+        for g, w in zip(got, want):
+            assert open(g).read() == open(w).read(), os.path.basename(g)
+
+    def test_run_and_main(self, tmp_path, capsys):
+        path = _gbm_json(tmp_path, currencies=GBM_CURRENCIES, seed=8)
+        got = port_cal.run_gbm_fx_calibration(path, output_dir=str(tmp_path / "a"), fx_names=["EUR", "NGN"])
+        want = jax_cal.run_gbm_fx_calibration(path, output_dir=str(tmp_path / "b"), fx_names=["EUR", "NGN"])
+        assert got[0] == want[0] and list(got[1]) == list(want[1]) == ["EUR"]
+        assert sorted(os.listdir(tmp_path / "a")) == sorted(os.listdir(tmp_path / "b"))
+        capsys.readouterr()
+        assert gbm_fx.main([path, "--fx", "USD", "GBP"]) == 0
+        printed = capsys.readouterr().out
+        import finite_difference_tpu.calibration.gbm_fx as jax_gbm_fx
+
+        assert jax_gbm_fx.main([path, "--fx", "USD", "GBP"]) == 0
+        assert printed == capsys.readouterr().out
+        assert printed.startswith("USD: corrected=")
+
+
+class TestGBMFX:
+    """tests/test_calibration.py::TestGBMFX on the port."""
+
+    def test_extract_atm(self):
+        expiries, atm = port_cal.extract_atm_vols(_gbm_surface())
+        np.testing.assert_allclose(expiries, [0.25, 0.5, 1.0, 2.0])
+        np.testing.assert_allclose(atm, [0.15, 0.14, 0.12, 0.13])
+
+    def test_declining_variance_corrected(self):
+        expiries = np.array([0.25, 0.5, 1.0, 2.0])
+        atm = np.array([0.30, 0.10, 0.08, 0.25])  # sharply declining variance
+        avg, inst, corrected, details = port_cal.correct_declining_variance(expiries, atm)
+        assert corrected
+        var = np.array(avg) ** 2 * expiries
+        assert np.all(np.diff(var) >= -1e-12)  # non-decreasing after fix
+        assert all(s >= 0 for s in inst)
+
+    def test_no_correction_when_increasing(self):
+        expiries = np.array([0.5, 1.0, 2.0])
+        atm = np.array([0.10, 0.12, 0.14])
+        avg, inst, corrected, _ = port_cal.correct_declining_variance(expiries, atm)
+        assert not corrected
+        np.testing.assert_allclose(avg, atm, rtol=1e-12)
+
+    def test_bootstrap_and_compare(self, tmp_path):
+        path = _gbm_json(tmp_path)
+        calibrated = port_cal.bootstrap_fx_from_json(path)
+        assert "EUR" in calibrated
+        comparisons = port_cal.compare_gbm_fx_params(calibrated, port_cal.extract_gbm_fx_params(path))
+        assert "EUR" in comparisons and len(comparisons["EUR"]) > 0
+
+    def test_runner_and_cli(self, tmp_path):
+        path = _gbm_json(tmp_path)
+        out_dir = str(tmp_path / "out")
+        port_cal.run_gbm_fx_calibration(path, output_dir=out_dir)
+        assert os.path.exists(os.path.join(out_dir, "gbm_fx_EUR.csv"))
+        args = port_cal.build_parser().parse_args([path, "--fx", "EUR", "-v"])
+        assert args.fx == ["EUR"]

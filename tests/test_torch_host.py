@@ -292,7 +292,16 @@ class TestPortBoundary:
                 "finite_difference_tpu_torch/calibration/curve_data.py",
                 "finite_difference_tpu_torch/calibration/statistics.py",
                 "finite_difference_tpu_torch/calibration/cs.py",
-                "finite_difference_tpu_torch/calibration/hw1f.py"} <= names
+                "finite_difference_tpu_torch/calibration/hw1f.py",
+                "finite_difference_tpu_torch/calibration/pca.py",
+                "finite_difference_tpu_torch/calibration/gbm_fx.py",
+                "finite_difference_tpu_torch/runners/irswap_fa.py",
+                "finite_difference_tpu_torch/bonds/__init__.py",
+                "finite_difference_tpu_torch/bonds/zero_coupon.py",
+                "finite_difference_tpu_torch/bonds/fra.py",
+                "finite_difference_tpu_torch/bonds/fixed_rate.py",
+                "finite_difference_tpu_torch/bonds/inflation_bond.py",
+                "finite_difference_tpu_torch/bonds/inflation_swap.py"} <= names
         bad = [
             f"{p.relative_to(REPO_ROOT)}: {m.group(0).strip()}"
             for p in sources
@@ -301,23 +310,24 @@ class TestPortBoundary:
         ]
         assert not bad, bad
 
-    # names the JAX package exports that wait for later slices of the port
-    # (the IR swap FA check, the PCA and GBM-FX calibrations) or have no
-    # counterpart (df64: the card computes float64 natively), and the
-    # port's own additions of earlier slices
-    LATER = {"runners": {"IRSwapFAPricer", "run_irswap_fa_check", "synthetic_zar_curves"},
-             "ops": {"df64"},
-             "calibration": {"CalibrationInfo", "calibrate_pca_interest_rate", "compare_pca_params",
-                             "compute_curve_statistics", "extract_pca_params", "pca",
-                             "bootstrap_fx_from_json", "build_parser", "compare_gbm_fx_params",
-                             "correct_declining_variance", "export_gbm_fx_results", "extract_atm_vols",
-                             "extract_gbm_fx_params", "read_vol_surface", "run_gbm_fx_calibration"}}
+    def test_every_jax_module_has_a_counterpart(self):
+        """Each ``.py`` file of the JAX package has one of the same path in
+        the port, but the two Pallas kernel files (their kernels are in
+        ``csrc/``) and ``ops/df64.py`` (the card computes float64 natively)."""
+        files = lambda pkg: {p.relative_to(REPO_ROOT / pkg).as_posix()
+                             for p in (REPO_ROOT / pkg).rglob("*.py")}
+        missing = files("finite_difference_tpu") - files("finite_difference_tpu_torch")
+        assert missing == {"models/pde/pallas_kernel.py", "models/pde/pallas_cr.py", "ops/df64.py"}
+
+    # names the JAX package exports that have no counterpart (df64: the
+    # card computes float64 natively), and the port's own additions
+    LATER = {"ops": {"df64"}}
     PORT_ONLY = {"models.analytic": {"generalized_bs_greeks"}, "utils": {"build_monitoring_dates"},
                  "runners": {"run_all_american_scenarios_batched"}}
 
     @pytest.mark.parametrize("package", ["models.analytic", "models.pde", "runners", "utils", "models.mc",
                                          "market_data", "instruments", "portfolio", "xva", "ops",
-                                         "scenarios", "calibration", "parallel"])
+                                         "scenarios", "calibration", "parallel", "bonds"])
     def test_exports_what_jax_exports(self, package):
         import importlib
 
@@ -342,7 +352,8 @@ class TestPortBoundary:
             "finite_difference_tpu_torch.instruments, finite_difference_tpu_torch.portfolio, "
             "finite_difference_tpu_torch.xva, finite_difference_tpu_torch.ops, "
             "finite_difference_tpu_torch.scenarios, finite_difference_tpu_torch.calibration, "
-            "finite_difference_tpu_torch.parallel, finite_difference_tpu_torch.entry; "
+            "finite_difference_tpu_torch.parallel, finite_difference_tpu_torch.entry, "
+            "finite_difference_tpu_torch.bonds; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'finite_difference_tpu', 'pandas')]; "
             "assert not bad, bad"
