@@ -31,13 +31,14 @@ silently runs the scan there).
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass, fields as dc_fields, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ... import native
+from ... import native, tracing
 from ...device import DEFAULT_DEVICE, resolve_device
 from ...parallel.mesh import check_mesh, on_device, pad_to_multiple
 from ...ops.interp import linear_interp
@@ -148,10 +149,13 @@ def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> Ba
     missing or None ``sp_*`` key stays None).
     """
     dev = resolve_device(device)
-    tensors = {k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
-    for k in SP_FIELDS:
-        if fields.get(k) is not None:
-            tensors[k] = torch.as_tensor(np.asarray(fields[k])).to(dev)
+    with tracing.span("batch.upload") as rec:
+        tensors = {k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
+        for k in SP_FIELDS:
+            if fields.get(k) is not None:
+                tensors[k] = torch.as_tensor(np.asarray(fields[k])).to(dev)
+        if rec is not None:
+            rec.attrs["bytes"] = sum(t.nbytes for t in tensors.values())
     return BarrierTradeBatch(**tensors)
 
 
@@ -216,88 +220,92 @@ def build_trade_batch(
     B = len(spots)
     if num_space_nodes is None:
         num_space_nodes = math.ceil(2.0 * _PPF_99999 * n_time_steps / 2.0)
+    use_native = use_native and not monitor_aligned and native.available()
 
-    z = lambda v, d: np.asarray(v if v is not None else [d] * B)
-    lower = z(lower, None)
-    upper = z(upper, None)
-    q = np.asarray(q if q is not None else np.zeros(B), dtype=np_dtype)
-    rebate = np.asarray(rebate if rebate is not None else np.zeros(B), dtype=np_dtype)
-    rebate_at_hit = np.asarray(
-        rebate_at_hit if rebate_at_hit is not None else np.zeros(B, dtype=bool)
-    )
-    f = lambda v: np.asarray(v, dtype=np_dtype)
-    has_lower = np.asarray([x is not None for x in lower])
-    has_upper = np.asarray([x is not None for x in upper])
-    lower_v = [x if x is not None else 0.0 for x in lower]
-    upper_v = [x if x is not None else 0.0 for x in upper]
-    arrays = dict(
-        strike=f(strikes),
-        is_call=np.asarray(is_call, dtype=bool),
-        sigma=f(sigmas),
-        r=f(r),
-        b=f(b),
-        q=q,
-        lower=f(lower_v),
-        upper=f(upper_v),
-        has_lower=has_lower,
-        has_upper=has_upper,
-        rebate=rebate,
-        rebate_at_hit=rebate_at_hit,
-        rebate_rate=f(b),
-        s_eff=f(spots),
-        spot=f(spots),
-    )
-
-    if use_native and not monitor_aligned and native.available():
-        x_min, dx = native.barrier_log_grids(
-            spots, strikes, sigmas, t_expiry, lower_v, upper_v,
-            has_lower, has_upper, num_space_nodes,
-        )
-        dt, theta, tau_next, monitor = native.uniform_schedules(
-            t_expiry, n_time_steps, rannacher_steps, monitor_times
-        )
-        arrays.update(
-            x_min=f(x_min), dx=f(dx), dt=dt.astype(np_dtype),
-            theta=theta.astype(np_dtype), tau_next=tau_next.astype(np_dtype),
-            monitor=monitor.astype(bool),
-            div_amount=np.zeros((B, n_time_steps), dtype=np_dtype),
-            reset_lambda=np.zeros((B, n_time_steps), dtype=bool),
-        )
-        return batch_from_numpy(arrays, dev)
-
-    cols: Dict[str, List] = {k: [] for k in (
-        "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
-        "reset_lambda",
-    )}
-    for i in range(B):
-        g = barrier_log_grid(
-            spot_eff=float(spots[i]),
-            strike=float(strikes[i]),
-            sigma=float(sigmas[i]),
-            t_expiry=float(t_expiry[i]),
-            num_time_steps=n_time_steps,
-            lower_barrier=lower[i],
-            upper_barrier=upper[i],
-            num_space_nodes=num_space_nodes,
-        )
-        cols["x_min"].append(g.x_min)
-        cols["dx"].append(g.dx)
-        if monitor_aligned:
-            sch = monitor_aligned_schedule(
-                float(t_expiry[i]), monitor_times[i],
-                steps_per_interval=steps_per_interval,
-                target_dt=float(t_expiry[i]) / n_time_steps,
-                rannacher_steps=rannacher_steps,
+    with tracing.span("batch.build_grids", native=use_native):
+        z = lambda v, d: np.asarray(v if v is not None else [d] * B)
+        lower = z(lower, None)
+        upper = z(upper, None)
+        has_lower = np.asarray([x is not None for x in lower])
+        has_upper = np.asarray([x is not None for x in upper])
+        lower_v = [x if x is not None else 0.0 for x in lower]
+        upper_v = [x if x is not None else 0.0 for x in upper]
+        if use_native:
+            x_min, dx = native.barrier_log_grids(
+                spots, strikes, sigmas, t_expiry, lower_v, upper_v,
+                has_lower, has_upper, num_space_nodes,
+            )
+            dt, theta, tau_next, monitor = native.uniform_schedules(
+                t_expiry, n_time_steps, rannacher_steps, monitor_times
             )
         else:
-            sch = uniform_schedule(
-                float(t_expiry[i]), n_time_steps, rannacher_steps,
-                monitor_times[i],
-            )
-        for name in ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda"):
-            cols[name].append(getattr(sch, name))
+            cols: Dict[str, List] = {k: [] for k in (
+                "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
+                "reset_lambda",
+            )}
+            for i in range(B):
+                g = barrier_log_grid(
+                    spot_eff=float(spots[i]),
+                    strike=float(strikes[i]),
+                    sigma=float(sigmas[i]),
+                    t_expiry=float(t_expiry[i]),
+                    num_time_steps=n_time_steps,
+                    lower_barrier=lower[i],
+                    upper_barrier=upper[i],
+                    num_space_nodes=num_space_nodes,
+                )
+                cols["x_min"].append(g.x_min)
+                cols["dx"].append(g.dx)
+                if monitor_aligned:
+                    sch = monitor_aligned_schedule(
+                        float(t_expiry[i]), monitor_times[i],
+                        steps_per_interval=steps_per_interval,
+                        target_dt=float(t_expiry[i]) / n_time_steps,
+                        rannacher_steps=rannacher_steps,
+                    )
+                else:
+                    sch = uniform_schedule(
+                        float(t_expiry[i]), n_time_steps, rannacher_steps,
+                        monitor_times[i],
+                    )
+                for name in ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda"):
+                    cols[name].append(getattr(sch, name))
+            x_min, dx = cols["x_min"], cols["dx"]
 
-    arrays.update(x_min=f(cols["x_min"]), dx=f(cols["dx"]), **_stack_schedules(cols, np_dtype))
+    # the builder reads none of these: the trade columns and its outputs in
+    # the working dtype
+    with tracing.span("batch.build_arrays"):
+        f = lambda v: np.asarray(v, dtype=np_dtype)
+        arrays = dict(
+            strike=f(strikes),
+            is_call=np.asarray(is_call, dtype=bool),
+            sigma=f(sigmas),
+            r=f(r),
+            b=f(b),
+            q=np.asarray(q if q is not None else np.zeros(B), dtype=np_dtype),
+            lower=f(lower_v),
+            upper=f(upper_v),
+            has_lower=has_lower,
+            has_upper=has_upper,
+            rebate=np.asarray(rebate if rebate is not None else np.zeros(B), dtype=np_dtype),
+            rebate_at_hit=np.asarray(
+                rebate_at_hit if rebate_at_hit is not None else np.zeros(B, dtype=bool)
+            ),
+            rebate_rate=f(b),
+            s_eff=f(spots),
+            spot=f(spots),
+            x_min=f(x_min),
+            dx=f(dx),
+        )
+        if use_native:
+            arrays.update(
+                dt=dt.astype(np_dtype), theta=theta.astype(np_dtype),
+                tau_next=tau_next.astype(np_dtype), monitor=monitor.astype(bool),
+                div_amount=np.zeros((B, n_time_steps), dtype=np_dtype),
+                reset_lambda=np.zeros((B, n_time_steps), dtype=bool),
+            )
+        else:
+            arrays.update(_stack_schedules(cols, np_dtype))
     return batch_from_numpy(arrays, dev)
 
 
@@ -345,113 +353,114 @@ def build_american_batch(
     """
     dev = resolve_device(device)
     np_dtype = _NP_DTYPES[dtype]
-    f = lambda v: np.asarray(v, dtype=np_dtype)
     B = len(spots)
     dividends_tau = dividends_tau or [[] for _ in range(B)]
-    spots = [float(x) for x in spots]
-    strikes = [float(k) for k in strikes]
     n = int(n_time_steps)
-    zB = np.zeros(B, dtype=np_dtype)
-    fB = np.zeros(B, dtype=bool)
-    arrays = dict(
-        is_call=np.asarray(is_call, dtype=bool), sigma=f(sigmas), r=f(r), b=f(b),
-        q=zB, lower=zB, upper=zB, has_lower=fB, has_upper=fB, rebate=zB,
-        rebate_at_hit=fB, rebate_rate=f(b), monitor=np.zeros((B, n), dtype=bool),
-    )
+    dividend_free = not any(len(d) for d in dividends_tau)
+    use_native = not dividend_free and use_native and native.available()
 
-    if not any(len(d) for d in dividends_tau):
-        # dividend-free schedules are one uniform segment, so the per-trade
-        # loop collapses to array expressions (bit-identical: the same grid
-        # formulas, np.round and round() both half-to-even, np.cumsum the
-        # sequential tau accumulation)
-        sp = np.asarray(spots, float)
-        st = np.asarray(strikes, float)
-        sg = np.asarray(sigmas, float)
-        te = np.asarray(t_expiry, float)
-        s_low, s_high = np.minimum(sp, st), np.maximum(sp, st)
-        s_c = np.sqrt(np.maximum(s_low * s_high, 1e-12))
-        band = s_max_mult * sg * np.sqrt(np.maximum(te, 1e-12))
-        x_c = np.log(s_c)
-        s_min = np.maximum(np.minimum(np.exp(x_c - 0.5 * band), 0.5 * s_low), 1e-8)
-        s_max = np.maximum(np.exp(x_c + 0.5 * band), 2.0 * s_high)
-        x_min = np.log(s_min)
-        dx = (np.log(s_max) - x_min) / float(int(num_space_nodes))
-        if snap_to_grid:
-            # scalar math.exp/log: numpy's vectorised exp differs by 1 ulp
-            # on some inputs, and the snapped levels must equal the scalar
-            # pricer's bit for bit (the payoff kink on a node)
-            snap1 = lambda lvl, xm, d: math.exp(xm + round((math.log(lvl) - xm) / d) * d)
-            sp = np.array([snap1(sp[i], x_min[i], dx[i]) for i in range(B)])
-            st = np.array([snap1(st[i], x_min[i], dx[i]) for i in range(B)])
-        dt = np.repeat((te / float(n))[:, None], n, axis=1)
-        reset = np.zeros((B, n), dtype=bool)
-        reset[:, 0] = True
-        arrays.update(
-            x_min=f(x_min), dx=f(dx), strike=f(st), sigma=f(sg), s_eff=f(sp), spot=f(sp),
-            dt=dt.astype(np_dtype),
-            theta=np.array(
-                np.broadcast_to(np.where(np.arange(n) < rannacher_steps, 1.0, 0.5), (B, n)),
-                dtype=np_dtype,
-            ),
-            tau_next=np.cumsum(dt, axis=1).astype(np_dtype),
-            div_amount=np.zeros((B, n), dtype=np_dtype),
-            reset_lambda=reset,
-        )
-        return batch_from_numpy(arrays, dev)
+    with tracing.span("batch.build_grids", native=use_native):
+        spots = [float(x) for x in spots]
+        strikes = [float(k) for k in strikes]
+        if dividend_free:
+            # dividend-free schedules are one uniform segment, so the per-trade
+            # loop collapses to array expressions (bit-identical: the same grid
+            # formulas, np.round and round() both half-to-even, np.cumsum the
+            # sequential tau accumulation)
+            sp = np.asarray(spots, float)
+            st = np.asarray(strikes, float)
+            sg = np.asarray(sigmas, float)
+            te = np.asarray(t_expiry, float)
+            s_low, s_high = np.minimum(sp, st), np.maximum(sp, st)
+            s_c = np.sqrt(np.maximum(s_low * s_high, 1e-12))
+            band = s_max_mult * sg * np.sqrt(np.maximum(te, 1e-12))
+            x_c = np.log(s_c)
+            s_min = np.maximum(np.minimum(np.exp(x_c - 0.5 * band), 0.5 * s_low), 1e-8)
+            s_max = np.maximum(np.exp(x_c + 0.5 * band), 2.0 * s_high)
+            x_min = np.log(s_min)
+            dx = (np.log(s_max) - x_min) / float(int(num_space_nodes))
+            if snap_to_grid:
+                # scalar math.exp/log: numpy's vectorised exp differs by 1 ulp
+                # on some inputs, and the snapped levels must equal the scalar
+                # pricer's bit for bit (the payoff kink on a node)
+                snap1 = lambda lvl, xm, d: math.exp(xm + round((math.log(lvl) - xm) / d) * d)
+                sp = np.array([snap1(sp[i], x_min[i], dx[i]) for i in range(B)])
+                st = np.array([snap1(st[i], x_min[i], dx[i]) for i in range(B)])
+            dt = np.repeat((te / float(n))[:, None], n, axis=1)
+            reset = np.zeros((B, n), dtype=bool)
+            reset[:, 0] = True
+            theta = np.broadcast_to(np.where(np.arange(n) < rannacher_steps, 1.0, 0.5), (B, n))
+            tau_next = np.cumsum(dt, axis=1)
+            grids = dict(x_min=x_min, dx=dx, strike=st, spot=sp)
+        elif use_native:
+            grids = native.american_batches(
+                spots, strikes, sigmas, t_expiry, [bool(c) for c in is_call],
+                dividends_tau, n_time_steps, rannacher_steps, num_space_nodes,
+                s_max_mult, snap_to_grid,
+            )
+        else:
+            cols: Dict[str, List] = {k: [] for k in (
+                "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
+                "reset_lambda",
+            )}
+            for i in range(B):
+                g = american_log_grid(
+                    spots[i], strikes[i], float(sigmas[i]), float(t_expiry[i]),
+                    num_space_nodes, s_max_mult,
+                )
+                if snap_to_grid:
+                    snap = lambda lvl: math.exp(g.x_min + round((math.log(lvl) - g.x_min) / g.dx) * g.dx)
+                    spots[i] = snap(spots[i])
+                    strikes[i] = snap(strikes[i])
+                cols["x_min"].append(g.x_min)
+                cols["dx"].append(g.dx)
+                sch = segmented_schedule(
+                    float(t_expiry[i]), n_time_steps, dividends_tau[i],
+                    rannacher_steps=rannacher_steps,
+                    restart_rannacher_at_div=bool(is_call[i]),
+                )
+                # segmented schedules share length n_time_steps by construction;
+                # guard against per-trade drift from the remainder rule
+                pad = n_time_steps - len(sch.dt)
+                if pad < 0:
+                    raise ValueError("segment steps exceeded n_time_steps")
+                z = np.zeros(pad)
+                cols["dt"].append(np.concatenate([sch.dt, z]))
+                cols["theta"].append(np.concatenate([sch.theta, np.full(pad, 0.5)]))
+                cols["tau_next"].append(np.concatenate([sch.tau_next, np.full(pad, sch.tau_next[-1])]))
+                cols["monitor"].append(np.concatenate([sch.monitor, np.zeros(pad, bool)]))
+                cols["div_amount"].append(np.concatenate([sch.div_amount, z]))
+                cols["reset_lambda"].append(np.concatenate([sch.reset_lambda, np.zeros(pad, bool)]))
+            grids = dict(x_min=cols["x_min"], dx=cols["dx"], strike=strikes, spot=spots)
 
-    if use_native and native.available():
-        out = native.american_batches(
-            spots, strikes, sigmas, t_expiry, [bool(c) for c in is_call],
-            dividends_tau, n_time_steps, rannacher_steps, num_space_nodes,
-            s_max_mult, snap_to_grid,
+    # the builder reads none of these: the trade columns and its outputs in
+    # the working dtype
+    with tracing.span("batch.build_arrays"):
+        f = lambda v: np.asarray(v, dtype=np_dtype)
+        zB = np.zeros(B, dtype=np_dtype)
+        fB = np.zeros(B, dtype=bool)
+        arrays = dict(
+            is_call=np.asarray(is_call, dtype=bool), sigma=f(sigmas), r=f(r), b=f(b),
+            q=zB, lower=zB, upper=zB, has_lower=fB, has_upper=fB, rebate=zB,
+            rebate_at_hit=fB, rebate_rate=f(b), monitor=np.zeros((B, n), dtype=bool),
+            x_min=f(grids["x_min"]), dx=f(grids["dx"]), strike=f(grids["strike"]),
+            s_eff=f(grids["spot"]), spot=f(grids["spot"]),
         )
-        arrays.update(
-            x_min=f(out["x_min"]), dx=f(out["dx"]), strike=f(out["strike"]),
-            s_eff=f(out["spot"]), spot=f(out["spot"]),
-            dt=out["dt"].astype(np_dtype), theta=out["theta"].astype(np_dtype),
-            tau_next=out["tau_next"].astype(np_dtype),
-            div_amount=out["div_amount"].astype(np_dtype),
-            reset_lambda=out["reset_lambda"],
-        )
-        return batch_from_numpy(arrays, dev)
-
-    cols: Dict[str, List] = {k: [] for k in (
-        "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
-        "reset_lambda",
-    )}
-    for i in range(B):
-        g = american_log_grid(
-            spots[i], strikes[i], float(sigmas[i]), float(t_expiry[i]),
-            num_space_nodes, s_max_mult,
-        )
-        if snap_to_grid:
-            snap = lambda lvl: math.exp(g.x_min + round((math.log(lvl) - g.x_min) / g.dx) * g.dx)
-            spots[i] = snap(spots[i])
-            strikes[i] = snap(strikes[i])
-        cols["x_min"].append(g.x_min)
-        cols["dx"].append(g.dx)
-        sch = segmented_schedule(
-            float(t_expiry[i]), n_time_steps, dividends_tau[i],
-            rannacher_steps=rannacher_steps,
-            restart_rannacher_at_div=bool(is_call[i]),
-        )
-        # segmented schedules share length n_time_steps by construction;
-        # guard against per-trade drift from the remainder rule
-        pad = n_time_steps - len(sch.dt)
-        if pad < 0:
-            raise ValueError("segment steps exceeded n_time_steps")
-        z = np.zeros(pad)
-        cols["dt"].append(np.concatenate([sch.dt, z]))
-        cols["theta"].append(np.concatenate([sch.theta, np.full(pad, 0.5)]))
-        cols["tau_next"].append(np.concatenate([sch.tau_next, np.full(pad, sch.tau_next[-1])]))
-        cols["monitor"].append(np.concatenate([sch.monitor, np.zeros(pad, bool)]))
-        cols["div_amount"].append(np.concatenate([sch.div_amount, z]))
-        cols["reset_lambda"].append(np.concatenate([sch.reset_lambda, np.zeros(pad, bool)]))
-
-    arrays.update(
-        x_min=f(cols["x_min"]), dx=f(cols["dx"]), strike=f(strikes),
-        s_eff=f(spots), spot=f(spots), **_stack_schedules(cols, np_dtype),
-    )
+        if dividend_free:
+            arrays.update(
+                sigma=f(sg), dt=dt.astype(np_dtype), theta=np.array(theta, dtype=np_dtype),
+                tau_next=tau_next.astype(np_dtype),
+                div_amount=np.zeros((B, n), dtype=np_dtype), reset_lambda=reset,
+            )
+        elif use_native:
+            arrays.update(
+                dt=grids["dt"].astype(np_dtype), theta=grids["theta"].astype(np_dtype),
+                tau_next=grids["tau_next"].astype(np_dtype),
+                div_amount=grids["div_amount"].astype(np_dtype),
+                reset_lambda=grids["reset_lambda"],
+            )
+        else:
+            arrays.update(_stack_schedules(cols, np_dtype))
     return batch_from_numpy(arrays, dev)
 
 
@@ -732,9 +741,11 @@ def price_batch_kernel(
     _check_greeks_mode(greeks_mode)
     ad = with_greeks and greeks_mode == "ad"
     dv_sigma, sigmas = vol_points or _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
-    values = _solve_values(batch, n_nodes, solver, False, sigmas, spike_segments, spike_preps, ad=ad,
-                           graph_keys=graph_keys)
-    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True, tangent=ad)
+    with tracing.span("batch.march"):
+        values = _solve_values(batch, n_nodes, solver, False, sigmas, spike_segments, spike_preps,
+                               ad=ad, graph_keys=graph_keys)
+    with tracing.span("batch.greeks"):
+        return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=True, tangent=ad)
 
 
 def american_batch_kernel(
@@ -762,9 +773,11 @@ def american_batch_kernel(
     _check_greeks_mode(greeks_mode)
     ad = with_greeks and greeks_mode == "ad"
     dv_sigma, sigmas = vol_points or _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
-    values = _solve_values(batch, n_nodes, solver, True, sigmas, spike_segments, spike_preps,
-                           with_dividends, ad=ad)
-    return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=False, tangent=ad)
+    with tracing.span("batch.march"):
+        values = _solve_values(batch, n_nodes, solver, True, sigmas, spike_segments, spike_preps,
+                               with_dividends, ad=ad)
+    with tracing.span("batch.greeks"):
+        return _outputs_of(batch, n_nodes, values, dv_sigma, with_theta=False, tangent=ad)
 
 
 def _interval_layout(monitor: torch.Tensor, n_iv: int):
@@ -783,8 +796,16 @@ def _interval_layout(monitor: torch.Tensor, n_iv: int):
 
 def _spectral_layout(batch: BarrierTradeBatch, n_nodes: int):
     """(sp_k_end, sp_apply, sp_rann, sp_dt) on the batch's device if the
-    batch is spectral-eligible, else None; the JAX package's
-    ``_spectral_layout_impl`` with its verdicts and thresholds.
+    batch is spectral-eligible, else None (:func:`_spectral_verdict`)."""
+    return _spectral_verdict(batch, n_nodes)[0]
+
+
+def _spectral_verdict(batch: BarrierTradeBatch, n_nodes: int):
+    """(the layout of :func:`_spectral_layout` or None, guarded): the JAX
+    package's ``_spectral_layout_impl`` with its verdicts and thresholds;
+    ``guarded`` is True where one of the numerical guards (a and c
+    positive, the symmetrizer exponent, the channels' conditioning) refused
+    a batch whose schedule the closed form fits.
 
     Eligibility is the schedule shape the closed form assumes (dt constant
     within each monitor interval: globally uniform or monitor-aligned;
@@ -819,22 +840,22 @@ def _spectral_layout(batch: BarrierTradeBatch, n_nodes: int):
     n_iv = (mon.sum(dim=1) + (~mon[:, -1]).long()).max()
     has_div, theta_ok, prefix_ok, uniform, within, n_iv = torch.cat([flags, n_iv[None]]).tolist()
     if has_div or not theta_ok or not prefix_ok:
-        return None
+        return None, False
     sigma, b, q, r, dx, dt0 = (
         torch.stack([batch.sigma, batch.b, batch.q, batch.r, batch.dx, batch.dt[:, 0]])
         .double().cpu().numpy()
     )
     mu_x = b - q - 0.5 * sigma**2
     if np.any(np.abs(dx * mu_x / sigma**2) >= 0.999):  # a, c > 0 (sine diagonalization)
-        return None
+        return None, True
     limit = 200.0 if batch.sigma.dtype == torch.float64 else 15.0
     if np.any(symmetrizer_exponent(sigma, b, q, dx, n_nodes) > limit):
-        return None
+        return None, True
     k_end, apply_proj = _interval_layout(mon, n_iv)
     sp_dt = None
     if not uniform:
         if not within:
-            return None
+            return None, False
         k_start = torch.cat([torch.zeros_like(k_end[:, :1]), k_end[:, :-1]], dim=1)
         # a padded interval starts at n_steps and repeats the last dt
         per_iv = torch.gather(dt, 1, k_start.clamp(max=n - 1))
@@ -843,8 +864,8 @@ def _spectral_layout(batch: BarrierTradeBatch, n_nodes: int):
     cond_dts = dt0[:, None] if sp_dt is None else sp_dt.cpu().numpy()
     for col in range(cond_dts.shape[1]):
         if np.any(channel_conditioning(sigma, b, q, r, dx, cond_dts[:, col], n_nodes) < 1e-9):
-            return None
-    return k_end, apply_proj, R, None if sp_dt is None else sp_dt.to(batch.dt.dtype)
+            return None, True
+    return (k_end, apply_proj, R, None if sp_dt is None else sp_dt.to(batch.dt.dtype)), False
 
 
 def _spike_schedule_impl(batch: BarrierTradeBatch, n_nodes: int):
@@ -976,18 +997,31 @@ def _run_batch_driver(
     strict, and :func:`auto_solver` reads their verdict; where the guard
     refused one, the whole call takes the scan. An explicit SPIKE solver
     raises there.
+
+    The caller's ``batch.driver`` span, while it records, gets the route
+    taken (``route``) and ``guard_refused`` True where the interface guard
+    refused the preps that ``"auto"`` asked for. One kernel call records
+    its ``batch.march`` and ``batch.greeks``; a call split into chunks or
+    shards is one ``batch.solve`` span over all of them, with none inside.
     """
     kernel = american_batch_kernel if american else price_batch_kernel
+    rec = tracing.current("batch.driver")
     dv_sigma, sigmas = _vol_points(batch, dv_sigma, with_greeks, greeks_mode)
     B, home = batch.batch_size, batch.x_min.device
     preps = None
     if solver in ("auto",) + _SPIKE_SOLVERS:
         march_batch, march_sigmas = _march_inputs(batch, sigmas, solver)
-        preps = _guarded_spike_preps(march_batch, n_nodes, spike_segments, american, march_sigmas,
-                                     strict=solver != "auto")
+        with tracing.span("batch.spike_prep"):
+            preps = _guarded_spike_preps(march_batch, n_nodes, spike_segments, american,
+                                         march_sigmas, strict=solver != "auto")
         if solver == "auto":
             solver = auto_solver(home.type, spike_segments, preps is not None,
                                  **_auto_inputs(batch, american, with_greeks, greeks_mode))
+            if rec is not None and preps is None:
+                rec.attrs["guard_refused"] = True
+    if rec is not None:
+        rec.attrs["route"] = solver
+        rec.attrs.setdefault("guard_refused", False)
     if not american:
         kernel_kw["graph_keys"] = set()
     devices = (home,) if mesh is None else mesh.axis_devices(axis_name)
@@ -997,22 +1031,24 @@ def _run_batch_driver(
     padded_sigmas = [_pad_rows(s, pad) for s in sigmas]
     padded_preps = preps and [p.map_trades(lambda x, dim: _pad_rows(x, pad, dim)) for p in preps]
     chunk = max_chunk if solver == "scan" else None
+    split = len(devices) > 1 or (chunk is not None and n > chunk)
     outs = []
-    for i, dev in enumerate(devices):
-        rows = lambda x, dim=0: x.narrow(dim, i * n, n).to(dev).contiguous()
-        b, sg = padded._map(rows), [rows(s) for s in padded_sigmas]
-        prep = padded_preps and [p.map_trades(rows) for p in padded_preps]
-        run = lambda sl: kernel(
-            b[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
-            greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
-            spike_preps=prep, vol_points=(dv_sigma, [s[sl] for s in sg]), **kernel_kw,
-        )
-        with on_device(dev):
-            if chunk is None or n <= chunk:
-                outs.append(run(slice(None)))
-            else:
-                pieces = [run(slice(start, start + chunk)) for start in range(0, n, chunk)]
-                outs.append({k: torch.cat([p[k] for p in pieces]) for k in pieces[0]})
+    with tracing.covering("batch.solve") if split else nullcontext():
+        for i, dev in enumerate(devices):
+            rows = lambda x, dim=0: x.narrow(dim, i * n, n).to(dev).contiguous()
+            b, sg = padded._map(rows), [rows(s) for s in padded_sigmas]
+            prep = padded_preps and [p.map_trades(rows) for p in padded_preps]
+            run = lambda sl: kernel(
+                b[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
+                greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
+                spike_preps=prep, vol_points=(dv_sigma, [s[sl] for s in sg]), **kernel_kw,
+            )
+            with on_device(dev):
+                if chunk is None or n <= chunk:
+                    outs.append(run(slice(None)))
+                else:
+                    pieces = [run(slice(start, start + chunk)) for start in range(0, n, chunk)]
+                    outs.append({k: torch.cat([p[k] for p in pieces]) for k in pieces[0]})
     if mesh is None:
         return outs[0]
     return {k: torch.cat([o[k].to(home) for o in outs])[:B] for k in outs[0]}
@@ -1067,7 +1103,9 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
            mesh=None):
     """The batch on its device and dtype, with its spectral layout attached
     where it has one, and the route: ``(batch, max_chunk, solver,
-    spike_segments)``.
+    spike_segments, guarded)``, where ``guarded`` is True when a numerical
+    guard of :func:`_spectral_verdict` refused the batch's spectral layout
+    (:func:`_guard_refused` says whether ``"auto"`` lost the route it prefers).
 
     ``"auto"`` stays ``"auto"`` where :func:`auto_solver` picks the SPIKE
     march, whose verdict the interface guard gives in
@@ -1109,9 +1147,9 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
             "monitor-aligned or dividend-segmented layouts — and a grid the "
             "SPIKE partitioning admits); use solver='auto'"
         )
-    layout = None
+    layout, guarded = None, False
     if not american and solver in ("auto",) + _SPECTRAL_SOLVERS:
-        layout = _spectral_layout(batch, n_nodes)
+        layout, guarded = _spectral_verdict(batch, n_nodes)
         if layout is None and solver != "auto":
             raise ValueError(
                 "batch is not spectral-eligible (needs per-interval-constant dt, "
@@ -1129,7 +1167,14 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
                             **_auto_inputs(batch, american, with_greeks, greeks_mode))
         if route != "spike":
             solver = route
-    return batch, max_chunk, solver, sched
+    return batch, max_chunk, solver, sched, guarded
+
+
+def _guard_refused(batch: BarrierTradeBatch, sched, with_greeks: bool, greeks_mode: str) -> bool:
+    """True where ``"auto"``'s rule would take the spectral route had the
+    guard of :func:`_spectral_verdict` not refused the routed barrier batch."""
+    inputs = dict(_auto_inputs(batch, False, with_greeks, greeks_mode), spectral_ok=True)
+    return auto_solver(batch.x_min.device.type, sched, True, **inputs) == "spectral"
 
 
 def price_barrier_batch(
@@ -1164,14 +1209,18 @@ def price_barrier_batch(
     each shard chunked as the whole batch would be; the outputs come back
     on ``device`` (:func:`_run_batch_driver`).
     """
-    batch, max_chunk, solver, sched = _route(
-        batch, n_nodes, max_chunk, dtype, solver, device,
-        with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
-    )
-    return _run_batch_driver(
-        batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched, mesh=mesh, axis_name=axis_name,
-    )
+    with tracing.span("batch.driver") as rec:
+        with tracing.span("batch.route"):
+            batch, max_chunk, solver, sched, guarded = _route(
+                batch, n_nodes, max_chunk, dtype, solver, device,
+                with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
+            )
+        if rec is not None and guarded:
+            rec.attrs["guard_refused"] = _guard_refused(batch, sched, with_greeks, greeks_mode)
+        return _run_batch_driver(
+            batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
+            solver, sched, mesh=mesh, axis_name=axis_name,
+        )
 
 
 def price_american_batch(
@@ -1205,15 +1254,17 @@ def price_american_batch(
     :func:`price_barrier_batch` (under a mesh the dividend jumps and
     lambda resets run per shard, between its launches).
     """
-    batch, max_chunk, solver, sched = _route(
-        batch, n_nodes, max_chunk, dtype, solver, device, american=True,
-        with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
-    )
-    return _run_batch_driver(
-        batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
-        solver, sched, american=True, mesh=mesh, axis_name=axis_name,
-        with_dividends=_with_dividends(batch, sched),
-    )
+    with tracing.span("batch.driver"):
+        with tracing.span("batch.route"):
+            batch, max_chunk, solver, sched, _ = _route(
+                batch, n_nodes, max_chunk, dtype, solver, device, american=True,
+                with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
+            )
+        return _run_batch_driver(
+            batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,
+            solver, sched, american=True, mesh=mesh, axis_name=axis_name,
+            with_dividends=_with_dividends(batch, sched),
+        )
 
 
 def _with_dividends(batch: BarrierTradeBatch, sched) -> bool:
@@ -1232,7 +1283,7 @@ def _surface_route(batch: BarrierTradeBatch, n_nodes: int, solver: str, american
     it takes (the SPIKE march only where the interface guard passed)."""
     if american and solver not in ("auto", "scan"):
         raise ValueError("the American surface is the scan's; use solver='auto' or 'scan'")
-    batch, _, solver, sched = _route(
+    batch, _, solver, sched, _ = _route(
         batch, n_nodes, None, dtype, "scan" if american else solver, device, american=american,
     )
     preps = None

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.analytic import (
     continuous_barrier_sweep,
@@ -92,9 +93,11 @@ def _next_bucket(n: int, min_bucket: int, max_bucket: int) -> int:
 
 
 def _columns(out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
-    """The first ``n`` rows of each output, float64 on the host, in one copy."""
-    keys = [k for k in _GREEK_KEYS if k in out]
-    host = torch.stack([out[k][:n].to(torch.float64) for k in keys]).cpu().numpy()
+    """The first ``n`` rows of each output, float64 on the host, in one copy
+    (the host waits here for the device's work)."""
+    with tracing.span("service.host_copy"):
+        keys = [k for k in _GREEK_KEYS if k in out]
+        host = torch.stack([out[k][:n].to(torch.float64) for k in keys]).cpu().numpy()
     return dict(zip(keys, host))
 
 
@@ -120,10 +123,12 @@ class _BucketedService:
         }
 
     def price(self, trades: Sequence[Mapping[str, Any]]) -> List[Dict[str, float]]:
+        """Rows of price and greeks, one per trade, in order; one request
+        (the root span ``service.price`` while a profiler collects)."""
         if not trades:
             return []
         bucket = _next_bucket(len(trades), self.min_bucket, self.max_bucket)
-        with self._lock:
+        with tracing.span("service.price", trades=len(trades), bucket=bucket), self._lock:
             self.stats["requests"] += 1
             self.stats["trades"] += len(trades)
             hits = self.stats["bucket_hits"]
@@ -291,31 +296,36 @@ class BarrierPricingService(_BucketedService):
         """The device batch a request of ``trades`` is priced on: built at
         the service's grid and dtype, padded to ``bucket`` trades. Knock-in
         trades appear as their knock-out complement (rebate at expiry)."""
-        lowers, uppers, is_in = zip(*(self._barriers(t) for t in trades))
-        tb = build_trade_batch(
-            spots=[float(t["spot"]) for t in trades],
-            strikes=[float(t["strike"]) for t in trades],
-            sigmas=[float(t["sigma"]) for t in trades],
-            t_expiry=[float(t["t_expiry"]) for t in trades],
-            r=[float(t["r"]) for t in trades],
-            b=[float(t.get("b", t["r"])) for t in trades],
-            is_call=[bool(t.get("is_call", True)) for t in trades],
-            n_time_steps=self.n_time_steps,
-            monitor_times=self._monitors(trades),
-            lower=list(lowers),
-            upper=list(uppers),
-            q=[float(t.get("q", 0.0)) for t in trades],
-            rebate=[float(t.get("rebate", 0.0)) for t in trades],
-            # the IN parity complement carries its rebate at EXPIRY
-            # (KI(R) = vanilla - KO(R at expiry) + R*DF)
-            rebate_at_hit=[
-                bool(t.get("rebate_at_hit", False)) and not ki for t, ki in zip(trades, is_in)
-            ],
-            num_space_nodes=self.num_space_nodes,
-            dtype=self.dtype,
-            device=self.device,
-        )
-        return pad_batch(tb, bucket - len(trades))
+        with tracing.span("service.build_batch"):
+            with tracing.span("service.trade_fields"):
+                lowers, uppers, is_in = zip(*(self._barriers(t) for t in trades))
+                fields = dict(
+                    spots=[float(t["spot"]) for t in trades],
+                    strikes=[float(t["strike"]) for t in trades],
+                    sigmas=[float(t["sigma"]) for t in trades],
+                    t_expiry=[float(t["t_expiry"]) for t in trades],
+                    r=[float(t["r"]) for t in trades],
+                    b=[float(t.get("b", t["r"])) for t in trades],
+                    is_call=[bool(t.get("is_call", True)) for t in trades],
+                    monitor_times=self._monitors(trades),
+                    lower=list(lowers),
+                    upper=list(uppers),
+                    q=[float(t.get("q", 0.0)) for t in trades],
+                    rebate=[float(t.get("rebate", 0.0)) for t in trades],
+                    # the IN parity complement carries its rebate at EXPIRY
+                    # (KI(R) = vanilla - KO(R at expiry) + R*DF)
+                    rebate_at_hit=[
+                        bool(t.get("rebate_at_hit", False)) and not ki for t, ki in zip(trades, is_in)
+                    ],
+                )
+            tb = build_trade_batch(
+                **fields,
+                n_time_steps=self.n_time_steps,
+                num_space_nodes=self.num_space_nodes,
+                dtype=self.dtype,
+                device=self.device,
+            )
+            return pad_batch(tb, bucket - len(trades))
 
     def _price_pde(self, trades, bucket):
         B = len(trades)
@@ -343,38 +353,39 @@ class BarrierPricingService(_BucketedService):
         scalar engine's _vanilla_black76_greeks_fd). The rebate leg R·DF is
         flat in spot and vol, so only price and theta see it.
         """
-        col = lambda f: np.array([f(trades[i]) for i in in_idx], np.float64)
-        s = col(lambda t: t["spot"])
-        k = col(lambda t: t["strike"])
-        sig = col(lambda t: t["sigma"])
-        te = col(lambda t: t["t_expiry"])
-        r = col(lambda t: t["r"])
-        b = col(lambda t: t.get("b", t["r"])) - col(lambda t: t.get("q", 0.0))
-        is_call = np.array([bool(trades[i].get("is_call", True)) for i in in_idx])
-        rebate = col(lambda t: t.get("rebate", 0.0))
-        df = np.exp(-r * te)
+        with tracing.span("service.ki_parity", trades=len(in_idx)):
+            col = lambda f: np.array([f(trades[i]) for i in in_idx], np.float64)
+            s = col(lambda t: t["spot"])
+            k = col(lambda t: t["strike"])
+            sig = col(lambda t: t["sigma"])
+            te = col(lambda t: t["t_expiry"])
+            r = col(lambda t: t["r"])
+            b = col(lambda t: t.get("b", t["r"])) - col(lambda t: t.get("q", 0.0))
+            is_call = np.array([bool(trades[i].get("is_call", True)) for i in in_idx])
+            rebate = col(lambda t: t.get("rebate", 0.0))
+            df = np.exp(-r * te)
 
-        def v(s_=None, sig_=None, te_=None):
-            args = (s if s_ is None else s_, k, sig if sig_ is None else sig_,
-                    te if te_ is None else te_, r, b, is_call)
-            dev = [torch.as_tensor(a, device=self.device) for a in args]
-            return generalized_bs_price(*dev).cpu().numpy()
+            def v(s_=None, sig_=None, te_=None):
+                args = (s if s_ is None else s_, k, sig if sig_ is None else sig_,
+                        te if te_ is None else te_, r, b, is_call)
+                dev = [torch.as_tensor(a, device=self.device) for a in args]
+                return generalized_bs_price(*dev).cpu().numpy()
 
-        van = v()
-        cols["price"][in_idx] = van - cols["price"][in_idx] + rebate * df
-        if "delta" in cols:
-            ds = s * 1e-4
-            v_up, v_dn = v(s_=s + ds), v(s_=s - ds)
-            cols["delta"][in_idx] = (v_up - v_dn) / (2 * ds) - cols["delta"][in_idx]
-            cols["gamma"][in_idx] = (v_up - 2 * van + v_dn) / ds**2 - cols["gamma"][in_idx]
-        if "vega" in cols:
-            dsig = 1e-4
-            cols["vega"][in_idx] = (v(sig_=sig + dsig) - van) / (100.0 * dsig) - cols["vega"][in_idx]
-        if "theta" in cols:
-            # theta = dV/dt (valuation time) = -dV/dT; d(R·DF)/dt = r·R·DF
-            dte = np.minimum(1e-5, 0.5 * te)
-            v_theta = -(v(te_=te + dte) - v(te_=te - dte)) / (2 * dte)
-            cols["theta"][in_idx] = v_theta - cols["theta"][in_idx] + r * rebate * df
+            van = v()
+            cols["price"][in_idx] = van - cols["price"][in_idx] + rebate * df
+            if "delta" in cols:
+                ds = s * 1e-4
+                v_up, v_dn = v(s_=s + ds), v(s_=s - ds)
+                cols["delta"][in_idx] = (v_up - v_dn) / (2 * ds) - cols["delta"][in_idx]
+                cols["gamma"][in_idx] = (v_up - 2 * van + v_dn) / ds**2 - cols["gamma"][in_idx]
+            if "vega" in cols:
+                dsig = 1e-4
+                cols["vega"][in_idx] = (v(sig_=sig + dsig) - van) / (100.0 * dsig) - cols["vega"][in_idx]
+            if "theta" in cols:
+                # theta = dV/dt (valuation time) = -dV/dT; d(R·DF)/dt = r·R·DF
+                dte = np.minimum(1e-5, 0.5 * te)
+                v_theta = -(v(te_=te + dte) - v(te_=te - dte)) / (2 * dte)
+                cols["theta"][in_idx] = v_theta - cols["theta"][in_idx] + r * rebate * df
 
 
 class AmericanPricingService(_BucketedService):
@@ -425,24 +436,30 @@ class AmericanPricingService(_BucketedService):
     def build_batch(self, trades, bucket: int, n_time_steps: Optional[int] = None):
         """The device batch a request of ``trades`` is priced on, padded to
         ``bucket`` trades (``n_time_steps`` defaults to the service's)."""
-        tb = build_american_batch(
-            spots=[float(t["spot"]) for t in trades],
-            strikes=[float(t["strike"]) for t in trades],
-            sigmas=[float(t["sigma"]) for t in trades],
-            t_expiry=[float(t["t_expiry"]) for t in trades],
-            r=[float(t["r"]) for t in trades],
-            b=[float(t.get("b", t["r"])) for t in trades],
-            is_call=[bool(t.get("is_call", False)) for t in trades],
-            n_time_steps=n_time_steps or self.n_time_steps,
-            dividends_tau=[
-                [(float(tau), float(amt)) for tau, amt in t.get("dividends", [])] for t in trades
-            ],
-            num_space_nodes=self.num_space_nodes,
-            dtype=self.dtype,
-            snap_to_grid=self.snap_to_grid,
-            device=self.device,
-        )
-        return pad_batch(tb, bucket - len(trades))
+        with tracing.span("service.build_batch"):
+            with tracing.span("service.trade_fields"):
+                fields = dict(
+                    spots=[float(t["spot"]) for t in trades],
+                    strikes=[float(t["strike"]) for t in trades],
+                    sigmas=[float(t["sigma"]) for t in trades],
+                    t_expiry=[float(t["t_expiry"]) for t in trades],
+                    r=[float(t["r"]) for t in trades],
+                    b=[float(t.get("b", t["r"])) for t in trades],
+                    is_call=[bool(t.get("is_call", False)) for t in trades],
+                    dividends_tau=[
+                        [(float(tau), float(amt)) for tau, amt in t.get("dividends", [])]
+                        for t in trades
+                    ],
+                )
+            tb = build_american_batch(
+                **fields,
+                n_time_steps=n_time_steps or self.n_time_steps,
+                num_space_nodes=self.num_space_nodes,
+                dtype=self.dtype,
+                snap_to_grid=self.snap_to_grid,
+                device=self.device,
+            )
+            return pad_batch(tb, bucket - len(trades))
 
     def _solve(self, trades, bucket, n_time_steps):
         out = price_american_batch(

@@ -24,13 +24,19 @@ def trace(logdir: Optional[str] = None):
     """Trace the body with ``torch.profiler`` (CPU, and CUDA where the
     machine has a card) into ``logdir`` (default: ``torch-trace`` in the
     temporary directory); yields ``logdir``. View with TensorBoard's
-    profile plugin or ``chrome://tracing``."""
+    profile plugin or ``chrome://tracing``. The services' and batch
+    drivers' spans (:mod:`finite_difference_tpu_torch.tracing`) record
+    inside it, as ranges of the trace; their records are cleared on entry
+    and kept after the body."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from .. import tracing
 
     logdir = logdir or os.path.join(tempfile.gettempdir(), "torch-trace")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    tracing.clear()
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield logdir
 
