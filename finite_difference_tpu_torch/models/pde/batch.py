@@ -138,6 +138,7 @@ class BarrierTradeBatch:
 
 SP_FIELDS = ("sp_k_end", "sp_apply", "sp_rann", "sp_dt")
 FIELD_NAMES = tuple(f.name for f in dc_fields(BarrierTradeBatch) if f.name not in SP_FIELDS)
+SCHEDULE_FIELDS = ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda")
 
 
 def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> BarrierTradeBatch:
@@ -148,15 +149,50 @@ def batch_from_numpy(fields: Dict[str, np.ndarray], device=DEFAULT_DEVICE) -> Ba
     numpy arrays, its spectral ``sp_*`` layout too where it has one (a
     missing or None ``sp_*`` key stays None).
     """
-    dev = resolve_device(device)
+    return _upload(fields, None, resolve_device(device))
+
+
+def _upload(fields: Dict[str, np.ndarray], rows: Optional[np.ndarray], dev) -> BarrierTradeBatch:
+    """The batch on ``dev`` from numpy ``fields``.
+
+    ``rows`` None: every field holds a row per trade. Otherwise the
+    :data:`SCHEDULE_FIELDS` hold one row per distinct schedule and ``rows``
+    (B,) names each trade's: those rows and the index cross to the device,
+    which expands each field to (B, n_steps) with one gather. The span's
+    ``bytes`` counts what crossed.
+    """
     with tracing.span("batch.upload") as rec:
         tensors = {k: torch.as_tensor(np.asarray(fields[k])).to(dev) for k in FIELD_NAMES}
         for k in SP_FIELDS:
             if fields.get(k) is not None:
                 tensors[k] = torch.as_tensor(np.asarray(fields[k])).to(dev)
+        moved = list(tensors.values())
+        if rows is not None:
+            index = torch.as_tensor(rows).to(dev)
+            moved.append(index)
+            for k in SCHEDULE_FIELDS:
+                tensors[k] = tensors[k].index_select(0, index)
         if rec is not None:
-            rec.attrs["bytes"] = sum(t.nbytes for t in tensors.values())
+            rec.attrs["bytes"] = sum(t.nbytes for t in moved)
     return BarrierTradeBatch(**tensors)
+
+
+def _distinct(keys: Sequence) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """Trades grouped by the key of their schedule: ``(reps, rows)``, the
+    first trade of each distinct key in order of first appearance and each
+    trade's row among those ((B,) int64); ``(None, None)`` when no two
+    trades share a key, so each keeps a row of its own."""
+    seen: Dict = {}
+    rows = [seen.setdefault(k, len(seen)) for k in keys]
+    if len(seen) == len(rows):
+        return None, None
+    rows = np.asarray(rows, dtype=np.int64)
+    return np.unique(rows, return_index=True)[1], rows
+
+
+def _float_bits(v: Sequence[float]) -> List[int]:
+    """Float64 values as their bit patterns: keys that tell 0.0 from -0.0."""
+    return np.asarray(v, dtype=np.float64).view(np.int64).tolist()
 
 
 def _pad_rows(x: torch.Tensor, pad: int, dim: int = 0) -> torch.Tensor:
@@ -214,6 +250,10 @@ def build_trade_batch(
     (per-interval constant dt, monitors exactly on step boundaries) instead
     of :func:`grid.uniform_schedule`; ``n_time_steps`` then acts as the
     target-dt divisor T/n. Trades must share a monitor-interval structure.
+
+    A schedule is a function of the trade's expiry and monitor times alone:
+    every route builds each distinct one once and the device expands the
+    rows to the trades (:func:`_upload`), unless no two trades share one.
     """
     dev = resolve_device(device)
     np_dtype = _NP_DTYPES[dtype]
@@ -222,7 +262,7 @@ def build_trade_batch(
         num_space_nodes = math.ceil(2.0 * _PPF_99999 * n_time_steps / 2.0)
     use_native = use_native and not monitor_aligned and native.available()
 
-    with tracing.span("batch.build_grids", native=use_native):
+    with tracing.span("batch.build_grids", native=use_native, rows=B) as rec:
         z = lambda v, d: np.asarray(v if v is not None else [d] * B)
         lower = z(lower, None)
         upper = z(upper, None)
@@ -230,19 +270,28 @@ def build_trade_batch(
         has_upper = np.asarray([x is not None for x in upper])
         lower_v = [x if x is not None else 0.0 for x in lower]
         upper_v = [x if x is not None else 0.0 for x in upper]
+        te_bits = _float_bits(t_expiry)
+        if len(set(te_bits)) == B:  # the expiry alone tells every schedule apart
+            reps = rows = None
+        else:
+            reps, rows = _distinct(list(zip(te_bits, map(tuple, monitor_times))))
+        if reps is not None:
+            t_expiry_s = [t_expiry[i] for i in reps]
+            monitor_times = [monitor_times[i] for i in reps]
+        else:
+            t_expiry_s = t_expiry
+        if rec is not None:
+            rec.attrs["schedules"] = len(t_expiry_s)
         if use_native:
             x_min, dx = native.barrier_log_grids(
                 spots, strikes, sigmas, t_expiry, lower_v, upper_v,
                 has_lower, has_upper, num_space_nodes,
             )
             dt, theta, tau_next, monitor = native.uniform_schedules(
-                t_expiry, n_time_steps, rannacher_steps, monitor_times
+                t_expiry_s, n_time_steps, rannacher_steps, monitor_times
             )
         else:
-            cols: Dict[str, List] = {k: [] for k in (
-                "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
-                "reset_lambda",
-            )}
+            x_min, dx = [], []
             for i in range(B):
                 g = barrier_log_grid(
                     spot_eff=float(spots[i]),
@@ -254,23 +303,21 @@ def build_trade_batch(
                     upper_barrier=upper[i],
                     num_space_nodes=num_space_nodes,
                 )
-                cols["x_min"].append(g.x_min)
-                cols["dx"].append(g.dx)
+                x_min.append(g.x_min)
+                dx.append(g.dx)
+            cols: Dict[str, List] = {k: [] for k in SCHEDULE_FIELDS}
+            for te, mons in zip(t_expiry_s, monitor_times):
                 if monitor_aligned:
                     sch = monitor_aligned_schedule(
-                        float(t_expiry[i]), monitor_times[i],
+                        float(te), mons,
                         steps_per_interval=steps_per_interval,
-                        target_dt=float(t_expiry[i]) / n_time_steps,
+                        target_dt=float(te) / n_time_steps,
                         rannacher_steps=rannacher_steps,
                     )
                 else:
-                    sch = uniform_schedule(
-                        float(t_expiry[i]), n_time_steps, rannacher_steps,
-                        monitor_times[i],
-                    )
-                for name in ("dt", "theta", "tau_next", "monitor", "div_amount", "reset_lambda"):
+                    sch = uniform_schedule(float(te), n_time_steps, rannacher_steps, mons)
+                for name in SCHEDULE_FIELDS:
                     cols[name].append(getattr(sch, name))
-            x_min, dx = cols["x_min"], cols["dx"]
 
     # the builder reads none of these: the trade columns and its outputs in
     # the working dtype
@@ -301,16 +348,16 @@ def build_trade_batch(
             arrays.update(
                 dt=dt.astype(np_dtype), theta=theta.astype(np_dtype),
                 tau_next=tau_next.astype(np_dtype), monitor=monitor.astype(bool),
-                div_amount=np.zeros((B, n_time_steps), dtype=np_dtype),
-                reset_lambda=np.zeros((B, n_time_steps), dtype=bool),
+                div_amount=np.zeros(dt.shape, dtype=np_dtype),
+                reset_lambda=np.zeros(dt.shape, dtype=bool),
             )
         else:
             arrays.update(_stack_schedules(cols, np_dtype))
-    return batch_from_numpy(arrays, dev)
+    return _upload(arrays, rows, dev)
 
 
 def _stack_schedules(cols: Dict[str, List], np_dtype) -> Dict[str, np.ndarray]:
-    """The (B, n_steps) schedule fields from per-trade rows."""
+    """The (U, n_steps) schedule fields from their rows."""
     return dict(
         dt=np.stack(cols["dt"]).astype(np_dtype),
         theta=np.stack(cols["theta"]).astype(np_dtype),
@@ -350,6 +397,10 @@ def build_american_batch(
     Dividend-free batches take a vectorised numpy path; dividend batches
     take the C++ builder when ``use_native`` and it is available, else the
     per-trade loop. All three routes are bit-identical to the JAX package's.
+    A schedule is a function of the trade's expiry, its dividends and, at a
+    dividend, whether Rannacher restarts (``is_call``): every route builds
+    each distinct one once and the device expands the rows to the trades
+    (:func:`_upload`), unless no two trades share one.
     """
     dev = resolve_device(device)
     np_dtype = _NP_DTYPES[dtype]
@@ -359,9 +410,27 @@ def build_american_batch(
     dividend_free = not any(len(d) for d in dividends_tau)
     use_native = not dividend_free and use_native and native.available()
 
-    with tracing.span("batch.build_grids", native=use_native):
+    with tracing.span("batch.build_grids", native=use_native, rows=B) as rec:
         spots = [float(x) for x in spots]
         strikes = [float(k) for k in strikes]
+        te_bits = _float_bits(t_expiry)
+        if dividend_free:
+            reps, rows = _distinct(te_bits)
+        elif len(set(te_bits)) == B:  # the expiry alone tells every schedule apart
+            reps = rows = None
+        else:
+            divs = [tuple(map(tuple, d)) for d in dividends_tau]
+            keys = list(zip(te_bits, map(bool, is_call), divs))
+            reps, rows = _distinct(keys)
+            if reps is not None and any(a == 0.0 for i in reps for _, a in divs[i]):
+                # amounts 0.0 and -0.0 are equal keys but different rows
+                reps, rows = _distinct([
+                    (*k, tuple(math.copysign(1.0, a) for _, a in d)) for k, d in zip(keys, divs)
+                ])
+        pick = (lambda v: v) if reps is None else (lambda v: [v[i] for i in reps])
+        U = B if reps is None else len(reps)
+        if rec is not None:
+            rec.attrs["schedules"] = U
         if dividend_free:
             # dividend-free schedules are one uniform segment, so the per-trade
             # loop collapses to array expressions (bit-identical: the same grid
@@ -386,23 +455,26 @@ def build_american_batch(
                 snap1 = lambda lvl, xm, d: math.exp(xm + round((math.log(lvl) - xm) / d) * d)
                 sp = np.array([snap1(sp[i], x_min[i], dx[i]) for i in range(B)])
                 st = np.array([snap1(st[i], x_min[i], dx[i]) for i in range(B)])
-            dt = np.repeat((te / float(n))[:, None], n, axis=1)
-            reset = np.zeros((B, n), dtype=bool)
+            dt = np.repeat((te if reps is None else te[reps])[:, None] / float(n), n, axis=1)
+            reset = np.zeros((U, n), dtype=bool)
             reset[:, 0] = True
-            theta = np.broadcast_to(np.where(np.arange(n) < rannacher_steps, 1.0, 0.5), (B, n))
+            theta = np.broadcast_to(np.where(np.arange(n) < rannacher_steps, 1.0, 0.5), (U, n))
             tau_next = np.cumsum(dt, axis=1)
             grids = dict(x_min=x_min, dx=dx, strike=st, spot=sp)
         elif use_native:
-            grids = native.american_batches(
-                spots, strikes, sigmas, t_expiry, [bool(c) for c in is_call],
-                dividends_tau, n_time_steps, rannacher_steps, num_space_nodes,
-                s_max_mult, snap_to_grid,
+            grids = native.american_grids(
+                spots, strikes, sigmas, t_expiry, num_space_nodes, s_max_mult, snap_to_grid,
             )
+            grids.update(native.american_schedules(
+                pick(t_expiry), [bool(c) for c in pick(is_call)], pick(dividends_tau),
+                n_time_steps, rannacher_steps,
+            ))
+            bad = np.nonzero(grids.pop("status"))[0]
+            if bad.size:
+                first = int(bad[0]) if reps is None else int(reps[bad[0]])
+                raise ValueError(f"segment steps exceeded n_time_steps (trade {first})")
         else:
-            cols: Dict[str, List] = {k: [] for k in (
-                "x_min", "dx", "dt", "theta", "tau_next", "monitor", "div_amount",
-                "reset_lambda",
-            )}
+            x_min, dx = [], []
             for i in range(B):
                 g = american_log_grid(
                     spots[i], strikes[i], float(sigmas[i]), float(t_expiry[i]),
@@ -412,12 +484,14 @@ def build_american_batch(
                     snap = lambda lvl: math.exp(g.x_min + round((math.log(lvl) - g.x_min) / g.dx) * g.dx)
                     spots[i] = snap(spots[i])
                     strikes[i] = snap(strikes[i])
-                cols["x_min"].append(g.x_min)
-                cols["dx"].append(g.dx)
+                x_min.append(g.x_min)
+                dx.append(g.dx)
+            cols: Dict[str, List] = {k: [] for k in SCHEDULE_FIELDS}
+            for te_i, divs_i, call in zip(pick(t_expiry), pick(dividends_tau), pick(is_call)):
                 sch = segmented_schedule(
-                    float(t_expiry[i]), n_time_steps, dividends_tau[i],
+                    float(te_i), n_time_steps, divs_i,
                     rannacher_steps=rannacher_steps,
-                    restart_rannacher_at_div=bool(is_call[i]),
+                    restart_rannacher_at_div=bool(call),
                 )
                 # segmented schedules share length n_time_steps by construction;
                 # guard against per-trade drift from the remainder rule
@@ -431,7 +505,7 @@ def build_american_batch(
                 cols["monitor"].append(np.concatenate([sch.monitor, np.zeros(pad, bool)]))
                 cols["div_amount"].append(np.concatenate([sch.div_amount, z]))
                 cols["reset_lambda"].append(np.concatenate([sch.reset_lambda, np.zeros(pad, bool)]))
-            grids = dict(x_min=cols["x_min"], dx=cols["dx"], strike=strikes, spot=spots)
+            grids = dict(x_min=x_min, dx=dx, strike=strikes, spot=spots)
 
     # the builder reads none of these: the trade columns and its outputs in
     # the working dtype
@@ -442,15 +516,15 @@ def build_american_batch(
         arrays = dict(
             is_call=np.asarray(is_call, dtype=bool), sigma=f(sigmas), r=f(r), b=f(b),
             q=zB, lower=zB, upper=zB, has_lower=fB, has_upper=fB, rebate=zB,
-            rebate_at_hit=fB, rebate_rate=f(b), monitor=np.zeros((B, n), dtype=bool),
+            rebate_at_hit=fB, rebate_rate=f(b), monitor=np.zeros((U, n), dtype=bool),
             x_min=f(grids["x_min"]), dx=f(grids["dx"]), strike=f(grids["strike"]),
             s_eff=f(grids["spot"]), spot=f(grids["spot"]),
         )
         if dividend_free:
             arrays.update(
-                sigma=f(sg), dt=dt.astype(np_dtype), theta=np.array(theta, dtype=np_dtype),
+                sigma=f(sg), dt=dt.astype(np_dtype), theta=np.ascontiguousarray(theta, dtype=np_dtype),
                 tau_next=tau_next.astype(np_dtype),
-                div_amount=np.zeros((B, n), dtype=np_dtype), reset_lambda=reset,
+                div_amount=np.zeros((U, n), dtype=np_dtype), reset_lambda=reset,
             )
         elif use_native:
             arrays.update(
@@ -461,7 +535,7 @@ def build_american_batch(
             )
         else:
             arrays.update(_stack_schedules(cols, np_dtype))
-    return batch_from_numpy(arrays, dev)
+    return _upload(arrays, rows, dev)
 
 
 def _dynamics(batch: BarrierTradeBatch, sigma) -> CNDynamics:

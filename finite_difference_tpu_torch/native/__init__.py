@@ -79,15 +79,17 @@ def _load() -> Optional[ctypes.CDLL]:
             dptr, i64ptr, dptr, dptr, dptr, u8ptr,
         ]
         lib.uniform_schedules.restype = None
-        lib.american_batch.argtypes = [
-            dptr, dptr, dptr, dptr, u8ptr,
-            dptr, dptr, i64ptr,
+        lib.american_grids.argtypes = [
+            dptr, dptr, dptr, dptr, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_double, ctypes.c_uint8, dptr, dptr, dptr, dptr,
+        ]
+        lib.american_grids.restype = None
+        lib.american_schedules.argtypes = [
+            dptr, u8ptr, dptr, dptr, i64ptr,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_double, ctypes.c_uint8,
-            dptr, dptr, dptr, dptr,
             dptr, dptr, dptr, dptr, u8ptr, i64ptr,
         ]
-        lib.american_batch.restype = None
+        lib.american_schedules.restype = None
         _LIB = lib
         return _LIB
 
@@ -169,38 +171,60 @@ def american_batches(
     ``models.pde.batch.build_american_batch``. Raises ValueError when a
     trade's segment steps exceed ``n_steps``, as the loop does.
     """
+    grids = american_grids(spot, strike, sigma, t_expiry, num_space_nodes, s_max_mult, snap)
+    if grids is None:
+        return None
+    out = dict(grids, **american_schedules(t_expiry, restart_at_div, dividends_ragged, n_steps, rannacher))
+    bad = np.nonzero(out.pop("status"))[0]
+    if bad.size:
+        raise ValueError(f"segment steps exceeded n_time_steps (trade {int(bad[0])})")
+    return out
+
+
+def american_grids(spot, strike, sigma, t_expiry, num_space_nodes: int, s_max_mult: float, snap: bool):
+    """The grid half of :func:`american_batches` (the same C++ expressions):
+    a dict of ``x_min``, ``dx``, ``spot`` and ``strike`` (snapped onto the
+    grid when ``snap``), each (B,); None when the native library is absent."""
     lib = _load()
     if lib is None:
         return None
     c = lambda a: np.ascontiguousarray(np.asarray(a, dtype=np.float64))
-    spot = c(spot)
-    B = spot.shape[0]
+    cols = [c(a) for a in (spot, strike, sigma, t_expiry)]
+    B = cols[0].shape[0]
+    if any(a.shape != (B,) for a in cols):
+        raise ValueError("american_grids: spot, strike, sigma and t_expiry need one value per trade")
+    out = {k: np.empty(B) for k in ("x_min", "dx", "spot", "strike")}
+    lib.american_grids(
+        *cols, B, int(num_space_nodes), float(s_max_mult),
+        ctypes.c_uint8(1 if snap else 0), out["x_min"], out["dx"], out["spot"], out["strike"],
+    )
+    return out
+
+
+def american_schedules(t_expiry, restart_at_div, dividends_ragged, n_steps: int, rannacher: int):
+    """The schedule half of :func:`american_batches` (the same C++
+    expressions): a dict of ``dt``, ``theta``, ``tau_next``, ``div_amount``
+    and ``reset_lambda``, each (B, n_steps), and ``status`` (B,), nonzero
+    where a trade's segment steps exceed ``n_steps`` (its rows are then
+    zeros; the caller raises). None when the native library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    t_expiry = np.ascontiguousarray(np.asarray(t_expiry, dtype=np.float64))
+    restart_at_div = np.ascontiguousarray(np.asarray(restart_at_div, dtype=np.uint8))
+    B = t_expiry.shape[0]
+    if t_expiry.shape != (B,) or restart_at_div.shape != (B,) or len(dividends_ragged) != B:
+        raise ValueError("american_schedules: t_expiry, restart_at_div and the dividends need one entry per trade")
     offsets, (div_tau, div_amt) = _ragged(dividends_ragged, 2)
-    x_min = np.empty(B)
-    dx = np.empty(B)
-    spot_out = np.empty(B)
-    strike_out = np.empty(B)
     n = int(n_steps)
-    dt = np.empty((B, n))
-    theta = np.empty((B, n))
-    tau_next = np.empty((B, n))
-    div_amount = np.empty((B, n))
+    dt, theta, tau_next, div_amount = (np.empty((B, n)) for _ in range(4))
     reset = np.empty((B, n), dtype=np.uint8)
     status = np.empty(B, dtype=np.int64)
-    lib.american_batch(
-        spot, c(strike), c(sigma), c(t_expiry),
-        np.ascontiguousarray(np.asarray(restart_at_div, dtype=np.uint8)),
-        div_tau, div_amt, offsets,
-        B, n, int(rannacher), int(num_space_nodes), float(s_max_mult),
-        ctypes.c_uint8(1 if snap else 0),
-        x_min, dx, spot_out, strike_out,
+    lib.american_schedules(
+        t_expiry, restart_at_div, div_tau, div_amt, offsets, B, n, int(rannacher),
         dt, theta, tau_next, div_amount, reset, status,
     )
-    bad = np.nonzero(status)[0]
-    if bad.size:
-        raise ValueError(f"segment steps exceeded n_time_steps (trade {int(bad[0])})")
     return {
-        "x_min": x_min, "dx": dx, "spot": spot_out, "strike": strike_out,
-        "dt": dt, "theta": theta, "tau_next": tau_next,
-        "div_amount": div_amount, "reset_lambda": reset.astype(bool),
+        "dt": dt, "theta": theta, "tau_next": tau_next, "div_amount": div_amount,
+        "reset_lambda": reset.astype(bool), "status": status,
     }

@@ -11,8 +11,12 @@
 // into caller-allocated numpy buffers.
 //
 // The PyTorch port's own copy of finite_difference_tpu/native/fd_native.cpp
-// (the port imports nothing of the JAX package); only these header lines
-// differ. Built with the same flags, so the two libraries agree bit for bit:
+// (the port imports nothing of the JAX package). It differs in these header
+// lines and in one split: the JAX package's american_batch is here two
+// entries, american_grids and american_schedules, so that a builder
+// computes each distinct schedule once; the arithmetic is the same
+// expressions in the same order. Built with the same flags, so the two
+// libraries agree bit for bit:
 // g++ -O3 -shared -fPIC -std=c++17 fd_native.cpp -o libfdnative.so
 // Loaded via ctypes (finite_difference_tpu_torch.native).
 
@@ -99,39 +103,23 @@ void uniform_schedules(
   }
 }
 
-// Per-trade American grids + segmented dividend schedules
-// (grid.american_log_grid + grid.segmented_schedule semantics, which mirror
-// the reference's fd_american_equity.py:790-843 layout). Bit-compatible
-// with the Python loop: scalar libm exp/log (same symbols math.exp binds),
+// Per-trade American grids (grid.american_log_grid, which mirrors the
+// reference's fd_american_equity.py layout). Bit-compatible with the Python
+// loop: scalar libm exp/log (same symbols math.exp binds), and
 // std::nearbyint under the default FE_TONEAREST mode reproduces Python's
-// round-half-to-even, and tau accumulates sequentially per segment.
-//
-// Dividends are flattened ragged storage: trade i owns div_tau/div_amt in
-// [div_offsets[i], div_offsets[i+1]). restart_at_div is the per-trade
-// "Rannacher restarts after each dividend" flag (calls in the American
-// pricer). When `snap` is nonzero, spot/strike are snapped onto grid nodes
-// (the scalar pricer's payoff-kink-on-node policy) and written back to
-// spot_out/strike_out; otherwise the inputs pass through unchanged.
-//
-// status_out[i]: 0 ok; 1 = segment steps exceeded n_steps (caller raises).
-void american_batch(
+// round-half-to-even. When `snap` is nonzero, spot/strike are snapped onto
+// grid nodes (the scalar pricer's payoff-kink-on-node policy) and written
+// to spot_out/strike_out; otherwise the inputs pass through unchanged.
+void american_grids(
     const double* spot, const double* strike, const double* sigma,
-    const double* t_expiry, const uint8_t* restart_at_div,
-    const double* div_tau, const double* div_amt, const int64_t* div_offsets,
-    int64_t batch, int64_t n_steps, int64_t rannacher,
-    int64_t num_space_nodes, double s_max_mult, uint8_t snap,
-    double* x_min_out, double* dx_out, double* spot_out, double* strike_out,
-    double* dt_out, double* theta_out, double* tau_next_out,
-    double* div_out, uint8_t* reset_out, int64_t* status_out) {
-  std::vector<std::pair<double, double>> divs;
-  std::vector<double> seg_len;
-  std::vector<int64_t> seg_steps;
+    const double* t_expiry, int64_t batch, int64_t num_space_nodes,
+    double s_max_mult, uint8_t snap,
+    double* x_min_out, double* dx_out, double* spot_out, double* strike_out) {
   for (int64_t i = 0; i < batch; ++i) {
     const double T = t_expiry[i];
     double sp = spot[i];
     double st = strike[i];
 
-    // american_log_grid policy
     const double s_low = std::min(sp, st);
     const double s_high = std::max(sp, st);
     const double s_c = std::sqrt(std::max(s_low * s_high, 1e-12));
@@ -152,6 +140,29 @@ void american_batch(
     }
     spot_out[i] = sp;
     strike_out[i] = st;
+  }
+}
+
+// Per-trade segmented dividend schedules (grid.segmented_schedule). Tau
+// accumulates sequentially per segment, as in the Python loop.
+//
+// Dividends are flattened ragged storage: trade i owns div_tau/div_amt in
+// [div_offsets[i], div_offsets[i+1]). restart_at_div is the per-trade
+// "Rannacher restarts after each dividend" flag (calls in the American
+// pricer).
+//
+// status_out[i]: 0 ok; 1 = segment steps exceeded n_steps (caller raises).
+void american_schedules(
+    const double* t_expiry, const uint8_t* restart_at_div,
+    const double* div_tau, const double* div_amt, const int64_t* div_offsets,
+    int64_t batch, int64_t n_steps, int64_t rannacher,
+    double* dt_out, double* theta_out, double* tau_next_out,
+    double* div_out, uint8_t* reset_out, int64_t* status_out) {
+  std::vector<std::pair<double, double>> divs;
+  std::vector<double> seg_len;
+  std::vector<int64_t> seg_steps;
+  for (int64_t i = 0; i < batch; ++i) {
+    const double T = t_expiry[i];
 
     // segmented_schedule: open-interval filter + stable sort by tau
     divs.clear();

@@ -170,8 +170,11 @@ def test_a_request_records_at_most_24_spans(kind):
 def test_upload_bytes_are_the_batch_tensors_bytes():
     tb, recs, _ = _profiled(_batch)
     (up,) = [r for r in recs if r.name == "batch.upload"]
-    fields = [getattr(tb, k) for k in port_batch.FIELD_NAMES]
-    assert up.attrs["bytes"] == sum(t.nbytes for t in fields) > 0
+    # the trades share one schedule: its row and the (B,) row index cross,
+    # and the device expands the row to the trades
+    per_trade = [getattr(tb, k) for k in port_batch.FIELD_NAMES if k not in port_batch.SCHEDULE_FIELDS]
+    rows = [getattr(tb, k)[:1] for k in port_batch.SCHEDULE_FIELDS]
+    assert up.attrs["bytes"] == sum(t.nbytes for t in per_trade + rows) + 8 * tb.batch_size > 0
     grids = [r for r in recs if r.name == "batch.build_grids"]
     assert [r.attrs["native"] for r in grids] == [port_batch.native.available()]
 
