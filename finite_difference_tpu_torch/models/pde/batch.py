@@ -18,7 +18,8 @@ price and bump greeks on the device.
 ``"spike"``, ``"spike_df64"``, ``"spectral"``, ``"spectral_x64dst"`` and
 ``"spectral_mixed"`` (:func:`auto_solver` is the rule of ``"auto"``);
 ``greeks_mode`` ``"bump"`` or ``"ad"`` (vega from one ``torch.func.jvp``).
-``mesh=`` (a :class:`finite_difference_tpu_torch.parallel.Mesh`) splits the
+``mesh=`` (a :class:`finite_difference_tpu_torch.parallel.Mesh`, or a device
+count or a list of device names: ``parallel.mesh.check_mesh``) splits the
 trade axis over the mesh's ``axis_name``: the route and every static
 choice are made once on the whole batch, then each shard runs on its
 device (the SPIKE march as one launch per segment per shard) and the
@@ -1076,7 +1077,14 @@ def _run_batch_driver(
     taken (``route``) and ``guard_refused`` True where the interface guard
     refused the preps that ``"auto"`` asked for. One kernel call records
     its ``batch.march`` and ``batch.greeks``; a call split into chunks or
-    shards is one ``batch.solve`` span over all of them, with none inside.
+    shards is one ``batch.solve`` span over all of them, in which no kernel
+    call records. A call over more than one shard records the split's own
+    layer inside it (:func:`tracing.inside`): all shards' copies first, one
+    ``batch.shard_copy`` a shard (``device``: its index, ``rows``, and
+    ``bytes``: what crossed from the batch's device to another), then one
+    ``batch.shard`` a shard (the host issuing its kernel calls;
+    ``device``), then one ``batch.gather`` (``bytes``: the outputs that
+    crossed to the batch's device). A call in chunks records nothing inside.
     """
     kernel = american_batch_kernel if american else price_batch_kernel
     rec = tracing.current("batch.driver")
@@ -1105,27 +1113,55 @@ def _run_batch_driver(
     padded_sigmas = [_pad_rows(s, pad) for s in sigmas]
     padded_preps = preps and [p.map_trades(lambda x, dim: _pad_rows(x, pad, dim)) for p in preps]
     chunk = max_chunk if solver == "scan" else None
-    split = len(devices) > 1 or (chunk is not None and n > chunk)
-    outs = []
+    sharded = len(devices) > 1
+    split = sharded or (chunk is not None and n > chunk)
+    shards, outs = [], []
     with tracing.covering("batch.solve") if split else nullcontext():
+        # every shard's rows are queued before any shard's work: a copy runs
+        # on the home card's stream, so one queued behind the home shard's
+        # kernels would hold its card idle until they end
         for i, dev in enumerate(devices):
-            rows = lambda x, dim=0: x.narrow(dim, i * n, n).to(dev).contiguous()
-            b, sg = padded._map(rows), [rows(s) for s in padded_sigmas]
-            prep = padded_preps and [p.map_trades(rows) for p in padded_preps]
+            with (tracing.inside("batch.shard_copy", device=dev.index, rows=n) if sharded
+                  else nullcontext()) as part:
+                shards.append(_shard_rows(padded, padded_sigmas, padded_preps, i * n, n, dev, part))
+        for dev, (b, sg, prep) in zip(devices, shards):
             run = lambda sl: kernel(
                 b[sl], n_nodes, dv_sigma=dv_sigma, with_greeks=with_greeks,
                 greeks_mode=greeks_mode, solver=solver, spike_segments=spike_segments,
                 spike_preps=prep, vol_points=(dv_sigma, [s[sl] for s in sg]), **kernel_kw,
             )
-            with on_device(dev):
+            with tracing.inside("batch.shard", device=dev.index) if sharded else nullcontext(), \
+                    on_device(dev):
                 if chunk is None or n <= chunk:
                     outs.append(run(slice(None)))
                 else:
                     pieces = [run(slice(start, start + chunk)) for start in range(0, n, chunk)]
                     outs.append({k: torch.cat([p[k] for p in pieces]) for k in pieces[0]})
-    if mesh is None:
-        return outs[0]
-    return {k: torch.cat([o[k].to(home) for o in outs])[:B] for k in outs[0]}
+        if mesh is None:
+            return outs[0]
+        with (tracing.inside("batch.gather") if sharded else nullcontext()) as part:
+            if part is not None:
+                part.attrs["bytes"] = sum(v.nbytes for o in outs for v in o.values() if v.device != home)
+            return {k: torch.cat([o[k].to(home) for o in outs])[:B] for k in outs[0]}
+
+
+def _shard_rows(batch: BarrierTradeBatch, sigmas, preps, start: int, n: int, device, rec=None):
+    """Rows ``start:start + n`` of ``batch``, of each of ``sigmas`` and of
+    each SPIKE prep of ``preps`` (or None), copied to ``device``
+    (contiguous). ``rec``, a ``batch.shard_copy`` record, gets ``bytes``:
+    those of the copies that crossed to another device."""
+    moved = []
+
+    def rows(x, dim=0):
+        y = x.narrow(dim, start, n).to(device).contiguous()
+        if rec is not None and y.device != x.device:
+            moved.append(y.nbytes)
+        return y
+
+    out = batch._map(rows), [rows(s) for s in sigmas], preps and [p.map_trades(rows) for p in preps]
+    if rec is not None:
+        rec.attrs["bytes"] = sum(moved)
+    return out
 
 
 def auto_solver(
@@ -1173,8 +1209,7 @@ def auto_solver(
 
 
 def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str, device,
-           american: bool = False, with_greeks: bool = False, greeks_mode: str = "bump",
-           mesh=None):
+           american: bool = False, with_greeks: bool = False, greeks_mode: str = "bump"):
     """The batch on its device and dtype, with its spectral layout attached
     where it has one, and the route: ``(batch, max_chunk, solver,
     spike_segments, guarded)``, where ``guarded`` is True when a numerical
@@ -1190,12 +1225,10 @@ def _route(batch: BarrierTradeBatch, n_nodes: int, max_chunk, dtype, solver: str
     :func:`_spectral_layout` refuses or on an American batch, and
     ``"spectral_mixed"`` on a per-interval dt.
     ``dtype`` casts the batch's floating fields (float64 halves
-    ``max_chunk``, the same working-set budget). ``mesh`` must be None or a
-    ``parallel.Mesh`` of ``device``'s type (ValueError otherwise); the route
-    is the whole batch's either way.
+    ``max_chunk``, the same working-set budget). The route is the whole
+    batch's, under a mesh too.
     """
     dev = resolve_device(device)
-    check_mesh(mesh, dev)
     batch = batch.to(dev)
     if dtype is not None:
         batch = batch.astype(dtype)
@@ -1281,13 +1314,17 @@ def price_barrier_batch(
     ``parallel.Mesh`` of ``device``'s type, from ``parallel.make_mesh``)
     splits the trades over its axis ``axis_name``, one shard per device,
     each shard chunked as the whole batch would be; the outputs come back
-    on ``device`` (:func:`_run_batch_driver`).
+    on ``device`` (:func:`_run_batch_driver`). ``mesh`` may also be named as
+    data, a device count or a list of device names
+    (``parallel.mesh.check_mesh``); ValueError where its devices are not of
+    ``device``'s type.
     """
+    mesh = check_mesh(mesh, resolve_device(device))
     with tracing.span("batch.driver") as rec:
         with tracing.span("batch.route"):
             batch, max_chunk, solver, sched, guarded = _route(
                 batch, n_nodes, max_chunk, dtype, solver, device,
-                with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
+                with_greeks=with_greeks, greeks_mode=greeks_mode,
             )
         if rec is not None and guarded:
             rec.attrs["guard_refused"] = _guard_refused(batch, sched, with_greeks, greeks_mode)
@@ -1328,11 +1365,12 @@ def price_american_batch(
     :func:`price_barrier_batch` (under a mesh the dividend jumps and
     lambda resets run per shard, between its launches).
     """
+    mesh = check_mesh(mesh, resolve_device(device))
     with tracing.span("batch.driver"):
         with tracing.span("batch.route"):
             batch, max_chunk, solver, sched, _ = _route(
                 batch, n_nodes, max_chunk, dtype, solver, device, american=True,
-                with_greeks=with_greeks, greeks_mode=greeks_mode, mesh=mesh,
+                with_greeks=with_greeks, greeks_mode=greeks_mode,
             )
         return _run_batch_driver(
             batch, n_nodes, dv_sigma, with_greeks, max_chunk, greeks_mode,

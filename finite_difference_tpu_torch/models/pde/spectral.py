@@ -841,7 +841,11 @@ def run_graphed(key: tuple, solve, tensors: Sequence[torch.Tensor],
             solve(*static)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # captured on the side stream, which is the current card's:
+        # torch.cuda.graph's default capture stream is made once, on the
+        # card current at the process's first capture, and a capture of
+        # another card's work there fails
+        with torch.cuda.graph(graph, stream=side):
             out = solve(*static)
         hit = _GRAPHS[key] = (graph, static, out, static[0].device)
         _drop_least_recent(static[0].device)

@@ -135,14 +135,25 @@ def make_mesh(
 
 
 def check_mesh(mesh, device=None) -> Optional[Mesh]:
-    """``mesh`` if it is None or a :class:`Mesh` (of ``device``'s type, where
-    one is given), else ValueError."""
+    """The :class:`Mesh` that ``mesh`` names, of ``device``'s type where one
+    is given (ValueError otherwise), or None for None.
+
+    A mesh may be named as data, as a configuration file holds it: an int
+    n is ``make_mesh(n)``, a 1-D ``"data"`` mesh over the first n CUDA
+    devices (without a card it raises as :func:`make_mesh` does); a list or
+    tuple of device names is ``make_mesh(devices=...)``. A :class:`Mesh` is
+    taken as it is. The JAX package's services take only a
+    ``jax.sharding.Mesh``."""
     if mesh is None:
         return None
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        mesh = make_mesh(mesh)
+    elif isinstance(mesh, (list, tuple)):
+        mesh = make_mesh(devices=mesh)
     if not isinstance(mesh, Mesh):
         raise ValueError(
-            f"mesh must be None or a finite_difference_tpu_torch.parallel.Mesh "
-            f"(make_mesh), got {type(mesh).__name__}"
+            f"mesh must be None, a device count, a list of device names or a "
+            f"finite_difference_tpu_torch.parallel.Mesh (make_mesh), got {type(mesh).__name__}"
         )
     if device is not None and torch.device(device).type != mesh.device_type:
         raise ValueError(f"the mesh's devices are {mesh.device_type}, the call's device is {device}")

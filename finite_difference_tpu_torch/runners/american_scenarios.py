@@ -142,9 +142,10 @@ def run_all_american_scenarios_batched(
     ``price_american_batch`` when ``richardson=False``, each under its
     ``auto`` route: on a card the American SPIKE march with the
     Ikonen–Toivanen projection fused into the step (at float64 the march
-    at double precision), on the CPU the scan. ``mesh`` (a ``parallel.Mesh``
-    of ``device``'s type) splits the trades over its ``"data"`` axis;
-    anything else but None raises ValueError.
+    at double precision), on the CPU the scan. ``mesh`` (a ``parallel.Mesh``,
+    a device count or a list of device names, of ``device``'s type;
+    ``parallel.mesh.check_mesh``) splits the trades over its ``"data"``
+    axis; anything else but None raises ValueError.
     """
     from ..models.pde.batch import (
         build_american_batch,
@@ -154,7 +155,7 @@ def run_all_american_scenarios_batched(
     from ..utils.daycount import year_fraction
 
     dev = resolve_device(device)
-    check_mesh(mesh, dev)
+    mesh = check_mesh(mesh, dev)
     rows = read_rows(config_csv_path)
     valuation = base_params["valuation"]
     maturity = base_params["maturity"]

@@ -175,9 +175,10 @@ def run_all_scenarios_batched(
     Uses the same flat-curve/time-measure resolution as the per-scenario
     runner, then prices with ``price_barrier_batch`` (its ``auto`` route).
     KI prices come from in-out parity against the Black-76 vanilla,
-    computed for the whole table at once. ``mesh`` (a ``parallel.Mesh`` of
-    ``device``'s type) splits the CN batch's trades over its ``"data"``
-    axis; anything else but None raises ValueError.
+    computed for the whole table at once. ``mesh`` (a ``parallel.Mesh``, a
+    device count or a list of device names, of ``device``'s type;
+    ``parallel.mesh.check_mesh``) splits the CN batch's trades over its
+    ``"data"`` axis; anything else but None raises ValueError.
 
     ``route='hybrid'`` applies the FIS n_lim monitoring decision per trade
     (discrete_barrier_analytic_pricer.py:278-342): continuous-regime trades
@@ -196,7 +197,7 @@ def run_all_scenarios_batched(
     from ..utils.daycount import year_fraction
 
     dev = resolve_device(device)
-    check_mesh(mesh, dev)
+    mesh = check_mesh(mesh, dev)
     rows = read_rows(config_csv_path)
     valuation = base_params["valuation"]
     maturity = base_params["maturity"]

@@ -15,7 +15,9 @@ bumps of the generalized Black–Scholes price.
 A service serialises its device work: ``price`` may be called from several
 threads, and one request at a time builds its batch and prices it. A
 service built with ``mesh`` (a ``parallel.Mesh``) splits each bucket's
-trades over the mesh's ``"data"`` axis (the drivers' ``mesh=``).
+trades over the mesh's ``"data"`` axis (the drivers' ``mesh=``); the
+mesh may also be named as data, as a configuration file holds it: a device
+count or a list of device names (``parallel.mesh.check_mesh``).
 """
 from __future__ import annotations
 
@@ -159,9 +161,13 @@ class BarrierPricingService(_BucketedService):
     or numpy dtypes; a greek-bearing float32 service solves at float64
     unless ``greeks_dtype=float32`` (:func:`_resolve_greeks_dtype`).
     ``solver``, ``greeks_mode`` and ``max_chunk`` go to
-    ``price_barrier_batch``; so does ``mesh`` (None, or a ``parallel.Mesh``
-    of ``device``'s type, split over its ``"data"`` axis; ValueError
-    otherwise).
+    ``price_barrier_batch``; so does ``mesh``, split over its ``"data"``
+    axis: None, a ``parallel.Mesh``, an int n (the first n CUDA devices,
+    ``parallel.make_mesh(n)``) or a list of device names
+    (``make_mesh(devices=...)``, e.g. ``["cuda:0", "cuda:1"]`` or
+    ``["cpu"] * 4``), of ``device``'s type (ValueError otherwise). The int
+    and the list are the port's own: the JAX service takes a
+    ``jax.sharding.Mesh`` only.
 
     ``route='hybrid'`` applies the FIS n_lim monitoring decision per trade
     (reference semantics discrete_barrier_analytic_pricer.py:278-342):
@@ -400,8 +406,10 @@ class AmericanPricingService(_BucketedService):
     ``richardson=True`` serves the reference's production convention
     (AmericanFDMPricer.price_log2/greeks_log2, fd_american_equity.py:925):
     each bucket solves at ``n_time_steps`` and twice that, combined as
-    (4*P_fine - P_coarse)/3. ``dtype``, ``greeks_dtype``, ``mesh`` and
-    ``device`` as for :class:`BarrierPricingService`.
+    (4*P_fine - P_coarse)/3. ``dtype``, ``greeks_dtype`` and ``device`` as
+    for :class:`BarrierPricingService`; so is ``mesh``: None, a
+    ``parallel.Mesh``, an int n (the first n CUDA devices) or a list of
+    device names, split over its ``"data"`` axis.
     """
 
     def __init__(

@@ -24,8 +24,11 @@ Every name starts with ``service.`` or ``batch.`` (:data:`PREFIXES`): a
 trace reader tells the program's ranges, which the profiler also draws on
 the device's timeline, from the device's operations by those prefixes. A
 span wraps one call of a layer, never the body of a per-launch,
-per-segment, per-chunk or per-shard loop, so a request opens a few dozen at
-most; a loop whose calls would each record is one :func:`covering` span.
+per-segment or per-chunk loop, so a request opens a few dozen at most; a
+loop whose calls would each record is one :func:`covering` span. Inside
+one, :func:`inside` records the parts of the covering span's own layer (a
+mesh split's copy and issue per shard, and its gather), while every span
+under them stays muted.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from typing import Any, Deque, Dict, List, Optional
 import torch
 from torch.profiler import record_function
 
-__all__ = ["PREFIXES", "MAX_RECORDS", "Record", "records", "span", "covering", "current", "clear"]
+__all__ = ["PREFIXES", "MAX_RECORDS", "Record", "records", "span", "covering", "inside", "current",
+           "clear"]
 
 PREFIXES = ("service.", "batch.")
 MAX_RECORDS = 1 << 17
@@ -125,6 +129,15 @@ def covering(name: str):
     if not _enabled() or getattr(_local, "muted", False):
         return _OFF
     return _Span(name, {}, covers=True)
+
+
+def inside(name: str, **attrs):
+    """:func:`span` for a part of a :func:`covering` span's own loop: it
+    records while a profiler collects, though the covering span mutes this
+    thread; the spans of the calls under it stay muted."""
+    if not _enabled():
+        return _OFF
+    return _Span(name, attrs)
 
 
 def current(name: str) -> Optional[Record]:

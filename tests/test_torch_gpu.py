@@ -15,6 +15,9 @@ and it shows that each path launches its kernel. The spectral propagator
 and greeks_mode="ad" (no hand-written kernel) are held on the card against
 the port on the CPU at float64 within 1e-12, and a float32 spectral call
 under TF32 raises rather than lose the sine reconstruction. On the
+serving path, a float64 service over a mesh of every visible card (two or
+more; it skips on one) captures each card's spectral graph on that card and
+equals the one-card service (price 1e-12 of max|price|, greeks 1e-9). On the
 FA-validation path, the scalar pricers on the card equal the port on the
 CPU within 1e-10, a replayed scan (a CUDA graph) equals its eager run
 within 1e-12, and the batched American runner at float64 launches K2. The
@@ -705,6 +708,43 @@ def test_mixed_service_stream_captures_no_graph_after_warm_up(cuda):
     for g, w in zip(passes[0][1], want):
         for k in w:
             assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-12), k
+
+
+def test_service_over_every_card_captures_each_cards_graph_there(cuda, monkeypatch):
+    """A float64 barrier service over a mesh of every visible card, named by
+    their count, on the spectral route: the same request three times runs
+    eagerly, then captures one graph a card on that card's own stream, then
+    replays; every pass equals the one-card service, the price within 1e-12
+    of max|price| and the greeks within 1e-9 (a shard's DSTs are products
+    of another shape, whose last bits the bump and the second difference
+    amplify, as the other card tests hold them). Skips with fewer than two
+    cards. The graph cache starts empty, since an earlier test's graph of
+    the same key would be replayed, not captured."""
+    from collections import OrderedDict
+
+    from finite_difference_tpu_torch.models.pde import spectral
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    kw = dict(n_time_steps=32, num_space_nodes=127, solver="spectral", device=cuda, min_bucket=8)
+    trades = _service_trades(21, 8 * n, n_mon=5)
+    want = BarrierPricingService(**kw).price(trades)
+    svc = BarrierPricingService(mesh=n, **kw)
+    assert [d.index for d in svc.mesh.devices.flat] == list(range(n))
+    monkeypatch.setattr(spectral, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(spectral, "_SEEN", OrderedDict())
+    spectral.reset_graph_counts()
+    passes = [svc.price(trades) for _ in range(3)]
+    assert spectral.graph_counts["captures"] == n
+    assert sorted(hit[3].index for hit in spectral._GRAPHS.values()) == list(range(n))
+    scale = max(abs(r["price"]) for r in want)
+    for rows in passes:
+        for g, w in zip(rows, want):
+            assert abs(g["price"] - w["price"]) <= 1e-12 * scale
+            for k in w:
+                assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-9), k
 
 
 # --------------------------------------------------------------------------- #

@@ -6,7 +6,7 @@ layers nested inside one ``service.price`` a request, at most 24 spans a
 request, and price the same rows bit for bit as without it. Every name the
 port passes to ``tracing.span`` or ``tracing.covering`` carries a program
 prefix, which is how a trace reader tells the program's ranges from the
-device's operations.
+device's operations (``tracing.inside`` too, the parts of a mesh split).
 """
 import ast
 from collections import Counter, deque
@@ -28,7 +28,7 @@ SPANS = {
     "service.price", "service.build_batch", "service.trade_fields", "service.host_copy",
     "service.ki_parity", "batch.build_grids", "batch.build_arrays", "batch.upload",
     "batch.driver", "batch.route", "batch.spike_prep", "batch.march", "batch.greeks",
-    "batch.solve",
+    "batch.solve", "batch.shard_copy", "batch.shard", "batch.gather",
 }
 MONITORS = [0.02, 0.04, 0.06, 0.08]
 
@@ -135,7 +135,7 @@ def test_every_span_name_carries_a_program_prefix():
     for path in PACKAGE.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                    and node.func.attr in ("span", "covering")
+                    and node.func.attr in ("span", "covering", "inside")
                     and isinstance(node.func.value, ast.Name)
                     and node.func.value.id == "tracing"):
                 arg = node.args[0]
@@ -196,13 +196,16 @@ def test_driver_route_is_the_auto_rule(sigma):
 @pytest.mark.parametrize("split", ["chunks", "shards"])
 def test_a_split_call_is_one_solve_span(split):
     """A scan in chunks, or a call over a mesh's shards, records one
-    ``batch.solve`` over every kernel call and nothing inside it."""
+    ``batch.solve`` over every kernel call and no kernel call's span inside
+    it; over shards it records the split's own parts there, a copy and an
+    issue a shard and one gather, and in chunks nothing."""
     tb = _batch(n=9)
     kw = (dict(solver="scan", max_chunk=4) if split == "chunks"
           else dict(mesh=make_mesh(devices=["cpu"] * 3)))
     got, recs, _ = _profiled(lambda: port_batch.price_barrier_batch(tb, 64, device="cpu", **kw))
     names = Counter(r.name for r in recs)
-    assert names == {"batch.driver": 1, "batch.route": 1, "batch.solve": 1}
+    parts = {} if split == "chunks" else {"batch.shard_copy": 3, "batch.shard": 3, "batch.gather": 1}
+    assert names == {"batch.driver": 1, "batch.route": 1, "batch.solve": 1, **parts}
     (solve,) = [r for r in recs if r.name == "batch.solve"]
     assert solve.attrs == {}
     want = port_batch.price_barrier_batch(tb, 64, device="cpu", **kw)
