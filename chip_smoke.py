@@ -12,6 +12,11 @@ phase:
 
 - the barrier path, ``price_barrier_batch`` on the benchmark trade set:
   B=4096 barrier trades, 1024-node grids, 512 Crank–Nicolson steps, f32;
+- K5, the knock-in parity (phase 4b, :func:`ki_parity_phases`): the
+  barrier cells' own first requests (4096 trades with 960 knock-ins, and
+  16,384 with 3840, here on one card) through the float64 service, the
+  kernel's result on the stack the main path hands it held to its plain
+  version bit for bit, one launch a request, its device time and bound;
 - the American path, ``price_american_batch`` on the benchmark's American
   trade set (bench.py make_american_batch): B=4096 one-year puts at f32,
   price only, with greeks and with two cash dividends per trade; and the
@@ -1356,7 +1361,8 @@ def serving_phases(dev, card: dict) -> dict:
       Black–Scholes + R·DF within 1e-10 (float64); the hybrid lane on the
       card (``greeks_mode="ad"``) equals the port's analytic lane on the
       CPU within 1e-12 (theta, a central maturity bump of 1e-5, within
-      1e-9); the launches of K1, K1a and K2 on their services.
+      1e-9); the launches of K1, K1a and K2 on their services, and of K5
+      (``ki_parity_f64``), one a request with a knock-in row, none without.
     - Policy evidence (not a gate): float32 services with greeks
       (``greeks_dtype=float32``) against the float64 ones, per greek,
       beside the f32 limits of the earlier phases.
@@ -1406,7 +1412,7 @@ def serving_phases(dev, card: dict) -> dict:
         check(svc.num_space_nodes + (1 if kind == "barrier" else 2) == N_NODES
               and svc.n_time_steps == N_STEPS, f"{label} is not at full width")
         driver = price_barrier_batch if kind == "barrier" else price_american_batch
-        launches_total = dict.fromkeys(spike_names, 0)
+        launches_total = dict.fromkeys(spike_names + ("ki_parity_f64",), 0)
         for bucket in SERVE_BUCKETS:
             rng = np.random.default_rng(1000 * bucket + len(lines))
             request = lambda: serving_trades(kind, int(rng.integers(bucket // 2 + 1, bucket + 1)), rng)
@@ -1421,8 +1427,13 @@ def serving_phases(dev, card: dict) -> dict:
             # vega bump's solve follows it): what a rule that captured on a
             # key's first call would have captured
             graphs["first_sightings"] = graphs["eager"] // (2 if svc.with_greeks else 1)
-            for k in spike_names:
+            for k in launches_total:
                 launches_total[k] += kernels.launch_counts[k]
+            # K5: one launch a request with a knock-in row, none without
+            knocked_in = sum(any("in" in t.get("barrier_type", "none") for t in req) for req in stream)
+            check(launches.get("ki_parity_f64", 0) == knocked_in,
+                  f"{label} B={bucket}: {launches.get('ki_parity_f64', 0)} ki_parity_f64 launches "
+                  f"for {knocked_in} requests with knock-ins")
             route = ("spike" if any(launches.get(k) for k in spike_names) else
                      "spectral" if any(graphs.values()) else "scan")
             # one request split into its host build and its price, and held
@@ -1455,6 +1466,8 @@ def serving_phases(dev, card: dict) -> dict:
         if kernel is not None:
             check(launches_total[kernel] > 0, f"the {label} service launched no {kernel} kernel")
             serving_launches[kernel] = launches_total[kernel]
+        serving_launches["ki_parity_f64"] = (serving_launches.get("ki_parity_f64", 0)
+                                             + launches_total["ki_parity_f64"])
 
     svc32, svc64, am64, am32 = (svc for *_, svc in services)
 
@@ -1583,6 +1596,150 @@ def serving_phases(dev, card: dict) -> dict:
         for k, v in errs.items():
             check(v <= 1e-9, f"server {label} {k} vs service.price {v:.3e} > 1e-9")
     return serving_launches
+
+
+# the barrier cells whose requests K5 is held on: (configuration, traffic)
+KI_CELLS = (("fa_barrier_f64", "ladder_fixed_book"), ("fa_barrier_f64_mesh4", "ladder_fixed_book_16x16"))
+
+
+def ki_parity_request(config: str, traffic: str):
+    """(the service's settings, the first request of the cell's pool): the
+    benchmark's configuration and traffic files, through its generator, so
+    the trades are the cell's own (``fa_barrier_f64.sweep``: 4096 trades,
+    960 knock-ins; ``fa_barrier_f64_mesh4.sweep4``: 16,384 and 3840)."""
+    from benchmark.traffic import ClosedLoop
+
+    def load(*path):
+        with open(os.path.join(HERE, "benchmark", *path)) as f:
+            return json.load(f)
+
+    cfg = load("configs", f"{config}.json")
+    service = {k: v for k, v in cfg["service"].items() if k not in ("kind", "mesh")}
+    service["dtype"] = np.dtype(service["dtype"])
+    return service, ClosedLoop(cfg["trades"], load("traffic", f"{traffic}.json"), 0).request(0)
+
+
+def ki_parity_check(svc, trades) -> dict:
+    """One request priced by ``svc`` with its knock-in parity watched: the
+    stack of outputs that ``_price_pde`` hands to ``_apply_ki_parity`` is
+    kept before and after, and the parity is redone by
+    ``ki_parity_reference`` on a copy of the same stack. Returns the rows,
+    the stacks, the keys, the knock-ins and each output's max |after -
+    plain| (0 where equal bit for bit)."""
+    import torch
+    from finite_difference_tpu_torch.serving.service import ki_parity_reference
+
+    seen = {}
+    apply = svc._apply_ki_parity
+
+    def watched(stack, keys, knock_ins):
+        seen.update(before=stack.clone(), keys=list(keys), knock_ins=knock_ins)
+        apply(stack, keys, knock_ins)
+        seen["after"] = stack.clone()
+
+    svc._apply_ki_parity = watched
+    try:
+        rows = svc.price(trades)
+    finally:
+        del svc._apply_ki_parity
+    check("after" in seen, "the request ran no knock-in parity")
+    plain = seen["before"].clone()
+    ki_parity_reference(plain, seen["keys"], *seen["knock_ins"])
+    gap = {k: float((seen["after"][i] - plain[i]).abs().max())
+           for i, k in enumerate(seen["keys"])}
+    same = {k: bool(torch.equal(seen["after"][i], plain[i])) for i, k in enumerate(seen["keys"])}
+    return dict(rows=rows, plain=plain, gap=gap, same=same, **seen)
+
+
+def ki_parity_bound(n: int, K: int, evaluations: int) -> dict:
+    """The bound of one knock-in parity launch over ``n`` rows and ``K``
+    outputs. Operations: per vanilla evaluation 77 FP64 additions,
+    multiplications and divisions (the forward and the discount 3, d1 and
+    d2 8, two of Hart's rationals at 31 each, the payoff 4) and six
+    transcendentals (four exponentials, a logarithm, a square root) at 20
+    each, ``evaluations`` a row (6 with every output), and 20 for the
+    discount and the parity rows; bytes: the 8 fields and the row index
+    read once, each output read and written once."""
+    flops = n * (evaluations * (77 + 6 * 20) + 20)
+    nbytes = n * (8 + 1 + 2 * K) * 8
+    t_ops, t_bytes = flops / PEAK_F64_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes)
+
+
+def ki_parity_phases(dev, card: dict) -> dict:
+    """K5, the knock-in parity (``csrc/ki_parity.cu``), on the barrier
+    cells' own requests (:func:`ki_parity_request`), each priced once by
+    the float64 service as its cell configures it, on this one card. The
+    kernel's result on the stack the main path hands it is held to
+    ``ki_parity_reference`` on a copy of the same stack, output by output,
+    bit for bit (:func:`ki_parity_check`); the other columns must be left
+    as priced and the host rows must be the stack's. One launch a request.
+    Then on that stack the kernel's device time (profiler, per launch), the
+    plain version's (host clock, synchronised) and the bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from finite_difference_tpu_torch import kernels
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+    from finite_difference_tpu_torch.serving.service import ki_parity_reference
+
+    k5 = None
+    for config, traffic in KI_CELLS:
+        service, trades = ki_parity_request(config, traffic)
+        service["max_bucket"] = max(service["max_bucket"], len(trades))
+        svc = BarrierPricingService(device=dev, **service)
+        kernels.reset_launch_counts()
+        got = ki_parity_check(svc, trades)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        keys, before, after, knock_ins = got["keys"], got["before"], got["after"], got["knock_ins"]
+        n_in = sum("in" in str(t.get("barrier_type", "none")) for t in trades)
+        n, B, K = knock_ins.rows.shape[0], before.shape[1], before.shape[0]
+        check(n == n_in and n > 0, f"{config}: {n} knock-in rows for {n_in} knock-in trades")
+        check(launches.get("ki_parity_f64") == 1, f"{config}: ki_parity_f64 launches {launches}")
+        check(all(got["same"].values()), f"{config}: kernel vs plain, max gaps {got['gap']}")
+        rest = torch.ones(B, dtype=torch.bool, device=before.device)
+        rest[knock_ins.rows] = False
+        check(torch.equal(after[:, rest], before[:, rest]), f"{config}: parity moved other rows")
+        at = keys.index("price")
+        check(bool((after[at, knock_ins.rows] != before[at, knock_ins.rows]).all()),
+              f"{config}: a knock-in price was left as its knock-out leg")
+        host = np.array([[row[k] for k in keys] for row in got["rows"]]).T
+        check(np.array_equal(host, after.cpu().numpy()), f"{config}: the host rows are not the stack's")
+
+        kernel = lambda w: kernels.ki_parity_cuda(w, keys, *knock_ins)
+        work = [before.clone() for _ in range(20)]
+        kernel(before.clone())
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for w in work:
+                kernel(w)
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "ki_parity" in e.key]
+        count = sum(e.count for e in rows)
+        check(count == len(work), f"{config}: the profiler saw {count} ki_parity launches")
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / count
+        plain = lambda w: ki_parity_reference(w, keys, *knock_ins)
+        call_ms, plain_ms = (sorted(host_ms(lambda w=before.clone(): fn(w))[1] for _ in range(5))[2]
+                             for fn in (kernel, plain))
+        evaluations = 1 + 2 * ("delta" in keys or "gamma" in keys) + ("vega" in keys) + 2 * ("theta" in keys)
+        b = ki_parity_bound(n, K, evaluations)
+        scale = float(after[:, knock_ins.rows].abs().max())
+        err = max(got["gap"].values())
+        emit("ki_parity", config=config, traffic=traffic, B=B, knock_ins=n, keys=keys,
+             launches=launches.get("ki_parity_f64", 0), bit_for_bit=got["same"],
+             max_abs_err=err, max_abs_v=scale, ms=ms, call_ms=call_ms, plain_ms=plain_ms, **b,
+             **card)
+        if k5 is None:  # the one-card cell's shape is the summary's
+            k5 = dict(name="ki_parity_f64", launches=launches.get("ki_parity_f64", 0),
+                      replaces="finite_difference_tpu/serving/service.py:380",
+                      source="finite_difference_tpu_torch/csrc/ki_parity.cu",
+                      max_abs_err=err, max_abs_err_over_max_abs_v=err / scale,
+                      ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        del svc, got, before, after, work
+    return k5
 
 
 FA_HEADER = ["scenario_name", "S0", "K", "sigma", "rate", "barrier_type", "upper_barrier",
@@ -4296,6 +4453,11 @@ def main() -> int:
 
     wall = {"1-4 build, K1 and the barrier path": time.perf_counter() - t0}
 
+    # 4b. K5, the knock-in parity, on the barrier cells' own requests -------------
+    t1 = time.perf_counter()
+    k5 = ki_parity_phases(dev, card)
+    wall["4b K5, knock-in parity"] = time.perf_counter() - t1
+
     # 5-8. the American path ------------------------------------------------
     t1 = time.perf_counter()
     k1a, k2 = american_phases(dev, card, limits)
@@ -4307,6 +4469,7 @@ def main() -> int:
     t1 = time.perf_counter()
     k3, k4 = fused_phases(dev, card, limits)
     wall["9-12 the fused marches"] = time.perf_counter() - t1
+    ks = (k1, k1a, k2, k3, k4, k5)
 
     # 13-14. what the SPIKE P rule and the CR launch rest on ---------------------
     t1 = time.perf_counter()
@@ -4321,14 +4484,14 @@ def main() -> int:
     # 19. the serving path ------------------------------------------------------
     t1 = time.perf_counter()
     serving_launches = serving_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["serving_launches"] = serving_launches.get(k["name"], 0)
     wall["19 serving"] = time.perf_counter() - t1
 
     # 20. the FA-validation path ------------------------------------------------
     t1 = time.perf_counter()
     fa_launches = fa_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["fa_launches"] = fa_launches.get(k["name"], 0)
     wall["20 FA validation"] = time.perf_counter() - t1
 
@@ -4345,28 +4508,28 @@ def main() -> int:
     # 23. the XVA exposure path -----------------------------------------------------
     t1 = time.perf_counter()
     xva_launches = xva_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["xva_launches"] = xva_launches.get(k["name"], 0)
     wall["23 XVA exposure"] = time.perf_counter() - t1
 
     # 24. the rest of the XVA engine ---------------------------------------------------
     t1 = time.perf_counter()
     xva_rest_launches = xva_rest_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["xva_rest_launches"] = xva_rest_launches.get(k["name"], 0)
     wall["24 rest of XVA"] = time.perf_counter() - t1
 
     # 25. the scenario layer and the CS and HW1F calibration ------------------------------
     t1 = time.perf_counter()
     scenario_launches = scenario_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["scenario_launches"] = scenario_launches.get(k["name"], 0)
     wall["25 scenarios and calibration"] = time.perf_counter() - t1
 
     # 26. the device mesh -----------------------------------------------------------------
     t1 = time.perf_counter()
     mesh_launches = mesh_phases(dev, card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["mesh_launches"] = mesh_launches.get(k["name"], 0)
     check(all(mesh_launches.get(k["name"], 0) > 0 for k in (k1, k1a, k2)),
           f"phase 26 did not launch K1, K1a and K2 over the mesh: {mesh_launches}")
@@ -4375,17 +4538,18 @@ def main() -> int:
     # 27. the host-only remainder -----------------------------------------------------------
     t1 = time.perf_counter()
     remainder_launches = host_remainder_phases(card)
-    for k in (k1, k1a, k2, k3, k4):
+    for k in ks:
         k["host_remainder_launches"] = remainder_launches.get(k["name"], 0)
     wall["27 host remainder"] = time.perf_counter() - t1
     emit("phase_wall_s", **wall, total=time.perf_counter() - t0)
 
     # 15. summary -----------------------------------------------------------
     # library_ms is null for every kernel: no PyTorch call computes these
-    # marches, and torch has no batched tridiagonal solve
+    # marches, torch has no batched tridiagonal solve, and no library call
+    # prices the knock-in parity's bumped vanilla legs
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": "cuda", **k, "library_ms": None}
-        for k in (k1, k1a, k2, k3, k4)
+        for k in ks
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

@@ -13,15 +13,19 @@ Each source under ``csrc/`` exposes a plain C interface:
   (:func:`hs_resident_trades`);
 - ``cr_march.cu``, the fused march with cyclic reduction (K4,
   ``cr_march_{f32,f64}``, one warp per trade), and its occupancy query
-  (:func:`cr_resident_trades`).
+  (:func:`cr_resident_trades`);
+- ``ki_parity.cu``, a barrier request's knock-in parity
+  (``ki_parity_f64``, one thread per knock-in row: :func:`ki_parity_cuda`).
 
-On first use a source is compiled by ``nvcc`` (no PyTorch headers, so a
-build takes seconds) into ``build/torch_kernels/`` at the root of the
-checkout, under a name keyed by the source and flags, and loaded with
-``ctypes``; :func:`build` compiles every missing source at once, one
-``nvcc`` each, all started together. Pointers and the stream go over as
-``c_void_p``. Nothing here runs at import time: the CPU tests import this
-module on machines with no ``nvcc`` and no card.
+On first use of any of them, every source not built yet is compiled by
+``nvcc`` (no PyTorch headers, so a build takes seconds) into
+``build/torch_kernels/`` at the root of the checkout, under a name keyed
+by the source and flags, and loaded with ``ctypes``: :func:`build`
+compiles the missing sources at once, one ``nvcc`` each, all started
+together, so a fresh checkout pays the longest build and not their sum.
+Pointers and the stream go over as ``c_void_p``. Nothing here runs at
+import time: the CPU tests import this module on machines with no ``nvcc``
+and no card.
 
 The launch wrappers check device, dtype, shape and contiguity, launch on
 PyTorch's current stream, raise when the C function reports a CUDA error,
@@ -41,7 +45,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {name: CSRC / f"{name}.cu" for name in ("spike_march", "hs_march", "cr_march")}
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("spike_march", "hs_march", "cr_march", "ki_parity")}
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +68,7 @@ _FUNCTIONS = {
         f"cr_march_{dt}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         for dt in _DTYPE_TAG.values()
     },
+    "ki_parity": {"ki_parity_f64": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]},
 }
 
 # C functions that launch nothing (not counted)
@@ -134,7 +139,7 @@ def build(names: Optional[Iterable[str]] = None) -> str:
 def _lib(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
-            build([name])
+            build()
             lib = ctypes.CDLL(str(library_path(name)))
             for fn_name, argtypes in {**_FUNCTIONS[name], **_QUERIES.get(name, {})}.items():
                 fn = getattr(lib, fn_name)
@@ -418,3 +423,40 @@ def cr_resident_trades(prep) -> int:
                                     ctypes.byref(out))
     _raise_on("cr_march", "cr_march_occupancy", rc)
     return out.value
+
+
+KI_OUTPUTS = ("price", "delta", "gamma", "vega", "theta")
+
+
+def ki_parity_cuda(stack: torch.Tensor, keys, rows: torch.Tensor, fields: torch.Tensor) -> None:
+    """Launch the knock-in parity (``csrc/ki_parity.cu``) over a request's
+    (K, B) float64 ``stack`` of outputs, whose row i is output ``keys[i]``
+    (of :data:`KI_OUTPUTS`; ``price`` among them): the columns ``rows``
+    ((n,) int64, distinct, in [0, B)) hold knock-out legs and are overwritten with
+    the knock-in trades' price and greeks from the (8, n) float64 vanilla
+    fields (``serving.service.KI_FIELDS``). One launch on the stack's
+    card, none for n = 0; nothing is copied and nothing waits."""
+    if stack.device.type != "cuda" or stack.dtype != torch.float64 or stack.dim() != 2:
+        raise ValueError(f"ki_parity_cuda: the stack must be a 2-D float64 CUDA tensor, "
+                         f"got {stack.dtype} {tuple(stack.shape)} on {stack.device}")
+    K, B = stack.shape
+    n = rows.shape[0]
+    keys = list(keys)
+    at = [keys.index(k) if k in keys else -1 for k in KI_OUTPUTS]
+    if at[0] < 0 or sorted(i for i in at if i >= 0) != list(range(K)):
+        raise ValueError(f"ki_parity_cuda: keys {keys!r} do not name the {K} rows of the stack")
+    if rows.dtype != torch.int64 or rows.device != stack.device or tuple(rows.shape) != (n,):
+        raise ValueError(f"ki_parity_cuda: rows must be (n,) int64 on {stack.device}")
+    _check("ki_parity", "fields", fields, (8, n), stack)
+    for x in (stack, rows):
+        if not x.is_contiguous():
+            raise ValueError("ki_parity: the stack and the rows must be contiguous")
+    if n == 0:
+        return
+    lib = _lib("ki_parity")
+    with torch.cuda.device(stack.device):
+        stream = torch.cuda.current_stream(stack.device).cuda_stream
+        rc = lib.ki_parity_f64(fields.data_ptr(), rows.data_ptr(), stack.data_ptr(), n, B, *at,
+                               stream)
+    _raise_on("ki_parity", "ki_parity_f64", rc)
+    launch_counts["ki_parity_f64"] += 1

@@ -10,7 +10,9 @@ monitor layout) are per bucket.
 
 Knock-in trades are served via the in-out parity (KI(R) = vanilla −
 KO(R at expiry) + R·DF), with the vanilla leg's greeks from closed-form
-bumps of the generalized Black–Scholes price.
+bumps of the generalized Black–Scholes price, applied on the device to the
+stack of the request's outputs before its one host copy: on a card by one
+launch of ``csrc/ki_parity.cu``, elsewhere by :func:`ki_parity_reference`.
 
 A service serialises its device work: ``price`` may be called from several
 threads, and one request at a time builds its batch and prices it. A
@@ -21,13 +23,15 @@ count or a list of device names (``parallel.mesh.check_mesh``).
 """
 from __future__ import annotations
 
+import operator
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+import weakref
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import tracing
+from .. import kernels, tracing
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.analytic import (
     continuous_barrier_sweep,
@@ -47,7 +51,7 @@ from ..parallel.mesh import check_mesh
 
 __all__ = ["BarrierPricingService", "AmericanPricingService"]
 
-_GREEK_KEYS = ("price", "delta", "gamma", "vega", "theta")
+_GREEK_KEYS = kernels.KI_OUTPUTS  # the outputs, in the order of a request's stack
 _DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
@@ -94,17 +98,106 @@ def _next_bucket(n: int, min_bucket: int, max_bucket: int) -> int:
     return min(b, max_bucket)
 
 
+def _stack(out: Dict[str, torch.Tensor], n: int) -> Tuple[List[str], torch.Tensor]:
+    """The outputs' keys, and the first ``n`` rows of each output as one
+    (K, n) float64 stack on their device."""
+    keys = [k for k in _GREEK_KEYS if k in out]
+    return keys, torch.stack([out[k][:n].to(torch.float64) for k in keys])
+
+
+def _host(keys: List[str], stack: torch.Tensor) -> Dict[str, np.ndarray]:
+    """The stack on the host, a column per key, in one copy (the host waits
+    here for the device's work)."""
+    return dict(zip(keys, stack.cpu().numpy()))
+
+
 def _columns(out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
-    """The first ``n`` rows of each output, float64 on the host, in one copy
-    (the host waits here for the device's work)."""
+    """The first ``n`` rows of each output, float64 on the host, in one copy."""
     with tracing.span("service.host_copy"):
-        keys = [k for k in _GREEK_KEYS if k in out]
-        host = torch.stack([out[k][:n].to(torch.float64) for k in keys]).cpu().numpy()
-    return dict(zip(keys, host))
+        return _host(*_stack(out, n))
 
 
 def _rows(cols: Dict[str, np.ndarray], n: int) -> List[Dict[str, float]]:
     return [{k: float(v[i]) for k, v in cols.items()} for i in range(n)]
+
+
+# the vanilla-leg fields of a knock-in trade, the rows of KnockIns.fields,
+# by the names of build_batch's field lists (carry is b - q; is_call 1 or 0)
+KI_FIELDS = ("spots", "strikes", "sigmas", "t_expiry", "r", "carry", "is_call", "rebate")
+
+
+class KnockIns(NamedTuple):
+    """A request's knock-in trades on the service's device."""
+
+    rows: torch.Tensor  # (n,) int64: each one's row in the request
+    fields: torch.Tensor  # (8, n) float64: KI_FIELDS
+
+
+def _knock_ins(fields: Dict[str, list], is_in: Sequence[bool], device) -> Optional[KnockIns]:
+    """The knock-in trades of a request, gathered from ``build_batch``'s
+    field lists at float64 (the trades' own values, whatever the service's
+    dtype) and sent to ``device`` in two copies; None when none knocks in."""
+    rows = [i for i, ki in enumerate(is_in) if ki]
+    if not rows:
+        return None
+    pick = operator.itemgetter(*rows) if len(rows) > 1 else (lambda v: (v[rows[0]],))
+    # the closed forms fold the escrowed dividend into the carry
+    carry = np.subtract(pick(fields["b"]), pick(fields["q"]))
+    cols = np.array([carry if k == "carry" else pick(fields[k]) for k in KI_FIELDS], np.float64)
+    return KnockIns(torch.as_tensor(np.asarray(rows, np.int64)).to(device),
+                    torch.from_numpy(cols).to(device))
+
+
+def ki_parity_reference(stack: torch.Tensor, keys: Sequence[str], rows: torch.Tensor,
+                        fields: torch.Tensor) -> None:
+    """KI(R) = vanilla − KO(R at expiry) + R·DF, greeks likewise, in place
+    on the (K, B) float64 ``stack`` of a request's outputs (row i output
+    ``keys[i]``): its columns ``rows`` hold the knock-out legs and receive
+    the knock-in trades', from their ``fields`` ((8, n) float64,
+    :data:`KI_FIELDS`). The plain version of ``csrc/ki_parity.cu``, on any
+    device.
+
+    The vanilla leg is one ``generalized_bs_price`` over the stacked
+    evaluations the present outputs need: the base price, spot ± 1e-4·spot
+    (delta, gamma), sigma + 1e-4 (vega per vol point, one-sided like the
+    scalar engine's _vanilla_black76_greeks_fd), expiry ± min(1e-5,
+    expiry/2) (theta). The rebate leg R·DF is flat in spot and vol, so only
+    price and theta see it. Every divisor is a tensor: a card divides by a
+    number as the product with its reciprocal.
+    """
+    at = {k: i for i, k in enumerate(keys)}
+    s, k, sig, te, r, carry, call, rebate = fields.unbind(0)
+    ds = s * 1e-4
+    dsig = torch.full_like(sig, 1e-4)
+    dte = torch.clamp(0.5 * te, max=1e-5)
+    spot_bump = "delta" in at or "gamma" in at
+    bumps = [(s, sig, te)]
+    if spot_bump:
+        bumps += [(s + ds, sig, te), (s - ds, sig, te)]
+    if "vega" in at:
+        bumps.append((s, sig + dsig, te))
+    if "theta" in at:
+        bumps += [(s, sig, te + dte), (s, sig, te - dte)]
+    spot, vol, expiry = (torch.stack(c) for c in zip(*bumps))
+    van, *bumped = generalized_bs_price(spot, k, vol, expiry, r, carry, call != 0.0).unbind(0)
+    df = torch.exp(-r * te)
+    ko = stack.index_select(1, rows)
+    ki = ko.clone()
+    ki[at["price"]] = van - ko[at["price"]] + rebate * df
+    if spot_bump:
+        up, dn, *bumped = bumped
+        if "delta" in at:
+            ki[at["delta"]] = (up - dn) / (2.0 * ds) - ko[at["delta"]]
+        if "gamma" in at:
+            ki[at["gamma"]] = (up - 2.0 * van + dn) / (ds * ds) - ko[at["gamma"]]
+    if "vega" in at:
+        v_vol, *bumped = bumped
+        ki[at["vega"]] = (v_vol - van) / (100.0 * dsig) - ko[at["vega"]]
+    if "theta" in at:
+        # theta = dV/dt (valuation time) = -dV/dT; d(R·DF)/dt = r·R·DF
+        later, sooner = bumped
+        ki[at["theta"]] = -(later - sooner) / (2.0 * dte) - ko[at["theta"]] + r * rebate * df
+    stack.index_copy_(1, rows, ki)
 
 
 class _BucketedService:
@@ -205,6 +298,9 @@ class BarrierPricingService(_BucketedService):
         self.dtype = _resolve_greeks_dtype(dtype, self.with_greeks, greeks_dtype)
         self.max_chunk = max_chunk
         self.route = route
+        # each thread's last build_batch: (a weak reference to the batch,
+        # its KnockIns or None)
+        self._built = threading.local()
 
     @staticmethod
     def _barriers(trade: Mapping[str, Any]):
@@ -301,7 +397,9 @@ class BarrierPricingService(_BucketedService):
     def build_batch(self, trades, bucket: int) -> BarrierTradeBatch:
         """The device batch a request of ``trades`` is priced on: built at
         the service's grid and dtype, padded to ``bucket`` trades. Knock-in
-        trades appear as their knock-out complement (rebate at expiry)."""
+        trades appear as their knock-out complement (rebate at expiry);
+        their vanilla legs' fields go to the device beside the batch, from
+        the same pass over the trade dicts (:meth:`_knock_ins_of`)."""
         with tracing.span("service.build_batch"):
             with tracing.span("service.trade_fields"):
                 lowers, uppers, is_in = zip(*(self._barriers(t) for t in trades))
@@ -331,12 +429,26 @@ class BarrierPricingService(_BucketedService):
                 dtype=self.dtype,
                 device=self.device,
             )
-            return pad_batch(tb, bucket - len(trades))
+            batch = pad_batch(tb, bucket - len(trades))
+            self._built.last = (weakref.ref(batch), _knock_ins(fields, is_in, self.device))
+            return batch
+
+    def _knock_ins_of(self, batch: BarrierTradeBatch) -> Optional[KnockIns]:
+        """The knock-in trades of ``batch``, which must be what this
+        thread's last :meth:`build_batch` returned: another thread's build
+        cannot hand its knock-ins to this thread's request."""
+        built, knock_ins = getattr(self._built, "last", (lambda: None, None))
+        if built() is not batch:
+            raise RuntimeError("the batch is not the one this thread's last build_batch returned")
+        return knock_ins
 
     def _price_pde(self, trades, bucket):
         B = len(trades)
+        batch = self.build_batch(trades, bucket)
+        knock_ins = self._knock_ins_of(batch)
+        del self._built.last
         out = price_barrier_batch(
-            self.build_batch(trades, bucket),
+            batch,
             n_nodes=self.num_space_nodes + 1,
             with_greeks=self.with_greeks,
             max_chunk=self.max_chunk,
@@ -345,53 +457,21 @@ class BarrierPricingService(_BucketedService):
             device=self.device,
             mesh=self.mesh,
         )
-        cols = _columns(out, B)
-        in_idx = np.where([self._barriers(t)[2] for t in trades])[0]
-        if in_idx.size:
-            self._apply_ki_parity(trades, in_idx, cols)
+        keys, stack = _stack(out, B)
+        if knock_ins is not None:
+            self._apply_ki_parity(stack, keys, knock_ins)
+        with tracing.span("service.host_copy"):
+            cols = _host(keys, stack)
         return _rows(cols, B)
 
-    def _apply_ki_parity(self, trades, in_idx, cols) -> None:
-        """KI(R) = vanilla − KO(R at expiry) + R·DF, greeks likewise.
-
-        Vanilla-leg greeks via closed-form bumps of generalized BS at float64
-        on the service's device (vega per 1 vol-point, one-sided like the
-        scalar engine's _vanilla_black76_greeks_fd). The rebate leg R·DF is
-        flat in spot and vol, so only price and theta see it.
-        """
-        with tracing.span("service.ki_parity", trades=len(in_idx)):
-            col = lambda f: np.array([f(trades[i]) for i in in_idx], np.float64)
-            s = col(lambda t: t["spot"])
-            k = col(lambda t: t["strike"])
-            sig = col(lambda t: t["sigma"])
-            te = col(lambda t: t["t_expiry"])
-            r = col(lambda t: t["r"])
-            b = col(lambda t: t.get("b", t["r"])) - col(lambda t: t.get("q", 0.0))
-            is_call = np.array([bool(trades[i].get("is_call", True)) for i in in_idx])
-            rebate = col(lambda t: t.get("rebate", 0.0))
-            df = np.exp(-r * te)
-
-            def v(s_=None, sig_=None, te_=None):
-                args = (s if s_ is None else s_, k, sig if sig_ is None else sig_,
-                        te if te_ is None else te_, r, b, is_call)
-                dev = [torch.as_tensor(a, device=self.device) for a in args]
-                return generalized_bs_price(*dev).cpu().numpy()
-
-            van = v()
-            cols["price"][in_idx] = van - cols["price"][in_idx] + rebate * df
-            if "delta" in cols:
-                ds = s * 1e-4
-                v_up, v_dn = v(s_=s + ds), v(s_=s - ds)
-                cols["delta"][in_idx] = (v_up - v_dn) / (2 * ds) - cols["delta"][in_idx]
-                cols["gamma"][in_idx] = (v_up - 2 * van + v_dn) / ds**2 - cols["gamma"][in_idx]
-            if "vega" in cols:
-                dsig = 1e-4
-                cols["vega"][in_idx] = (v(sig_=sig + dsig) - van) / (100.0 * dsig) - cols["vega"][in_idx]
-            if "theta" in cols:
-                # theta = dV/dt (valuation time) = -dV/dT; d(R·DF)/dt = r·R·DF
-                dte = np.minimum(1e-5, 0.5 * te)
-                v_theta = -(v(te_=te + dte) - v(te_=te - dte)) / (2 * dte)
-                cols["theta"][in_idx] = v_theta - cols["theta"][in_idx] + r * rebate * df
+    def _apply_ki_parity(self, stack: torch.Tensor, keys: List[str], knock_ins: KnockIns) -> None:
+        """The request's knock-in parity on its (K, B) float64 ``stack`` of
+        outputs, on the stack's device: one launch of ``csrc/ki_parity.cu``
+        on a card (:func:`kernels.ki_parity_cuda`), else
+        :func:`ki_parity_reference`. Nothing crosses to the host here."""
+        with tracing.span("service.ki_parity", trades=knock_ins.rows.shape[0]):
+            parity = kernels.ki_parity_cuda if stack.is_cuda else ki_parity_reference
+            parity(stack, keys, *knock_ins)
 
 
 class AmericanPricingService(_BucketedService):

@@ -44,7 +44,11 @@ it unchanged bit for bit) and ``run_asset`` under each draw backend (CVA,
 peak EE and PFE 1e-12 relative) equal the port on the CPU. The scenario
 layer (no kernel of ours): the CS draws (threefry and sobol_device within
 1e-12 of max|z|, the torch backend bit for bit) and the paths on them
-(1e-12 of max|F|) equal the port on the CPU.
+(1e-12 of max|F|) equal the port on the CPU. Knock-in parity
+(csrc/ki_parity.cu) equals its plain version on the card bit for bit, the
+barrier service launches it once a request with knock-in rows and never
+without, and a service over every card (two or more) prices the knock-in
+rows as one card does.
 """
 import dataclasses
 
@@ -690,12 +694,16 @@ def test_mixed_service_stream_captures_no_graph_after_warm_up(cuda):
     stream = [_service_trades(10 + i, 1 + i % 6, n_mon=2 + i) for i in range(6)]
     counts = []
     passes = []
+    with_ki = sum(any(t["barrier_type"] == "up-and-in" for t in req) for req in stream)
     for _ in range(3):
         spectral.reset_graph_counts()
         kernels.reset_launch_counts()
         passes.append([svc.price(req) for req in stream])
         counts.append(dict(spectral.graph_counts))
-        assert not any(kernels.launch_counts.values())
+        launches = dict(kernels.launch_counts)
+        # no march of ours; knock-in parity once a request that has knock-ins
+        assert launches.pop("ki_parity_f64") == with_ki
+        assert not any(launches.values())
     assert counts[0] == {"eager": 2 * len(stream), "captures": 0, "replays": 0}
     assert counts[1] == {"eager": 0, "captures": len(stream), "replays": 2 * len(stream)}
     assert counts[2] == {"eager": 0, "captures": 0, "replays": 2 * len(stream)}
@@ -745,6 +753,84 @@ def test_service_over_every_card_captures_each_cards_graph_there(cuda, monkeypat
             assert abs(g["price"] - w["price"]) <= 1e-12 * scale
             for k in w:
                 assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-9), k
+
+
+def _ki_inputs(n, B, device, seed=0):
+    """A (5, B) float64 stack of knock-out legs, n distinct knock-in rows
+    and their (8, n) vanilla fields (service.KI_FIELDS): calls and puts,
+    rebates, b != r, expiries down to 1e-6 (theta's half-expiry bump) and
+    deep in- and out-of-the-money rows (the normal CDF's tail and its cut)."""
+    rng = np.random.default_rng(seed)
+    te = rng.uniform(0.02, 2.0, n)
+    te[::7] = 1e-6
+    sig = rng.uniform(0.1, 0.5, n)
+    sig[3::11] = 0.01
+    fields = np.stack([
+        rng.uniform(60.0, 160.0, n), rng.uniform(90.0, 110.0, n), sig, te,
+        rng.uniform(0.0, 0.08, n), rng.uniform(-0.03, 0.08, n),
+        (rng.random(n) < 0.5).astype(np.float64),
+        np.where(rng.random(n) < 0.5, rng.uniform(0.0, 3.0, n), 0.0),
+    ])
+    rows = np.sort(rng.choice(B, n, replace=False))
+    stack = rng.normal(size=(5, B))
+    as_dev = lambda a: torch.as_tensor(a, device=device)
+    return as_dev(stack), as_dev(rows.astype(np.int64)), as_dev(fields)
+
+
+@pytest.mark.parametrize("n", [0, 1, 960, 1001])
+@pytest.mark.parametrize("keys", [KEYS, ("price",)])
+def test_ki_parity_kernel_equals_its_plain_version_bit_for_bit(cuda, n, keys):
+    from finite_difference_tpu_torch.serving.service import ki_parity_reference
+
+    stack, rows, fields = _ki_inputs(n, n + 37, cuda)
+    stack = stack[: len(keys)].contiguous()
+    want = stack.clone()
+    ki_parity_reference(want, keys, rows, fields)
+    got = stack.clone()
+    kernels.reset_launch_counts()
+    kernels.ki_parity_cuda(got, keys, rows, fields)
+    assert kernels.launch_counts["ki_parity_f64"] == (1 if n else 0)
+    assert torch.equal(got, want)
+    if n:
+        assert not torch.equal(got, stack)
+
+
+def test_barrier_service_launches_ki_parity_once_a_request_with_knock_ins(cuda):
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+
+    kw = dict(n_time_steps=32, num_space_nodes=127, min_bucket=8)
+    svc = BarrierPricingService(device=cuda, **kw)
+    trades = _service_trades(4, 9)
+    assert trades[1]["barrier_type"] == "up-and-in"
+    knock_outs = [t for t in trades if t["barrier_type"] != "up-and-in"]
+    svc.price(trades)  # warm-up
+    for request, launches in ((trades, 1), (knock_outs, 0), (trades, 1)):
+        kernels.reset_launch_counts()
+        got = svc.price(request)
+        assert kernels.launch_counts["ki_parity_f64"] == launches
+    want = BarrierPricingService(device="cpu", **kw).price(trades)
+    for g, w in zip(got, want):
+        for k in w:
+            assert g[k] == pytest.approx(w[k], rel=1e-9, abs=1e-12), k
+
+
+def test_service_over_every_card_prices_knock_ins_as_one_card(cuda):
+    """The knock-in rows of a service over every visible card (two or more;
+    skips on one) equal the one-card service's bit for bit, on the scan
+    route, whose rows do not depend on the batch's size."""
+    from finite_difference_tpu_torch.serving import BarrierPricingService
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    kw = dict(n_time_steps=32, num_space_nodes=127, solver="scan", device=cuda, min_bucket=8)
+    trades = _service_trades(23, 8 * n, n_mon=5)
+    want = BarrierPricingService(**kw).price(trades)
+    kernels.reset_launch_counts()
+    got = BarrierPricingService(mesh=n, **kw).price(trades)
+    assert kernels.launch_counts["ki_parity_f64"] == 1
+    ki = [i for i, t in enumerate(trades) if t["barrier_type"] == "up-and-in"]
+    assert ki and [got[i] for i in ki] == [want[i] for i in ki]
 
 
 # --------------------------------------------------------------------------- #

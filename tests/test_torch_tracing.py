@@ -130,6 +130,36 @@ def test_spans_nest_inside_one_price_a_request():
     assert {r.name for r in recs} <= names
 
 
+def _under(event):
+    """Every profiler event nested under ``event``."""
+    for child in event.cpu_children:
+        yield child
+        yield from _under(child)
+
+
+def test_knock_in_parity_copies_nothing_to_the_host(monkeypatch):
+    """Inside ``service.ki_parity`` no tensor crosses to the host and
+    nothing waits on the device: no ``.cpu()``, ``.numpy()``, ``.item()``
+    or ``.tolist()``, and under the profiler no ``aten::_to_copy`` and no
+    ``aten::_local_scalar_dense`` (the host copy follows the span)."""
+    crossed = []
+    for name in ("cpu", "numpy", "item", "tolist"):
+        def wrapped(self, *a, _orig=getattr(torch.Tensor, name), _name=name, **kw):
+            if tracing.current("service.ki_parity") is not None:
+                crossed.append(_name)
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    make, trades = SERVICES["barrier"]
+    svc = make()
+    _, recs, prof = _profiled(lambda: svc.price(trades()))
+    assert [r.attrs for r in recs if r.name == "service.ki_parity"] == [{"trades": 2}]
+    spans = [e for e in prof.events() if e.name == "service.ki_parity"]
+    inside = {e.name for span in spans for e in _under(span)}
+    assert spans and inside
+    assert not inside & {"aten::_to_copy", "aten::_local_scalar_dense"}
+    assert crossed == []
+
+
 def test_every_span_name_carries_a_program_prefix():
     names = set()
     for path in PACKAGE.rglob("*.py"):
